@@ -1,0 +1,14 @@
+"""evflow_torch — the PyTorch/CUDA port of evflow for NVIDIA Hopper.
+
+Mirrors ``evflow``'s module layout (``ops``, ``models``, ``data``, ``loss``,
+``registry``, ``eval``) so each counterpart is easy to find; ``evflow``
+stays the reference. The package imports ``torch``, ``numpy``, ``h5py`` and
+``yaml`` only. The kernels that ``evflow`` wrote in Pallas for the TPU are
+hand-written CUDA C++ under ``csrc/``, built at first use (see
+``evflow_torch.ops.cuda_build``); each has a plain PyTorch version beside
+it that CPU tensors run.
+"""
+
+from evflow_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,34 @@
+"""The flow-prediction head (``ConvLayer`` of ``evflow/models/ann.py`` as
+FireNet uses it: a 1x1 conv with bias, then tanh)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from evflow_torch.models.cells import conv_nhwc
+
+__all__ = ["ConvLayer"]
+
+
+class ConvLayer(nn.Module):
+    """Conv (with bias) + tanh on NHWC input. ``w_scale`` draws the weights
+    from U(-w_scale, w_scale) with zero bias (FireNet's pred head uses
+    0.01). With ``compute_dtype`` the conv's operands are rounded to it; the
+    output is f32."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
+                 w_scale: Optional[float] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv2d = nn.Conv2d(in_channels, out_channels, kernel_size,
+                                padding=kernel_size // 2, bias=True)
+        if w_scale is not None:
+            nn.init.uniform_(self.conv2d.weight, -w_scale, w_scale)
+            nn.init.zeros_(self.conv2d.bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(conv_nhwc(x, self.conv2d, self.compute_dtype))

@@ -1,0 +1,118 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``evflow_torch/csrc/<name>.cu`` is compiled on first use with ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface,
+``evflow_torch/_build/lib<name>-<hash>.so`` (the hash covers the source and
+the headers it includes, so an edited source is rebuilt), and loaded with
+``ctypes``. Nothing here runs at import time. A build failure raises; there
+is no fallback.
+
+``build()`` compiles every missing library at once, one ``nvcc`` process per
+source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+__all__ = ["SOURCES", "build", "entry_point", "nvcc_path", "BUILD_DIR"]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("conv_lif", "conv_lif_cmajor")
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                           "are built from evflow_torch/csrc at first use")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
+    """Compile the libraries that are missing, in parallel.
+
+    Returns the seconds each compile took (0.0 for one already built). The
+    ptxas register/shared-memory report of each compile is kept next to the
+    library as ``<name>.ptxas.txt``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _lib_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    seconds = {n: 0.0 for n in names}
+    if not todo:
+        return seconds
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failures = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        (BUILD_DIR / f"{name}.ptxas.txt").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def entry_point(name: str):
+    """The C entry point ``name`` of ``csrc/<name>.cu``, building and
+    loading the library on first use.
+
+    Every entry point takes nine pointers, seven ints and the stream, and
+    returns the launch's ``cudaError_t``.
+    """
+    with _LOCK:
+        fn = _ENTRIES.get(name)
+        if fn is None:
+            build([name])
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), name)
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+            _ENTRIES[name] = fn
+        return fn

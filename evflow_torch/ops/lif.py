@@ -1,0 +1,77 @@
+"""Leaky integrate-and-fire update (port of ``evflow/ops/lif.py``).
+
+``leaky_step`` is the snntorch ``snn.Leaky`` update with
+``reset_delay=False`` that the default FireNet cells use. State is an
+explicit ``LIFState(mem, spk)`` of tensors. The cells detach the membrane
+carry after every step; the spike carry is not detached, so recurrent-spike
+gradients flow within a loss window (the trainer detaches at window
+boundaries). ``sigmoid_lif_step`` and ``export_lif_step`` come with later
+slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from evflow_torch.ops.surrogate import atanspike_snn, heaviside
+
+__all__ = ["LIFState", "leaky_step", "THRESH_MIN"]
+
+# learnable thresholds are clamped to >= 0.01 before every forward
+THRESH_MIN = 0.01
+
+
+class LIFState(NamedTuple):
+    """Per-unit recurrent state: membrane potential and previous spikes."""
+
+    mem: torch.Tensor
+    spk: torch.Tensor
+
+
+def leaky_step(
+    ff: torch.Tensor,
+    mem: torch.Tensor,
+    beta: torch.Tensor,
+    threshold: torch.Tensor,
+    *,
+    reset: str = "zero",
+    alpha: float = 2.0,
+    state_quant: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One snn.Leaky update (``reset_delay=False``)::
+
+      reset_prev = H(mem - theta)                 (detached)
+      u   = clip(beta, 0, 1)*mem + ff  - reset_prev*(u | theta)
+      u   = state_quant(u)                        (optional)
+      spk = ATan_surrogate(u - theta)
+      mem_out = u - (spk - reset_prev)*(u | theta)
+
+    ``beta`` and ``threshold`` broadcast against ``ff`` (the threshold is
+    already clamped to ``THRESH_MIN`` by the caller). ``reset`` is "zero"
+    (hard) or "subtract" (soft). Returns ``(spk, mem_out)``.
+    """
+    if reset not in ("zero", "subtract"):
+        raise ValueError(f"reset must be 'zero' or 'subtract', got {reset!r}")
+
+    beta_c = beta.clamp(0.0, 1.0)
+    reset_prev = heaviside(mem - threshold).detach()
+
+    base = beta_c * mem + ff
+    if reset == "zero":
+        u = base - reset_prev * base
+    else:
+        u = base - reset_prev * threshold
+
+    if state_quant is not None:
+        u = state_quant(u)
+
+    spk = atanspike_snn(u, thresh=threshold, alpha=alpha)
+
+    do_reset = spk - reset_prev  # gradient flows through the surrogate spike
+    if reset == "zero":
+        mem_out = u - do_reset * u
+    else:
+        mem_out = u - do_reset * threshold
+    return spk, mem_out

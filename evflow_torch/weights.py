@@ -1,0 +1,161 @@
+"""Weight carry between the reference package, reference ``.pth`` files and
+the port (counterpart of the torch import in ``evflow/utils/checkpoint.py``).
+
+* ``from_jax_variables``: flax ``{"params", "batch_stats"}`` trees (numpy or
+  array-likes) -> a port ``FireNet`` state dict: HWIO -> OIHW kernels,
+  ``[C]`` -> ``[C, 1, 1]`` leak/threshold, BN scale/bias/mean/var ->
+  ``weight``/``bias``/``running_mean``/``running_var``.
+* ``to_port_layout``: a reference state dict as it is (plain layout, or the
+  PTQ layout with ``{unit}.beta``/``{unit}.threshold``) -> port key names.
+* ``load_checkpoint``: the state dict inside a reference ``.pth`` file.
+* ``seeded_state_dict``: seeded FireNet weights in the flax init
+  distributions, with BN statistics drawn so that every unit fires.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["from_jax_variables", "to_port_layout", "load_checkpoint",
+           "seeded_state_dict"]
+
+_BN_LEAVES = (("scale", "weight"), ("bias", "bias"))
+_BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.array(a, dtype=np.float32))
+
+
+def _oihw(kernel) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1)))
+
+
+def _bn(prefix: str, params: Mapping, stats: Mapping, out: Dict[str, torch.Tensor]):
+    p = params["BatchNorm_0"]
+    s = stats["BatchNorm_0"]
+    for src, dst in _BN_LEAVES:
+        out[f"{prefix}.{dst}"] = _t(p[src])
+    for src, dst in _BN_STATS:
+        out[f"{prefix}.{dst}"] = _t(s[src])
+    out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Port state dict of the FireNet whose flax variables are given."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+    for unit, up in params.items():
+        if unit == "pred":
+            continue
+        us = stats.get(unit, {})
+        for conv in ("ff", "rec"):
+            if conv in up:
+                out[f"{unit}.{conv}.weight"] = _oihw(up[conv]["kernel"])
+        for leaf in ("beta", "threshold"):
+            out[f"{unit}.lif.{leaf}"] = _t(up[leaf]).reshape(-1, 1, 1)
+        if "p" in up["bn"]:  # TEBN: BN one level deeper, p [T, C] -> [T, C, 1, 1]
+            _bn(f"{unit}.bn.bn", up["bn"], us["bn"], out)
+            out[f"{unit}.bn.p"] = _t(up["bn"]["p"])[..., None, None]
+        else:
+            _bn(f"{unit}.bn", up["bn"], us["bn"], out)
+        if "mpbn" in up:
+            _bn(f"{unit}.mpbn.bn", up["mpbn"], us["mpbn"], out)
+    pred = params["pred"]["conv2d"]
+    out["pred.conv2d.weight"] = _oihw(pred["kernel"])
+    out["pred.conv2d.bias"] = _t(pred["bias"])
+    return out
+
+
+def to_port_layout(state_dict: Mapping[str, torch.Tensor],
+                   model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Rename a reference state dict's PTQ-layout LIF keys (``{unit}.beta``,
+    ``{unit}.threshold``) to the port's (``{unit}.lif.beta``, ...), reshape
+    ``[C]`` leak/threshold vectors to ``[C, 1, 1]``, and add BN
+    ``num_batches_tracked`` counters that the file may lack."""
+    out = dict(state_dict)
+    expected = model.state_dict()
+    for key in list(out):
+        unit, _, leaf = key.rpartition(".")
+        if leaf in ("beta", "threshold") and f"{unit}.lif.{leaf}" in expected:
+            out[f"{unit}.lif.{leaf}"] = out.pop(key)
+    for key, ref in expected.items():
+        if key.endswith(("lif.beta", "lif.threshold")) and key in out:
+            out[key] = out[key].reshape(ref.shape)
+        if key.endswith("num_batches_tracked") and key not in out:
+            out[key] = torch.zeros_like(ref)
+    return out
+
+
+def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of a reference checkpoint file: a bare state
+    dict, ``{"model_state_dict": ...}``, or a pickled module."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return {k: v.detach().cpu() if torch.is_tensor(v) else torch.as_tensor(v)
+            for k, v in sd.items()}
+
+
+def seeded_state_dict(model, seed: int = 0, pred_scale: float = 0.1) -> Dict[str, torch.Tensor]:
+    """Random FireNet weights from a numpy seed, exact in bf16.
+
+    Kernels, leaks and thresholds follow the flax init (``U(-sqrt(1/fan_in),
+    +)``, ``U(leak)``, ``U(thresh)``). Untrained BN statistics (mean 0, var
+    1) leave deep units silent, where a trained model's BN brings each
+    unit's input current to the scale of its threshold; so the BN
+    statistics are drawn too (``running_var`` ~ U(0.1, 0.4),
+    ``running_mean`` ~ N(0, 0.05), bias ~ U(-0.1, 0.1)), which keeps every
+    unit of a 32-channel LIFFireNet firing on event-count input. The pred
+    head is ``U(-pred_scale, pred_scale)`` with zero bias: the flax init's
+    0.01 gives flows below 0.06, too small for a flow comparison to mean
+    much.
+
+    A random spiking net at this width is chaotic: one spike flipped by a
+    rounding difference flips about ten in the next unit. So that the fused
+    and the unfused forward round alike, the kernels are bf16 values and
+    every BN gain ``scale / sqrt(var + eps)`` is a power of two (the scale
+    is drawn as ``2**k * sqrt(var + eps)``, k in {0, 1}): folding BN into a
+    bf16 kernel is then exact, and the two paths differ by f32 sums only.
+    """
+    rng = np.random.default_rng(seed)
+    out: Dict[str, torch.Tensor] = {}
+
+    def bf16(a):
+        return _t(a).to(torch.bfloat16).float()
+
+    for key, ref in model.state_dict().items():
+        shape = tuple(ref.shape)
+        leaf = key.rsplit(".", 1)[-1]
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros_like(ref)
+        elif key.startswith("pred."):
+            out[key] = bf16(rng.uniform(-pred_scale, pred_scale, shape) if leaf == "weight"
+                            else np.zeros(shape))
+        elif key.endswith((".ff.weight", ".rec.weight")):
+            out[key] = bf16(rng.uniform(-1.0, 1.0, shape) * math.sqrt(1.0 / shape[1]))
+        elif key.endswith("lif.beta"):
+            out[key] = _t(rng.uniform(0.0, 1.0, shape))
+        elif key.endswith("lif.threshold"):
+            out[key] = _t(rng.uniform(0.0, 0.8, shape))
+        elif leaf == "running_var":
+            prefix = key[: -len("running_var")]
+            var = _t(rng.uniform(0.1, 0.4, shape))
+            gain = 2.0 ** rng.integers(0, 2, shape)
+            out[key] = var
+            out[prefix + "weight"] = _t(gain) * torch.sqrt(var + 1e-5)
+            out[prefix + "bias"] = _t(rng.uniform(-0.1, 0.1, shape))
+            out[prefix + "running_mean"] = _t(rng.normal(0.0, 0.05, shape))
+        elif leaf in ("weight", "bias", "running_mean"):
+            continue  # BN leaves, drawn with running_var
+        elif leaf == "p":  # TEBN per-timestep scale
+            out[key] = torch.ones(shape)
+        else:
+            raise KeyError(f"no seeded draw for {key}")
+    return out
