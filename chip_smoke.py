@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and run the PyTorch/CUDA port (``evflow_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, needs one CUDA card
+    python3 chip_smoke.py                        # every phase, needs one CUDA card
+    python3 chip_smoke.py --phases build,wholenet   # a subset
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
@@ -25,12 +26,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
 5. ``times``: CUDA-event times of every phase-2 case, its plain version and
    cuDNN's bf16 conv alone, beside the case's bound; then FusedFireNet
    windows/s over a long scan at B=2, 256x256, cnt input ~5% active.
+6. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K5
+   ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7 ``fused_net_batch``) at
+   full width, B=2, 256x256, 8 windows, in f32 and bf16 state: each kernel
+   step against ``firenet_step_plain`` on the same states (phase 2's bars,
+   flow within 1e-4 on all but 1e-5 of its elements) and against the
+   per-layer FusedFireNet (phase 3's bar; its free-running f32 trajectory
+   too, held for f32 state only); device times at B=2 and B=8 beside the
+   plain version and the bound, the per-layer step and 7 cuDNN convs as
+   yardsticks; 300-window scans of each runner with the launch counters set
+   to 0 just before and read just after (1 launch per window).
 
-The line before the last is one JSON object with a row per kernel (times
-summed over one window's 7 launches at the bench shape: the head once,
-feedforward units 4 times, recurrent units twice); the last is
-``{"ok": true, "device": {...}}``. Without CUDA, or without the rest of the
-repository beside it, the script exits non-zero and prints no result.
+The line before the last is one JSON object with a row per kernel (for the
+per-layer kernels, times summed over one window's 7 launches at the bench
+shape: the head once, feedforward units 4 times, recurrent units twice; for
+the whole-network kernels one launch in bf16 state, the runners' default);
+the last is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+rest of the repository beside it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -43,7 +56,7 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "times")
+PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet")
 
 # H100 SXM data sheet: HBM bandwidth, dense bf16 tensor-core and f32 rates
 HBM_BYTES_PER_S = 3.35e12
@@ -60,6 +73,16 @@ KERNELS = (  # name, layout, source, the TPU kernel's pallas_call
      "evflow/ops/pallas/conv_lif.py:151"),
     ("fused_conv_lif_cmajor", "cmajor", "evflow_torch/csrc/conv_lif_cmajor.cu",
      "evflow/ops/pallas/conv_lif_cmajor.py:156"),
+)
+WHOLENET = (  # name, module under evflow_torch.ops, runner, source, the TPU kernel's pallas_call
+    ("fused_firenet_step", "fused_net", "WholeNetFireNet", "evflow_torch/csrc/fused_net.cu",
+     "benchmarks/pallas_archive/fused_net.py:228"),
+    ("fused_firenet_step_loop2", "fused_net_loop2", "LoopFireNet",
+     "evflow_torch/csrc/fused_net_loop2.cu", "benchmarks/pallas_archive/fused_net_loop2.py:179"),
+    ("fused_firenet_step_lgrid", "fused_net_lgrid", "LayerGridFireNet",
+     "evflow_torch/csrc/fused_net_lgrid.cu", "benchmarks/pallas_archive/fused_net_lgrid.py:170"),
+    ("fused_firenet_step_batch", "fused_net_batch", "BatchFireNet",
+     "evflow_torch/csrc/fused_net_batch.cu", "benchmarks/pallas_archive/fused_net_batch.py:181"),
 )
 
 
@@ -204,6 +227,26 @@ def dataset(state):
         make_dataset(state["root"], num_sequences=2, seed=0, duration=1.0,
                      resolution=(256, 256), events_per_sec=50_000, fmt="npz")
     return state["root"]
+
+
+def device_ms(fn, iters=40):
+    """CUDA-event ms per call of ``fn``, after warm-up. The card sleeps
+    while the host enqueues, so the events time the launches back to back
+    and not the host's enqueue rate."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e8))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -359,22 +402,6 @@ def phase_times(state):
 
     name = card()
 
-    def device_ms(fn, iters=40):
-        # the card sleeps while the host enqueues, so the events time the
-        # launches back to back and not the host's enqueue rate
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(2e8))
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
     sums = {}
     for kname, layout, _, _ in KERNELS:
         fused, plain = kernel_fns(layout)
@@ -427,6 +454,282 @@ def phase_times(state):
               "ms_per_step": 1e3 * dt / n_win, "card": name})
 
 
+def wholenet_fns(kname):
+    """(wrapper, runner class) of a whole-network kernel."""
+    import importlib
+
+    module, runner = next(k[1:3] for k in WHOLENET if k[0] == kname)
+    mod = importlib.import_module(f"evflow_torch.ops.{module}")
+    return getattr(mod, kname), getattr(mod, runner)
+
+
+def event_windows(n, batch, seed=0):
+    """``[n, batch, 256, 256, 2]`` count windows on the card, ~5% of the
+    pixels active (the ``bench.py`` workload)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n, batch, H_BENCH, W_BENCH, 1)
+    active = torch.rand(shape, generator=gen, device="cuda") < 0.05
+    return (active * torch.randint(1, 4, shape[:-1] + (2,), generator=gen,
+                                   device="cuda")).float()
+
+
+def unit_inputs(runner, states):
+    """(mems, previous spikes of recurrent units) per unit of a runner's
+    states, the operands of ``firenet_step_plain``."""
+    mems, spikes = runner.unit_states(states)
+    return mems, [s if r else None for s, r in zip(spikes, runner.weights.recurrent)]
+
+
+def wholenet_bound(runner, batch):
+    """Least time of one window of the runner's kernel at ``batch`` x 256^2:
+    its own state, input, weight and flow bytes once each at the HBM rate,
+    against its bf16 conv and f32 LIF operations. Returns (ms, by)."""
+    w = runner.weights
+    px = batch * H_BENCH * W_BENCH
+    n = px * w.channels
+    s = runner.state_dtype.itemsize
+    mems, spikes = runner.unit_states(runner.init_states(1, 1, 1))
+    kept = sum(sp is not None for sp in spikes)
+    nbytes = (4 * px * runner.num_bins + 2 * w.num_units * n * s + sum(w.recurrent) * n * s
+              + kept * n * s + 4 * px * 2 + sum(2 * t.numel() for t in w.wk)
+              + 4 * (w.params.numel() + w.pred_w.numel() + w.pred_b.numel()))
+    k_in = [runner.num_bins if l == 0 else w.channels * (2 if r else 1)
+            for l, r in enumerate(w.recurrent)]
+    t_ops = (sum(2 * n * 9 * k for k in k_in) + 4 * px * w.channels) / BF16_FLOP_PER_S \
+        + 10 * n * w.num_units / F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timed_scan(net, windows, states):
+    """``net.scan_windows`` timed by the host clock (seconds, ending in a
+    sync) and by CUDA events around it (device ms from the first launch to
+    the last one's end): their difference is time the card waited."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = net.scan_windows(windows, states)
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def issued_flops(kname, runner, batch):
+    """bf16 tensor-core flops that the kernel's mma instructions issue for
+    one window at ``batch`` x 256^2, halo recompute, channel padding (the
+    head's 2 channels run as 16) and ragged 32-pixel fragment pairs
+    included; the tile shapes are those of ``evflow_torch/csrc``."""
+    w = runner.weights
+    L = w.num_units
+    ck = [t.shape[1] // 9 for t in w.wk]
+
+    def tiles(th, tw):
+        return batch * -(-H_BENCH // th) * -(-W_BENCH // tw)
+
+    def pairs(px):  # output pixels rounded up to whole 32-pixel fragment pairs
+        return -(-px // 32) * 32
+
+    if kname == "fused_firenet_step":  # 16x16 tile, extent shrinking by 2 per unit
+        px = [pairs((16 + 2 * (L - 1 - l)) ** 2) * tiles(16, 16) for l in range(L)]
+    elif kname == "fused_firenet_step_lgrid":  # 8x32 tiles, no halo recompute
+        px = [pairs(8 * 32) * tiles(8, 32)] * L
+    else:  # K5 / K7: 8x16 tiles, uniform (8 + 2(L-1)) x (16 + 2(L-1)) extent
+        px = [pairs((8 + 2 * (L - 1)) * (16 + 2 * (L - 1))) * tiles(8, 16)] * L
+    return sum(2 * p * w.channels * 9 * k for p, k in zip(px, ck))
+
+
+def phase_wholenet(state):
+    """K3, K5, K6, K7 at full LIFFireNet width, B=2, 256x256, 8 windows:
+    each kernel step against ``firenet_step_plain`` on the same states
+    (mem' within 1e-4 where spikes agree, at most 1e-5 of the elements
+    mismatched, flow within 1e-4 on all but 1e-5 of the elements), each
+    runner against the per-layer FusedFireNet (cmajor, f32) over the same
+    windows under phase 3's bar; then device times, 300-window scans with
+    the launch counters (1 per window) and the yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from evflow_torch.models.fused import FusedFireNet
+    from evflow_torch.ops.fused_net import firenet_step_plain
+    from evflow_torch.ops.lif import LIFState
+
+    name = card()
+    model = seeded_firenet()
+    perlayer = FusedFireNet.from_firenet(model, layout="cmajor")
+    wins = event_windows(8, B_BENCH, seed=1)
+    B = B_BENCH
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    # per-layer reference trajectory (f32 state)
+    st = perlayer.init_states(B, H_BENCH, W_BENCH)
+    ref = []
+    with torch.no_grad():
+        for x in wins:
+            flow, st = perlayer.step(x, st)
+            ref.append((flow, [s.mem for s in st], [s.spk for s in st]))
+
+    worst, first_flows = {}, {}
+    for kname, *_ in WHOLENET:
+        _, cls = wholenet_fns(kname)
+        for dt, dtype in dtypes.items():
+            runner = cls(perlayer, state_dtype=dtype)
+            states = runner.init_states(B, H_BENCH, W_BENCH)
+            err, mism, elems, flow_bad, flow_elems = 0.0, 0, 0, 0, 0
+            step_frac, step_agree, free_frac, free_agree, flows = [], [], [], [], []
+            for t, x in enumerate(wins):
+                mems_in, prevs = unit_inputs(runner, states)
+                with torch.no_grad():
+                    pflow, pmems, pspikes = firenet_step_plain(x, mems_in, prevs, runner.weights)
+                    # the per-layer path on the same states (held in f32)
+                    lst = [LIFState(m.float(), torch.zeros_like(m, dtype=torch.float32)
+                                    if p is None else p.float())
+                           for m, p in zip(mems_in, prevs)]
+                    sflow, sst = perlayer.step(x, lst)
+                flow, states = runner.step(x, states)
+                torch.cuda.synchronize()
+                kmems, kspikes = runner.unit_states(states)
+                for l, (km, pm) in enumerate(zip(kmems, pmems)):
+                    dmem = (km.float() - pm.float()).abs()
+                    bad = dmem > 1e-4
+                    if kspikes[l] is not None:
+                        bad |= kspikes[l] != pspikes[l]
+                    mism += int(bad.sum())
+                    elems += km.numel()
+                    if bool((~bad).any()):
+                        err = max(err, float(dmem[~bad].max()))
+                    if not bool(torch.isfinite(km.float()).all()):
+                        mism += km.numel()
+                flows.append(flow)
+                flow_bad += int(((flow - pflow).abs() > 1e-4).sum())
+                flow_elems += flow.numel()
+                for (rflow, rspk), fr, ag in (((sflow, [s.spk for s in sst]), step_frac,
+                                               step_agree),
+                                              ((ref[t][0], ref[t][2]), free_frac, free_agree)):
+                    fr.append(float(((flow - rflow).abs() > 0.05).float().mean()))
+                    ag.append([None if ks is None else float((ks.float() == rs).float().mean())
+                               for ks, rs in zip(kspikes, rspk)])
+
+            def model_bar(frac, agree):
+                units = [min(a[l] for a in agree) if agree[0][l] is not None else None
+                         for l in range(len(agree[0]))]
+                kept = [a for a in units if a is not None]
+                ok = max(frac) < 0.02 and min(kept) > 0.95 and (units[0] is None
+                                                                 or units[0] > 0.999)
+                return ok, {"frac_dflow_gt_0.05": max(frac), "spike_agreement": units}
+
+            ok_plain = (err <= 1e-4 and mism <= 1e-5 * elems and flow_bad <= 1e-5 * flow_elems
+                        and bool(torch.isfinite(flow).all()))
+            ok_step, step = model_bar(step_frac, step_agree)
+            ok_free, free = model_bar(free_frac, free_agree)
+            # a free-running bf16-state trajectory is another function than the
+            # f32 one (a random net this wide is chaotic): reported, not held
+            ok = ok_plain and ok_step and (ok_free or dtype == torch.bfloat16)
+            # the four schedules share the mainloop's k order and the epilogue,
+            # so their trajectories are expected to be bit-equal (reported)
+            first = first_flows.setdefault(dt, flows)
+            emit({"phase": "wholenet", "kernel": kname, "state": dt, "batch": B,
+                  "resolution": [H_BENCH, W_BENCH], "windows": len(wins),
+                  "flows_equal_to_" + WHOLENET[0][0]: all(
+                      torch.equal(f, g) for f, g in zip(flows, first)),
+                  "vs_plain": {"max_abs_err": err, "mismatches": mism, "elements": elems,
+                               "flow_mismatches": flow_bad, "flow_elements": flow_elems},
+                  "vs_per_layer_same_states": step, "vs_per_layer_f32_trajectory": free,
+                  "ok": ok})
+            if not ok:
+                raise SystemExit(f"{kname} ({dt} state) disagrees with its plain version "
+                                 "or with the per-layer FusedFireNet")
+            worst[kname] = max(worst.get(kname, 0.0), err)
+    state.setdefault("max_abs_err", {}).update(worst)
+
+    # device ms per launch, the plain version and the bound, B=2 and B=8
+    times = {}
+    for batch in (B_BENCH, 8):
+        x = event_windows(1, batch, seed=2)[0]
+        for kname, *_ in WHOLENET:
+            _, cls = wholenet_fns(kname)
+            for dt, dtype in dtypes.items():
+                runner = cls(perlayer, state_dtype=dtype)
+                st0 = runner.init_states(batch, H_BENCH, W_BENCH)
+                _, st0 = runner.step(x, st0)  # spiking states, not zeros
+                ms = device_ms(lambda: runner.step(x, st0))
+                mems_in, prevs = unit_inputs(runner, st0)
+                with torch.no_grad():
+                    plain_ms = device_ms(lambda: firenet_step_plain(x, mems_in, prevs,
+                                                                    runner.weights), iters=10)
+                bms, by = wholenet_bound(runner, batch)
+                flops = issued_flops(kname, runner, batch)
+                emit({"phase": "wholenet", "kernel": kname, "state": dt, "batch": batch,
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "issued_gflop": flops / 1e9, "issued_tflop_per_s": flops / ms / 1e9,
+                      "card": name})
+                if batch == B_BENCH and dtype == torch.bfloat16:  # the runners' default
+                    times[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                        library_ms=None)
+        # yardsticks: no single PyTorch call computes the whole step
+        st = perlayer.init_states(batch, H_BENCH, W_BENCH)
+        _, st = perlayer.step(x, st)
+        with torch.no_grad():
+            step_ms = device_ms(lambda: perlayer.step(x, st))
+        convs = []
+        h = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for u, s in zip(perlayer.units, st):
+            wk = perlayer.params[u.name]["wk"]
+            xin = h if not u.recurrent else torch.cat([h, s.spk.to(torch.bfloat16)], 1)
+            xin = xin.contiguous(memory_format=torch.channels_last)
+            wb = (wk.reshape(wk.shape[0], 3, 3, -1)[..., :xin.shape[1]].permute(0, 3, 1, 2)
+                  .contiguous(memory_format=torch.channels_last))
+            convs.append((xin, wb))
+            h = s.spk.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        cudnn_ms = device_ms(lambda: [F.conv2d(a, b, padding=1) for a, b in convs])
+        emit({"phase": "wholenet", "yardstick": "FusedFireNet.step (cmajor, f32 state, 7 "
+              "launches)", "batch": batch, "ms": step_ms, "card": name})
+        emit({"phase": "wholenet", "yardstick": "7 cuDNN bf16 convs (NHWC), the convs alone",
+              "batch": batch, "ms": cudnn_ms, "card": name})
+    state.setdefault("times", {}).update(times)
+
+    # the main path: each runner's 300-window scan, launch counters 0 just
+    # before and read just after (1 launch per window)
+    n_win = 300
+    cnt = event_windows(n_win, B_BENCH, seed=0)
+    wrappers = {kn: wholenet_fns(kn)[0] for kn, *_ in WHOLENET}
+    launches = {}
+    for kname, *_ in WHOLENET:
+        _, cls = wholenet_fns(kname)
+        for dt, dtype in dtypes.items():
+            runner = cls(perlayer, state_dtype=dtype)
+            st = runner.init_states(B_BENCH, H_BENCH, W_BENCH)
+            st, _ = runner.scan_windows(cnt[:10], st)
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            (st, flows), dt_s, dev_ms = timed_scan(runner, cnt, st)
+            counts = {kn: w.launches for kn, w in wrappers.items()}
+            ok = (counts[kname] == n_win and sum(counts.values()) == n_win
+                  and bool(torch.isfinite(flows).all()))
+            emit({"phase": "wholenet", "scan": kname, "state": dt, "batch": B_BENCH,
+                  "windows": n_win, "windows_per_s": n_win * B_BENCH / dt_s,
+                  "ms_per_step": 1e3 * dt_s / n_win, "device_ms_per_step": dev_ms / n_win,
+                  "launches": counts, "card": name, "ok": ok})
+            if not ok:
+                raise SystemExit(f"{kname} scan launched {counts} for {n_win} windows")
+            if dtype == torch.bfloat16:
+                launches[kname] = counts[kname]
+    st = perlayer.init_states(B_BENCH, H_BENCH, W_BENCH)
+    st, _ = perlayer.scan_windows(cnt[:10], st)
+    _, dt_s, dev_ms = timed_scan(perlayer, cnt, st)
+    emit({"phase": "wholenet", "scan": "FusedFireNet", "layout": "cmajor", "state": "f32",
+          "batch": B_BENCH, "windows": n_win, "windows_per_s": n_win * B_BENCH / dt_s,
+          "ms_per_step": 1e3 * dt_s / n_win, "device_ms_per_step": dev_ms / n_win,
+          "card": name})
+    state.setdefault("launches", {}).update(launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -449,7 +752,7 @@ def main(argv=None):
 
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
-             "protocol": phase_protocol, "times": phase_times}
+             "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet}
     try:
         for p in PHASES:
             if p in phases:
@@ -461,7 +764,7 @@ def main(argv=None):
             state["tmp"].cleanup()
 
     rows = []
-    for kname, _, source, replaces in KERNELS:
+    for kname, *_, source, replaces in KERNELS + WHOLENET:
         tm = state.get("times", {}).get(kname, {})
         rows.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": state.get("launches", {}).get(kname),

@@ -23,12 +23,13 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "build", "entry_point", "nvcc_path", "BUILD_DIR"]
+__all__ = ["SOURCES", "SIGNATURES", "build", "entry_point", "nvcc_path", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("conv_lif", "conv_lif_cmajor")
+SOURCES = ("conv_lif", "conv_lif_cmajor", "fused_net", "fused_net_loop2",
+           "fused_net_lgrid", "fused_net_batch")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -97,22 +98,35 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_CONV_LIF_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# the whole-network kernels take one pointer to a ``WholeNetArgs`` struct
+# (``csrc/fused_net_common.cuh``, mirrored by ``ops/fused_net.py``) and the stream
+_STRUCT_ARGS = [ctypes.c_void_p, ctypes.c_void_p]
+SIGNATURES = {
+    "conv_lif": _CONV_LIF_ARGS,
+    "conv_lif_cmajor": _CONV_LIF_ARGS,
+    "fused_net": _STRUCT_ARGS,
+    "fused_net_loop2": _STRUCT_ARGS,
+    "fused_net_lgrid": _STRUCT_ARGS,
+    "fused_net_batch": _STRUCT_ARGS,
+}
 
 
 def entry_point(name: str):
     """The C entry point ``name`` of ``csrc/<name>.cu``, building and
     loading the library on first use.
 
-    Every entry point takes nine pointers, seven ints and the stream, and
-    returns the launch's ``cudaError_t``.
+    Its argument types come from ``SIGNATURES``: the conv+LIF kernels take
+    nine pointers, seven ints and the stream; the whole-network kernels a
+    struct pointer and the stream. Every entry point returns the launch's
+    ``cudaError_t``.
     """
     with _LOCK:
         fn = _ENTRIES.get(name)
         if fn is None:
             build([name])
             fn = getattr(ctypes.CDLL(str(_lib_path(name))), name)
-            fn.argtypes = _ARGTYPES
+            fn.argtypes = SIGNATURES[name]
             fn.restype = ctypes.c_int
             _ENTRIES[name] = fn
         return fn

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version at
-shapes that leave ragged tiles, the launch counters, and the fused
-evaluation path.
+shapes that leave ragged tiles, the launch counters, the fused evaluation
+path, and the whole-network kernels (K3, K5, K6, K7) against
+``firenet_step_plain``.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -14,6 +15,11 @@ import torch
 
 from evflow_torch.ops.conv_lif import conv_lif_plain, fused_conv_lif, pack_weights
 from evflow_torch.ops.conv_lif_cmajor import conv_lif_cmajor_plain, fused_conv_lif_cmajor
+from evflow_torch.ops.fused_net import WholeNetFireNet, firenet_step_plain, fused_firenet_step
+from evflow_torch.ops.fused_net import launch_wholenet
+from evflow_torch.ops.fused_net_batch import BatchFireNet, fused_firenet_step_batch
+from evflow_torch.ops.fused_net_lgrid import LayerGridFireNet, fused_firenet_step_lgrid
+from evflow_torch.ops.fused_net_loop2 import LoopFireNet, fused_firenet_step_loop2
 
 pytestmark = pytest.mark.gpu
 
@@ -91,3 +97,102 @@ def test_fused_evaluate_launches_every_unit(cuda, tmp_path):
         results = evaluate(cfg, fused=True, layout=layout, stats=stats)
         assert kernel.launches == 7 * stats["windows"] > 0
         assert all(np.isfinite(float(v)) for v in results["AEE"].values())
+
+
+WHOLENET = {"fused_net": (WholeNetFireNet, fused_firenet_step),
+            "loop2": (LoopFireNet, fused_firenet_step_loop2),
+            "lgrid": (LayerGridFireNet, fused_firenet_step_lgrid),
+            "batch": (BatchFireNet, fused_firenet_step_batch)}
+
+
+def seeded_fused(cuda):
+    """Full-width LIFFireNet (32 channels, 7 units), seeded weights, folded."""
+    from evflow_torch.models.fused import FusedFireNet
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import seeded_state_dict
+
+    model = build_model({"name": "LIFFireNet", "encoding": "cnt", "num_bins": 2,
+                         "base_num_channels": 32}, device=cuda)
+    model.load_state_dict(seeded_state_dict(model, seed=0))
+    return FusedFireNet.from_firenet(model, layout="cmajor")
+
+
+def check_against_plain(runner, wrapper, cuda, B, H, W, windows=3, seed=0):
+    """Run ``windows`` kernel steps; at each, the plain version on the same
+    states: membranes within 1e-4 and kept spikes equal on all but 1e-5 of
+    the elements, flow within 1e-4 on all but 1e-5 of its elements."""
+    rng = np.random.default_rng(seed)
+    states = runner.init_states(B, H, W)
+    for _ in range(windows):
+        x = torch.tensor(rng.poisson(0.3, (B, H, W, 2)).astype(np.float32), device=cuda)
+        mems, spikes = runner.unit_states(states)
+        prevs = [s if r else None for s, r in zip(spikes, runner.weights.recurrent)]
+        pflow, pmems, pspikes = firenet_step_plain(x, mems, prevs, runner.weights)
+        before = wrapper.launches
+        flow, states = runner.step(x, states)
+        assert wrapper.launches == before + 1
+        torch.cuda.synchronize()
+        kmems, kspikes = runner.unit_states(states)
+        for l, (km, pm) in enumerate(zip(kmems, pmems)):
+            bad = (km.float() - pm.float()).abs() > 1e-4
+            if kspikes[l] is not None:
+                bad |= kspikes[l] != pspikes[l]
+            assert bad.float().mean() <= 1e-5, (l, int(bad.sum()))
+        assert ((flow - pflow).abs() > 1e-4).float().mean() <= 1e-5
+        assert bool(torch.isfinite(flow).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(WHOLENET))
+def test_wholenet_matches_plain_on_ragged_tiles(cuda, name, dtype):
+    """H=20, W=40 is a multiple of no kernel's tile: the image border rows
+    and columns (zero at every unit's input) and the ragged tiles are
+    exercised, for three windows of recurrent state."""
+    cls, wrapper = WHOLENET[name]
+    check_against_plain(cls(seeded_fused(cuda), dtype), wrapper, cuda, B=2, H=20, W=40)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wholenet_kernels_agree_bitwise(cuda, dtype):
+    """The four schedules share the mainloop's k order and the LIF
+    epilogue: over three windows at a ragged size their flows and
+    membranes are equal."""
+    fused = seeded_fused(cuda)
+    rng = np.random.default_rng(1)
+    xs = [torch.tensor(rng.poisson(0.3, (2, 20, 40, 2)).astype(np.float32), device=cuda)
+          for _ in range(3)]
+    runs = {}
+    for name, (cls, _) in WHOLENET.items():
+        runner = cls(fused, dtype)
+        st = runner.init_states(2, 20, 40)
+        out = []
+        for x in xs:
+            flow, st = runner.step(x, st)
+            out.append((flow, runner.unit_states(st)[0]))
+        runs[name] = out
+    ref = runs.pop("fused_net")
+    for name, out in runs.items():
+        for (flow, mems), (rflow, rmems) in zip(out, ref):
+            assert torch.equal(flow, rflow), name
+            assert all(torch.equal(m, r) for m, r in zip(mems, rmems)), name
+
+
+def test_lgrid_grid_fills_the_card(cuda):
+    """K6 at B=2, 256x256: more (b, tile) items than resident CTAs, so the
+    cooperative grid is as large as the card holds at once and each CTA
+    walks several items between grid barriers."""
+    runner = LayerGridFireNet(seeded_fused(cuda), torch.float32)
+    check_against_plain(runner, fused_firenet_step_lgrid, cuda, B=2, H=256, W=256, windows=2)
+    items = 2 * (256 // 8) * (256 // 32)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sms <= launch_wholenet.grid < items
+
+
+def test_wholenet_refuses_what_it_cannot_take(cuda):
+    runner = WholeNetFireNet(seeded_fused(cuda), torch.float32)
+    mems, spks = runner.init_states(1, 16, 16)
+    x = torch.zeros(1, 16, 16, 2, device=cuda)
+    with pytest.raises(ValueError):
+        fused_firenet_step(x, [m.double() for m in mems], spks, runner.weights)
+    with pytest.raises(ValueError):
+        fused_firenet_step(x, mems, spks[:1], runner.weights)
