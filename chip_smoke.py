@@ -26,21 +26,38 @@ Phases, each printing JSON lines; any failure exits non-zero:
 5. ``times``: CUDA-event times of every phase-2 case, its plain version and
    cuDNN's bf16 conv alone, beside the case's bound; then FusedFireNet
    windows/s over a long scan at B=2, 256x256, cnt input ~5% active.
-6. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K5
-   ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7 ``fused_net_batch``) at
-   full width, B=2, 256x256, 8 windows, in f32 and bf16 state: each kernel
-   step against ``firenet_step_plain`` on the same states (phase 2's bars,
-   flow within 1e-4 on all but 1e-5 of its elements) and against the
-   per-layer FusedFireNet (phase 3's bar; its free-running f32 trajectory
-   too, held for f32 state only); device times at B=2 and B=8 beside the
-   plain version and the bound, the per-layer step and 7 cuDNN convs as
-   yardsticks; 300-window scans of each runner with the launch counters set
-   to 0 just before and read just after (1 launch per window).
+6. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
+   ``fused_net_loop``, K5 ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7
+   ``fused_net_batch``) at full width, 256x256, at B=2 over 8 windows and
+   at B=8 (the bench entry point's batch) over 4, in f32 and bf16 state:
+   each kernel step against ``firenet_step_plain`` on the same states
+   (phase 2's bars, flow within 1e-4 on all but 1e-5 of its elements) and
+   against the per-layer FusedFireNet (phase 3's bar; its free-running f32
+   trajectory too, held for f32 state only), the five kernels' flows
+   bit-equal; device times at B=2 and B=8 beside the plain version and the
+   bound, the per-layer step and 7 cuDNN convs as yardsticks; 300-window
+   scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
+   over all five at B=8, 32 windows, each with the launch counters set to 0
+   just before and read just after (1 launch per window).
+7. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
+   through their entry point ``run_all`` at the JAX probes' shapes
+   (launch counters 0 just before, read just after; exactly 1 + repeats
+   launches per case), each against its plain version (f32 accumulation
+   within ``2 sqrt(K L S) 2^-24 max|out|``; int8 exact; bf16 accumulation,
+   on integer operands that make every dot exact, equal, and an f32
+   accumulation of the same operands must fail that check), with device
+   ms, TF/s, the CTA count, the bound (operations over 989 TFLOP/s bf16 or
+   1979 TOP/s int8) and cuBLAS's time for the same products, one product of
+   the L stacked weight matrices per step (``torch.matmul`` bf16,
+   ``torch._int_mm`` int8), as the yardstick.
 
 The line before the last is one JSON object with a row per kernel (for the
 per-layer kernels, times summed over one window's 7 launches at the bench
 shape: the head once, feedforward units 4 times, recurrent units twice; for
-the whole-network kernels one launch in bf16 state, the runners' default);
+the whole-network kernels one launch in bf16 state, the runners' default,
+with the launches of the bench entry point's run; for the probes one
+launch at the JAX probe's shape, with the launches of its case in
+``run_all``);
 the last is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -51,16 +68,16 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet")
+PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes")
 
 # H100 SXM data sheet: HBM bandwidth, dense bf16 tensor-core and f32 rates
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 F32_FLOP_PER_S = 67e12
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
@@ -77,6 +94,8 @@ KERNELS = (  # name, layout, source, the TPU kernel's pallas_call
 WHOLENET = (  # name, module under evflow_torch.ops, runner, source, the TPU kernel's pallas_call
     ("fused_firenet_step", "fused_net", "WholeNetFireNet", "evflow_torch/csrc/fused_net.cu",
      "benchmarks/pallas_archive/fused_net.py:228"),
+    ("fused_firenet_step_loop", "fused_net_loop", "UnrolledLoopFireNet",
+     "evflow_torch/csrc/fused_net_loop.cu", "benchmarks/pallas_archive/fused_net_loop.py:157"),
     ("fused_firenet_step_loop2", "fused_net_loop2", "LoopFireNet",
      "evflow_torch/csrc/fused_net_loop2.cu", "benchmarks/pallas_archive/fused_net_loop2.py:179"),
     ("fused_firenet_step_lgrid", "fused_net_lgrid", "LayerGridFireNet",
@@ -92,10 +111,9 @@ def emit(obj):
 
 def card() -> str:
     """``name, power.limit`` of the card, as nvidia-smi reports them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
+    from evflow_torch.device import describe_card
+
+    return describe_card()
 
 
 def kernel_fns(layout):
@@ -544,28 +562,18 @@ def issued_flops(kname, runner, batch):
     return sum(2 * p * w.channels * 9 * k for p, k in zip(px, ck))
 
 
-def phase_wholenet(state):
-    """K3, K5, K6, K7 at full LIFFireNet width, B=2, 256x256, 8 windows:
-    each kernel step against ``firenet_step_plain`` on the same states
-    (mem' within 1e-4 where spikes agree, at most 1e-5 of the elements
-    mismatched, flow within 1e-4 on all but 1e-5 of the elements), each
-    runner against the per-layer FusedFireNet (cmajor, f32) over the same
-    windows under phase 3's bar; then device times, 300-window scans with
-    the launch counters (1 per window) and the yardsticks."""
+def hold_wholenet(perlayer, wins, dtypes, worst):
+    """Each whole-network kernel, in each state dtype, stepped over ``wins``
+    and held at every step against ``firenet_step_plain`` and the per-layer
+    FusedFireNet on the same states, and against the per-layer free-running
+    f32 trajectory; the five kernels' flows bit-equal. ``worst`` gets each
+    kernel's largest membrane error."""
     import torch
-    import torch.nn.functional as F
 
-    from evflow_torch.models.fused import FusedFireNet
     from evflow_torch.ops.fused_net import firenet_step_plain
     from evflow_torch.ops.lif import LIFState
 
-    name = card()
-    model = seeded_firenet()
-    perlayer = FusedFireNet.from_firenet(model, layout="cmajor")
-    wins = event_windows(8, B_BENCH, seed=1)
-    B = B_BENCH
-    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-
+    B = wins.shape[1]
     # per-layer reference trajectory (f32 state)
     st = perlayer.init_states(B, H_BENCH, W_BENCH)
     ref = []
@@ -574,7 +582,7 @@ def phase_wholenet(state):
             flow, st = perlayer.step(x, st)
             ref.append((flow, [s.mem for s in st], [s.spk for s in st]))
 
-    worst, first_flows = {}, {}
+    first_flows = {}
     for kname, *_ in WHOLENET:
         _, cls = wholenet_fns(kname)
         for dt, dtype in dtypes.items():
@@ -627,24 +635,48 @@ def phase_wholenet(state):
                         and bool(torch.isfinite(flow).all()))
             ok_step, step = model_bar(step_frac, step_agree)
             ok_free, free = model_bar(free_frac, free_agree)
+            # the five schedules share the mainloop's k order and the epilogue,
+            # so their trajectories are bit-equal
+            first = first_flows.setdefault(dt, flows)
+            equal = all(torch.equal(f, g) for f, g in zip(flows, first))
             # a free-running bf16-state trajectory is another function than the
             # f32 one (a random net this wide is chaotic): reported, not held
-            ok = ok_plain and ok_step and (ok_free or dtype == torch.bfloat16)
-            # the four schedules share the mainloop's k order and the epilogue,
-            # so their trajectories are expected to be bit-equal (reported)
-            first = first_flows.setdefault(dt, flows)
+            ok = ok_plain and ok_step and equal and (ok_free or dtype == torch.bfloat16)
             emit({"phase": "wholenet", "kernel": kname, "state": dt, "batch": B,
                   "resolution": [H_BENCH, W_BENCH], "windows": len(wins),
-                  "flows_equal_to_" + WHOLENET[0][0]: all(
-                      torch.equal(f, g) for f, g in zip(flows, first)),
+                  "flows_equal_to_" + WHOLENET[0][0]: equal,
                   "vs_plain": {"max_abs_err": err, "mismatches": mism, "elements": elems,
                                "flow_mismatches": flow_bad, "flow_elements": flow_elems},
                   "vs_per_layer_same_states": step, "vs_per_layer_f32_trajectory": free,
                   "ok": ok})
             if not ok:
-                raise SystemExit(f"{kname} ({dt} state) disagrees with its plain version "
-                                 "or with the per-layer FusedFireNet")
+                raise SystemExit(f"{kname} ({dt} state, B={B}) disagrees with its plain "
+                                 "version or with the per-layer FusedFireNet")
             worst[kname] = max(worst.get(kname, 0.0), err)
+
+
+def phase_wholenet(state):
+    """K3, K4, K5, K6, K7 at full LIFFireNet width, 256x256, at B=2 over 8
+    windows and B=8 over 4: each kernel step against ``firenet_step_plain``
+    on the same states (mem' within 1e-4 where spikes agree, at most 1e-5 of
+    the elements mismatched, flow within 1e-4 on all but 1e-5 of the
+    elements), each runner against the per-layer FusedFireNet (cmajor, f32)
+    over the same windows under phase 3's bar; then device times,
+    300-window scans with the launch counters (1 per window), the bench
+    entry point and the yardsticks."""
+    import torch
+    import torch.nn.functional as F
+
+    from evflow_torch.models.fused import FusedFireNet
+    from evflow_torch.ops.fused_net import firenet_step_plain
+
+    name = card()
+    model = seeded_firenet()
+    perlayer = FusedFireNet.from_firenet(model, layout="cmajor")
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = {}
+    for batch, n_win in ((B_BENCH, 8), (8, 4)):  # B=8: the bench entry point's batch
+        hold_wholenet(perlayer, event_windows(n_win, batch, seed=1), dtypes, worst)
     state.setdefault("max_abs_err", {}).update(worst)
 
     # device ms per launch, the plain version and the bound, B=2 and B=8
@@ -693,12 +725,11 @@ def phase_wholenet(state):
               "batch": batch, "ms": cudnn_ms, "card": name})
     state.setdefault("times", {}).update(times)
 
-    # the main path: each runner's 300-window scan, launch counters 0 just
-    # before and read just after (1 launch per window)
+    # each runner's 300-window scan, launch counters 0 just before and read
+    # just after (1 launch per window)
     n_win = 300
     cnt = event_windows(n_win, B_BENCH, seed=0)
     wrappers = {kn: wholenet_fns(kn)[0] for kn, *_ in WHOLENET}
-    launches = {}
     for kname, *_ in WHOLENET:
         _, cls = wholenet_fns(kname)
         for dt, dtype in dtypes.items():
@@ -718,8 +749,23 @@ def phase_wholenet(state):
                   "launches": counts, "card": name, "ok": ok})
             if not ok:
                 raise SystemExit(f"{kname} scan launched {counts} for {n_win} windows")
-            if dtype == torch.bfloat16:
-                launches[kname] = counts[kname]
+    # this slice's main path, the bench entry point (the TPU scripts'
+    # counterpart), over all five runners at B=8, 32 windows, counters 0
+    # just before and read just after: the kernels line's launches
+    from evflow_torch import bench_wholenet
+
+    for w in wrappers.values():
+        w.launches = 0
+    n_bench = 32
+    rows = bench_wholenet.main(["--batch", "8", "--windows", str(n_bench)])
+    counts = {kn: w.launches for kn, w in wrappers.items()}
+    ok = (all(n == (1 + bench_wholenet.REPEATS) * n_bench for n in counts.values())
+          and all(r["finite"] for r in rows))
+    emit({"phase": "wholenet", "bench_wholenet": rows, "launches": counts, "card": name,
+          "ok": ok})
+    if not ok:
+        raise SystemExit(f"bench_wholenet launched {counts}")
+    state.setdefault("launches", {}).update(counts)
     st = perlayer.init_states(B_BENCH, H_BENCH, W_BENCH)
     st, _ = perlayer.scan_windows(cnt[:10], st)
     _, dt_s, dev_ms = timed_scan(perlayer, cnt, st)
@@ -727,6 +773,115 @@ def phase_wholenet(state):
           "batch": B_BENCH, "windows": n_win, "windows_per_s": n_win * B_BENCH / dt_s,
           "ms_per_step": 1e3 * dt_s / n_win, "device_ms_per_step": dev_ms / n_win,
           "card": name})
+
+
+PROBES = {  # probe wrapper: the JAX probe's pallas_call
+    "dot_pixel_major": "benchmarks/probe_inkernel_dot.py:68",
+    "dot_channel_major": "benchmarks/probe_inkernel_dot.py:103",
+    "dot_channel_major_s8": "benchmarks/probe_inkernel_dot.py:138",
+    "dot_ksplit": "benchmarks/probe_inkernel_dot.py:177",
+    "dot_variant": "benchmarks/probe_inkernel_dot2.py:47",
+}
+PROBE_SOURCE = "evflow_torch/csrc/probe_inkernel_dot.cu"
+
+
+def probe_row_name(case):
+    """The kernels-line name of a probe case: its wrapper, and for dot2 the
+    case."""
+    fn = case.fn.__name__
+    return fn if fn != "dot_variant" else f"{fn}[{case.name[len('dot2 '):]}]"
+
+
+def library_call(case):
+    """The yardstick (never called by the port), as (fn, calls per probe):
+    one cuBLAS product of the L weight matrices stacked into one operand
+    against X per step (``torch.matmul`` bf16, ``torch._int_mm`` int8), S
+    times. It computes the same products and writes the L dots apart, where
+    the probe sums them."""
+    import torch
+
+    x, w = case.args
+    steps = case.kwargs["steps"]
+    fn = case.fn.__name__
+    if fn == "dot_pixel_major":  # x [Np, K] against w [L, K, C] as [K, L C]
+        ws = w.permute(1, 0, 2).reshape(w.shape[1], -1).contiguous()
+        return (lambda: torch.matmul(x, ws)), steps
+    if fn == "dot_ksplit":  # x [3, 96, Np] as [288, Np], w [L, 3, C, 96] as [L C, 288]
+        xs = x.reshape(-1, x.shape[-1])
+        ws = w.permute(0, 2, 1, 3).reshape(w.shape[0] * w.shape[2], -1).contiguous()
+    else:  # w [L, M, K] as [L M, K]
+        xs, ws = x, w.reshape(-1, w.shape[-1])
+    if case.int8:
+        return (lambda: torch._int_mm(ws, xs)), steps
+    return (lambda: torch.matmul(ws, xs)), steps
+
+
+def phase_probes(state):
+    """The in-kernel dot probes at the JAX probes' shapes: the entry point
+    ``run_all`` with the launch counters 0 just before and read just after,
+    then each kernel against its plain version (``inkernel_dot.compare``)
+    and its times beside the bound and cuBLAS."""
+    import torch
+
+    from evflow_torch.probes import inkernel_dot as P
+
+    name = card()
+    repeats = 3
+    for fn in P.WRAPPERS:
+        fn.launches = 0
+    rows = P.run_all(repeats=repeats)
+    counts = {fn.__name__: fn.launches for fn in P.WRAPPERS}
+    per_case = {r["name"]: r["launches"] for r in rows}
+    ok = (len(rows) == len(P.probe_cases("meta"))
+          and all(n == 1 + repeats for n in per_case.values())
+          and all(counts[fn] == sum(r["launches"] for r in rows if r["wrapper"] == fn)
+                  for fn in counts))
+    emit({"phase": "probes", "run_all": rows, "launches": counts, "card": name, "ok": ok})
+    if not ok:
+        raise SystemExit(f"the probes' entry point launched {counts}, per case {per_case}")
+
+    times, errs, launches = {}, {}, {}
+    for case in P.probe_cases("cuda", seed=0):
+        out = case.fn(*case.args, **case.kwargs)
+        ctas, tile = P.last_launch["grid"], P.last_launch["tile_m"]
+        ref = case.plain(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        res = P.compare(case, out, ref)
+        if case.kwargs.get("acc_dtype") == torch.bfloat16:
+            # the check tells the accumulations apart: f32 sums of the same
+            # operands must fail it
+            control = case.fn(*case.args, **dict(case.kwargs, acc_dtype=torch.float32))
+            res["f32_control"] = P.compare(case, control, ref)
+            res["ok"] = res["ok"] and not res["f32_control"]["ok"]
+        ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
+        plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
+        x, w = case.args
+        nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + out.numel() * 4
+        t_ops = case.flops / (INT8_OP_PER_S if case.int8 else BF16_FLOP_PER_S)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        lib, calls = library_call(case)
+        try:
+            lib_ms = calls * device_ms(lib, iters=10)
+            lib_err = None
+        except RuntimeError as e:  # the yardstick only: the port never calls it
+            lib_ms, lib_err = None, str(e).splitlines()[0]
+        row = probe_row_name(case)
+        emit({"phase": "probes", "case": case.name, "kernel": row, **res, "ms": ms,
+              "tflops": case.flops / ms / 1e9, "ctas": ctas, "tile_m": tile,
+              "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "library_ms": lib_ms, "library_tflops": None if lib_ms is None
+              else case.flops / lib_ms / 1e9, "library_error": lib_err, "card": name})
+        if not res["ok"]:
+            raise SystemExit(f"probe {case.name} disagrees with its plain version: {res}")
+        times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes else "bytes",
+                          library_ms=lib_ms)
+        errs[row] = res["max_abs_err"]
+        launches[row] = per_case[case.name]
+        state.setdefault("probe_rows", []).append((row, PROBES[case.fn.__name__]))
+    state.setdefault("times", {}).update(times)
+    state.setdefault("max_abs_err", {}).update(errs)
     state.setdefault("launches", {}).update(launches)
 
 
@@ -752,7 +907,8 @@ def main(argv=None):
 
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
-             "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet}
+             "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet,
+             "probes": phase_probes}
     try:
         for p in PHASES:
             if p in phases:
@@ -764,7 +920,8 @@ def main(argv=None):
             state["tmp"].cleanup()
 
     rows = []
-    for kname, *_, source, replaces in KERNELS + WHOLENET:
+    probe_rows = [(row, PROBE_SOURCE, replaces) for row, replaces in state.get("probe_rows", [])]
+    for kname, *_, source, replaces in KERNELS + WHOLENET + tuple(probe_rows):
         tm = state.get("times", {}).get(kname, {})
         rows.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": state.get("launches", {}).get(kname),

@@ -1,6 +1,6 @@
 // The whole LIFFireNet inference step in one launch: shared pieces of the
-// four schedules (fused_net.cu, fused_net_loop2.cu, fused_net_lgrid.cu,
-// fused_net_batch.cu).
+// five schedules (fused_net.cu, fused_net_loop.cu, fused_net_loop2.cu,
+// fused_net_lgrid.cu, fused_net_batch.cu).
 //
 // What one launch computes, for a window x [B,H,W,Cin] (f32, NHWC) and L
 // units (C = 32 channels each, state [B,C,H,W] in f32 or bf16):
@@ -22,7 +22,7 @@
 // m16n8k16 bf16 -> f32, in the k order of pack_weights (tap-major, then
 // [h | prev] channels), the same order as conv_lif_common.cuh. Membranes
 // are read and written straight from the accumulator fragments; spikes for
-// the next unit go to shared memory (K3, K5, K7) or to device memory (K6).
+// the next unit go to shared memory (K3, K4, K5, K7) or to device memory (K6).
 #pragma once
 
 #include "conv_lif_common.cuh"
@@ -173,11 +173,13 @@ __device__ __forceinline__ void mma_k16(const __nv_bfloat16* buf, int pitch,
 // the staged tiles, which are wo + 2 pixels wide: hbuf holds the unit's
 // input (ck_h channels, pitch hpitch), pbuf its previous spikes (recurrent
 // units; null otherwise). Warps take 32-pixel pairs of m16 fragments in
-// turn; epi(r, c, channel, acc) receives every output once.
+// turn; epi(r, c, channel, acc) receives every output once. Always
+// inlined, so a caller that passes compile-time geometry (K4) gets loops with
+// constant trip counts and offsets.
 template <int NWARPS, class Epi>
-__device__ void conv_region(const __nv_bfloat16* hbuf, int hpitch, int ck_h,
-                            const __nv_bfloat16* pbuf, const __nv_bfloat16* wsm, int ck, int wo,
-                            int n_out, const Epi& epi) {
+__device__ __forceinline__ void conv_region(const __nv_bfloat16* hbuf, int hpitch, int ck_h,
+                                            const __nv_bfloat16* pbuf, const __nv_bfloat16* wsm,
+                                            int ck, int wo, int n_out, const Epi& epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int wi = wo + 2;
@@ -311,7 +313,7 @@ __device__ void pred_tile(const WholeNetArgs& a, const __nv_bfloat16* buf, int b
 }
 
 // ---------------------------------------------------------------------------
-// K5 / K7: one tile with a uniform extent and a runtime loop over units
+// K4 / K5 / K7: one tile with a uniform extent
 // ---------------------------------------------------------------------------
 
 constexpr int U_TH = 8, U_TW = 16;  // owned tile
@@ -333,22 +335,27 @@ __device__ void uniform_zero(__nv_bfloat16* smem) {
 // (real values), unit outputs go to the interior of ping-pong tiles whose
 // one-pixel ring stays zero. A unit's output is exact one pixel further in
 // than its input, so after L units the owned tile is exact.
-template <class S>
-__device__ void uniform_tile(const WholeNetArgs& a, int b, int th0, int tw0,
-                             __nv_bfloat16* smem) {
+//
+// With NL = 0 the unit count and which units are recurrent are read from the
+// arguments and the unit loop stays rolled (K5, K7). K4 passes them as NL
+// and the bit mask REC: the unit loop unrolls, and every unit's input
+// channels, weight pitch, extent and k loop become compile-time constants.
+template <class S, int NL = 0, unsigned REC = 0u>
+__device__ __forceinline__ void uniform_tile(const WholeNetArgs& a, int b, int th0, int tw0,
+                                             __nv_bfloat16* smem) {
   __nv_bfloat16* bufA = smem;
   __nv_bfloat16* bufB = bufA + U_PX * SPITCH;
   __nv_bfloat16* bufP = bufB + U_PX * SPITCH;
   __nv_bfloat16* wsm = bufP + U_PX * SPITCH;
-  const int L = a.L;
+  const int L = NL > 0 ? NL : a.L;
   const int bh = U_TH + 2 * L, bw = U_TW + 2 * L;
   const int oh = th0 - L, ow = tw0 - L;  // image position of tile pixel (0, 0)
   __syncthreads();  // the previous tile is done with the shared tiles
   stage_x(a, b, oh, ow, bh, bw, bufP);
-#pragma unroll 1
+#pragma unroll (NL > 0 ? NL : 1)
   for (int l = 0; l < L; ++l) {
-    const int ck = a.ck[l];
-    const bool rec = recurrent(a, l);
+    const bool rec = NL > 0 ? ((REC >> l) & 1u) != 0u : recurrent(a, l);
+    const int ck = NL > 0 ? (l == 0 ? 16 : (rec ? 2 * C : C)) : a.ck[l];
     stage_unit_weights(a.wk[l], ck, wsm);
     if (rec) stage_spikes<S>(a, a.spk_in[l], b, oh, ow, bh, bw, bufP);
     __syncthreads();

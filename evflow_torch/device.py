@@ -2,11 +2,12 @@
 
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "describe_card"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -22,3 +23,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def describe_card() -> str:
+    """``name, power.limit`` of the first card as nvidia-smi reports them,
+    to print beside every measurement (a card capped below its maximum
+    power runs slower under load)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]

@@ -28,8 +28,8 @@ __all__ = ["SOURCES", "SIGNATURES", "build", "entry_point", "nvcc_path", "BUILD_
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("conv_lif", "conv_lif_cmajor", "fused_net", "fused_net_loop2",
-           "fused_net_lgrid", "fused_net_batch")
+SOURCES = ("conv_lif", "conv_lif_cmajor", "fused_net", "fused_net_loop", "fused_net_loop2",
+           "fused_net_lgrid", "fused_net_batch", "probe_inkernel_dot")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -100,15 +100,18 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
 
 _CONV_LIF_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # the whole-network kernels take one pointer to a ``WholeNetArgs`` struct
-# (``csrc/fused_net_common.cuh``, mirrored by ``ops/fused_net.py``) and the stream
+# (``csrc/fused_net_common.cuh``, mirrored by ``ops/fused_net.py``) and the
+# stream; the dot probes a ``ProbeArgs`` struct (``probes/inkernel_dot.py``)
 _STRUCT_ARGS = [ctypes.c_void_p, ctypes.c_void_p]
 SIGNATURES = {
     "conv_lif": _CONV_LIF_ARGS,
     "conv_lif_cmajor": _CONV_LIF_ARGS,
     "fused_net": _STRUCT_ARGS,
+    "fused_net_loop": _STRUCT_ARGS,
     "fused_net_loop2": _STRUCT_ARGS,
     "fused_net_lgrid": _STRUCT_ARGS,
     "fused_net_batch": _STRUCT_ARGS,
+    "probe_inkernel_dot": _STRUCT_ARGS,
 }
 
 

@@ -9,6 +9,9 @@ kernel writes every feedforward unit there in turn). Slot 2 is never read.
 The CUDA kernel (``evflow_torch/csrc/fused_net_loop2.cu``) runs one conv+LIF
 body in a runtime loop over the stacked weights; CPU tensors run
 ``firenet_step_plain``.
+
+``slotted_step`` serves every slot layout (K4's holds the recurrent units
+only, ``evflow_torch.ops.fused_net_loop``).
 """
 
 from __future__ import annotations
@@ -22,8 +25,6 @@ from evflow_torch.ops.fused_net import (WholeNetFireNet, check_device, firenet_s
 
 __all__ = ["fused_firenet_step_loop2", "LoopFireNet", "slot_units"]
 
-N_SLOTS = 3
-
 
 def slot_units(recurrent) -> List[Optional[int]]:
     """The unit whose spikes each slot holds: the recurrent units in order
@@ -35,14 +36,18 @@ def slot_units(recurrent) -> List[Optional[int]]:
     return rec + [None] * (2 - len(rec)) + [ff[-1]]
 
 
-def slotted_step(entry: str, fn, x, mem_stack, spk_slots, w_stack, weights):
-    """One window over the slot layout: the plain version on the CPU, the
-    ``entry`` kernel on CUDA."""
+def slotted_step(entry: str, fn, x, mem_stack, spk_slots, w_stack, weights, layout=slot_units):
+    """One window over a slot layout (``layout(recurrent)``: the unit of
+    each slot, ``None`` for a slot kept at zero): the plain version on the
+    CPU, the ``entry`` kernel on CUDA. A slot holding a recurrent unit is
+    that unit's previous spikes."""
     cuda = check_device(x, entry)
-    units = slot_units(weights.recurrent)
+    units = layout(weights.recurrent)
+    if spk_slots.shape[0] != len(units):
+        raise ValueError(f"expected {len(units)} spike slots, got {spk_slots.shape[0]}")
     prevs: List[Optional[torch.Tensor]] = [None] * weights.num_units
-    for s, l in enumerate(units[:2]):
-        if l is not None:
+    for s, l in enumerate(units):
+        if l is not None and weights.recurrent[l]:
             prevs[l] = spk_slots[s]
     if not cuda:
         flow, mems, spikes = firenet_step_plain(x, list(mem_stack), prevs, weights)
@@ -50,8 +55,7 @@ def slotted_step(entry: str, fn, x, mem_stack, spk_slots, w_stack, weights):
                              for l in units])
         return flow, torch.stack(mems), slots
     mem_out = torch.empty_like(mem_stack)
-    slots = torch.empty((N_SLOTS,) + tuple(mem_stack.shape[1:]), device=mem_stack.device,
-                        dtype=mem_stack.dtype)
+    slots = torch.empty_like(spk_slots)
     spk_outs: List[Optional[torch.Tensor]] = [None] * weights.num_units
     for s, l in enumerate(units):
         if l is None:
@@ -92,15 +96,16 @@ class LoopFireNet(WholeNetFireNet):
     in ``state_dtype``."""
 
     step_fn = staticmethod(fused_firenet_step_loop2)
+    slot_layout = staticmethod(slot_units)
 
     def __init__(self, fused, state_dtype: torch.dtype = torch.bfloat16):
         super().__init__(fused, state_dtype)
         self.w_stack = stack_weights(self.weights)
-        self.slots = slot_units(self.weights.recurrent)
+        self.slots = self.slot_layout(self.weights.recurrent)
 
     def init_states(self, batch: int, height: int, width: int):
         return (self.zeros(self.num_units, batch=batch, height=height, width=width),
-                self.zeros(N_SLOTS, batch=batch, height=height, width=width))
+                self.zeros(len(self.slots), batch=batch, height=height, width=width))
 
     def unit_states(self, states):
         mems, slots = states

@@ -1,0 +1,11 @@
+"""Hopper counterparts of the TPU lowering probes under ``benchmarks/``.
+
+Each module is one probe file's micro-kernels as CUDA C++ kernels under
+``evflow_torch/csrc``, with a plain PyTorch version, a launch counter per
+wrapper and a ``main()`` that prints the probe's measurements on the card:
+
+* ``inkernel_dot``: ``benchmarks/probe_inkernel_dot.py`` and
+  ``probe_inkernel_dot2.py``, the whole-network kernels' mma.sync mainloop on
+  operands resident in shared memory
+  (``python -m evflow_torch.probes.inkernel_dot``).
+"""

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version at
 shapes that leave ragged tiles, the launch counters, the fused evaluation
-path, and the whole-network kernels (K3, K5, K6, K7) against
-``firenet_step_plain``.
+path, the whole-network kernels (K3, K4, K5, K6, K7) against
+``firenet_step_plain``, and the in-kernel dot probes against theirs.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -19,6 +19,7 @@ from evflow_torch.ops.fused_net import WholeNetFireNet, firenet_step_plain, fuse
 from evflow_torch.ops.fused_net import launch_wholenet
 from evflow_torch.ops.fused_net_batch import BatchFireNet, fused_firenet_step_batch
 from evflow_torch.ops.fused_net_lgrid import LayerGridFireNet, fused_firenet_step_lgrid
+from evflow_torch.ops.fused_net_loop import UnrolledLoopFireNet, fused_firenet_step_loop
 from evflow_torch.ops.fused_net_loop2 import LoopFireNet, fused_firenet_step_loop2
 
 pytestmark = pytest.mark.gpu
@@ -100,19 +101,20 @@ def test_fused_evaluate_launches_every_unit(cuda, tmp_path):
 
 
 WHOLENET = {"fused_net": (WholeNetFireNet, fused_firenet_step),
+            "loop": (UnrolledLoopFireNet, fused_firenet_step_loop),
             "loop2": (LoopFireNet, fused_firenet_step_loop2),
             "lgrid": (LayerGridFireNet, fused_firenet_step_lgrid),
             "batch": (BatchFireNet, fused_firenet_step_batch)}
 
 
-def seeded_fused(cuda):
-    """Full-width LIFFireNet (32 channels, 7 units), seeded weights, folded."""
+def seeded_fused(cuda, C=32):
+    """LIFFireNet (C channels, 7 units), seeded weights, folded."""
     from evflow_torch.models.fused import FusedFireNet
     from evflow_torch.registry import build_model
     from evflow_torch.weights import seeded_state_dict
 
     model = build_model({"name": "LIFFireNet", "encoding": "cnt", "num_bins": 2,
-                         "base_num_channels": 32}, device=cuda)
+                         "base_num_channels": C}, device=cuda)
     model.load_state_dict(seeded_state_dict(model, seed=0))
     return FusedFireNet.from_firenet(model, layout="cmajor")
 
@@ -154,7 +156,7 @@ def test_wholenet_matches_plain_on_ragged_tiles(cuda, name, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_wholenet_kernels_agree_bitwise(cuda, dtype):
-    """The four schedules share the mainloop's k order and the LIF
+    """The five schedules share the mainloop's k order and the LIF
     epilogue: over three windows at a ragged size their flows and
     membranes are equal."""
     fused = seeded_fused(cuda)
@@ -196,3 +198,67 @@ def test_wholenet_refuses_what_it_cannot_take(cuda):
         fused_firenet_step(x, [m.double() for m in mems], spks, runner.weights)
     with pytest.raises(ValueError):
         fused_firenet_step(x, mems, spks[:1], runner.weights)
+
+
+def test_unrolled_loop_refuses_what_it_cannot_take(cuda):
+    """K4 refuses a state of another dtype, a wrong slot count, operands on
+    two devices and a net of another width, before any launch."""
+    runner = UnrolledLoopFireNet(seeded_fused(cuda), torch.float32)
+    mems, slots = runner.init_states(1, 16, 16)
+    x = torch.zeros(1, 16, 16, 2, device=cuda)
+    w = runner.w_stack
+    before = fused_firenet_step_loop.launches
+    with pytest.raises(ValueError):
+        fused_firenet_step_loop(x, mems.double(), slots.double(), w, runner.weights)
+    with pytest.raises(ValueError):
+        fused_firenet_step_loop(x, mems, slots[:1], w, runner.weights)
+    with pytest.raises(ValueError):
+        fused_firenet_step_loop(x, mems.cpu(), slots.cpu(), w, runner.weights)
+    narrow = UnrolledLoopFireNet(seeded_fused(cuda, C=8), torch.float32)
+    with pytest.raises(ValueError, match="C=32"):
+        narrow.step(x, narrow.init_states(1, 16, 16))
+    assert fused_firenet_step_loop.launches == before
+
+
+PROBES = 4 + 6  # A, B, Bi, C and dot2's six cases
+
+
+@pytest.mark.parametrize("index", range(PROBES))
+def test_probe_matches_plain_on_ragged_tiles(cuda, index):
+    """Each probe kernel against its plain version at Np = 200 (800 for
+    dot2's 32768 case), no multiple of the 64-pixel CTA tile, over 3 steps:
+    within ``inkernel_dot.tolerance`` (int8 and bf16 accumulation exact; an
+    f32 accumulation of the bf16 case's operands fails the check)."""
+    from evflow_torch.probes import inkernel_dot as P
+
+    case = P.probe_cases(cuda, seed=index, np_pixels=200, steps=3)[index]
+    before = case.fn.launches
+    out = case.fn(*case.args, **case.kwargs)
+    assert case.fn.launches == before + 1
+    ref = case.plain(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    res = P.compare(case, out, ref)
+    assert res["ok"], res
+    bf16_acc = case.kwargs.get("acc_dtype") == torch.bfloat16
+    if case.int8 or bf16_acc:
+        assert torch.equal(out, ref)
+    if bf16_acc:
+        control = case.fn(*case.args, acc_dtype=torch.float32, steps=3)
+        assert not P.compare(case, control, ref)["ok"]
+
+
+def test_probe_refuses_what_it_cannot_take(cuda):
+    from evflow_torch.probes import inkernel_dot as P
+
+    x = torch.zeros(288, 200, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(9, 32, 288, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # dtype
+        P.dot_channel_major(x.float(), w.float())
+    with pytest.raises(ValueError):  # two devices
+        P.dot_channel_major(x, w.cpu())
+    with pytest.raises(ValueError):  # K not a multiple of 16
+        P.dot_channel_major(x[:280].contiguous(), w[..., :280].contiguous())
+    with pytest.raises(ValueError):  # no tile fits shared memory
+        P.dot_variant(torch.zeros(1024, 200, device=cuda, dtype=torch.bfloat16),
+                      torch.zeros(9, 32, 1024, device=cuda, dtype=torch.bfloat16))

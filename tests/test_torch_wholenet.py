@@ -26,12 +26,14 @@ from _torch_port import counts, model_cfg, seeded_flax_firenet
 from benchmarks.pallas_archive.fused_net import PallasFusedFireNet
 from benchmarks.pallas_archive.fused_net_batch import BatchFusedFireNet
 from benchmarks.pallas_archive.fused_net_lgrid import LayerGridFusedFireNet
+from benchmarks.pallas_archive.fused_net_loop import LoopFusedFireNet
 from benchmarks.pallas_archive.fused_net_loop2 import LoopFusedFireNet2
 from evflow.models.fused import FusedFireNet as JaxFusedFireNet
 from evflow_torch.models.fused import FusedFireNet
 from evflow_torch.ops.fused_net import WholeNetFireNet, fused_firenet_step, launch_wholenet
 from evflow_torch.ops.fused_net_batch import BatchFireNet, fused_firenet_step_batch
 from evflow_torch.ops.fused_net_lgrid import LayerGridFireNet, fused_firenet_step_lgrid
+from evflow_torch.ops.fused_net_loop import UnrolledLoopFireNet, fused_firenet_step_loop
 from evflow_torch.ops.fused_net_loop2 import LoopFireNet, fused_firenet_step_loop2
 from evflow_torch.registry import build_model
 from evflow_torch.weights import from_jax_variables
@@ -41,6 +43,7 @@ TOL = 1e-5
 RUNNERS = {  # name: (port runner, JAX runner)
     "fused_net": (WholeNetFireNet, PallasFusedFireNet),
     "lgrid": (LayerGridFireNet, LayerGridFusedFireNet),
+    "loop": (UnrolledLoopFireNet, LoopFusedFireNet),
     "loop2": (LoopFireNet, LoopFusedFireNet2),
     "batch": (BatchFireNet, BatchFusedFireNet),
 }
@@ -105,14 +108,17 @@ def jax_unit_states(name, states, recurrent):
     spikes = [None] * len(recurrent)
     for s, l in enumerate(rec):
         spikes[l] = strip(spks[s])
-    spikes[len(recurrent) - 1] = strip(spks[2])  # slot 2: the last (feedforward) unit
+    if name != "loop":  # K4 keeps the recurrent units' slots only
+        spikes[len(recurrent) - 1] = strip(spks[2])  # slot 2: the last (feedforward) unit
     return mems, spikes
 
 
 @pytest.fixture(scope="module")
 def jax_window0(nets, windows):
     """Window 0 through every JAX whole-net runner (f32 state) and through
-    PallasFusedFireNet in bf16 state: {(name, dtype): (flow, mems, spikes)}."""
+    PallasFusedFireNet in bf16 state: {(name, dtype): (flow, mems, spikes)},
+    and LoopFusedFireNet's spike slots with the padding rows stripped under
+    ("slots", "loop", "f32")."""
     jm, v, _ = nets
     recurrent = [u.recurrent for u in nets[2].units]
     out = {}
@@ -123,6 +129,8 @@ def jax_window0(nets, windows):
         with pltpu.force_tpu_interpret_mode():
             flow, states = runner.step(jnp.asarray(windows[0]), states)
         out[name, dt] = (np.asarray(flow), *jax_unit_states(name, states, recurrent))
+        if name == "loop":
+            out["slots", name, dt] = np.asarray(states[1], np.float32)[..., TH:TH + H, :]
     return out
 
 
@@ -182,6 +190,22 @@ def test_runner_matches_jax_wholenet_off_border(nets, windows, jax_window0, name
                                        atol=TOL, err_msg=f"unit {k} spikes")
 
 
+def test_unrolled_loop_slots_match_jax_off_border(nets, windows, jax_window0):
+    """K4's state is one spike slot per recurrent unit: the port's
+    ``[R, B, C, H, W]`` slots equal the JAX ``LoopFusedFireNet``'s
+    ``spk_slots`` (padding rows stripped) within 1e-5 after window 0, slot s
+    (unit k) on rows [k, H-k)."""
+    runner = UnrolledLoopFireNet(nets[2], torch.float32)
+    _, slots = runner.step(torch.tensor(windows[0]), runner.init_states(B, H, W))[1]
+    jslots = jax_window0["slots", "loop", "f32"]
+    rec = [l for l, u in enumerate(nets[2].units) if u.recurrent]
+    assert runner.slots == rec and tuple(slots.shape) == jslots.shape == (len(rec), B, 8, H, W)
+    for s, k in enumerate(rec):
+        np.testing.assert_allclose(slots[s].numpy()[..., k:H - k, :], jslots[s][..., k:H - k, :],
+                                   atol=TOL, err_msg=f"slot {s} (unit {k})")
+    assert float(slots.float().mean()) > 0.005  # the slots hold spikes, not zeros
+
+
 @pytest.mark.parametrize("name", sorted(RUNNERS))
 def test_runner_matches_jax_per_layer_everywhere(nets, windows, jax_perlayer, name):
     """Four windows, port runner (f32 state) against the JAX per-layer
@@ -212,7 +236,7 @@ def test_reference_wholenet_leaks_border_rows(nets, windows, jax_window0, jax_pe
 
 
 def test_port_runners_agree(nets, windows):
-    """The four runners compute one function: equal flow, membranes and
+    """The five runners compute one function: equal flow, membranes and
     kept spikes over two windows."""
     runs = {name: port_run(cls(nets[2], torch.float32), windows, 2)
             for name, (cls, _) in RUNNERS.items()}
@@ -245,15 +269,17 @@ def test_plain_step_equals_per_layer_fused(nets, windows):
 
 
 @pytest.mark.parametrize("step", [fused_firenet_step, fused_firenet_step_lgrid,
-                                  fused_firenet_step_loop2, fused_firenet_step_batch])
+                                  fused_firenet_step_loop, fused_firenet_step_loop2,
+                                  fused_firenet_step_batch])
 def test_steps_refuse_other_devices(nets, step):
     """A wrapper runs the plain version on the CPU, the kernel on CUDA, and
     raises on any other device."""
     runner = LayerGridFireNet(nets[2], torch.float32)
     x = torch.zeros(B, H, W, 2, device="meta")
     mems = torch.zeros(L, B, 8, H, W, device="meta")
+    slots = {fused_firenet_step_loop: 2, fused_firenet_step_loop2: 3}.get(step, L)
     args = ((mems.unbind(0), mems[:2].unbind(0), runner.weights) if step is fused_firenet_step
-            else (mems, mems, runner.w_stack, runner.weights))
+            else (mems, mems[:slots], runner.w_stack, runner.weights))
     with pytest.raises(ValueError, match="cpu or cuda"):
         step(x, *args)
 
@@ -266,3 +292,17 @@ def test_launch_refuses_other_widths(nets):
     with pytest.raises(ValueError, match="C=32"):
         launch_wholenet("fused_net", torch.zeros(B, H, W, 2), mems, [None] * L,
                         runner.weights.wk, runner.weights, mems, [None] * L)
+
+
+def test_bench_wholenet_scans_every_runner_on_cpu():
+    """``python -m evflow_torch.bench_wholenet``'s scan at full LIFFireNet
+    width on the CPU (plain versions), one window: a row per runner with
+    finite flows; the five runners' counterparts of the TPU scripts."""
+    from evflow_torch import bench_wholenet
+
+    assert set(bench_wholenet.RUNNERS) == {"fused_net", "loop", "loop2", "lgrid", "batch"}
+    assert bench_wholenet.RUNNERS["loop"][0] is UnrolledLoopFireNet
+    rows = bench_wholenet.bench(["loop"], batch=1, windows=1, repeats=1, device="cpu")
+    assert [r["runner"] for r in rows] == ["loop"]
+    assert rows[0]["finite"] and rows[0]["windows_per_s"] > 0
+    assert fused_firenet_step_loop.launches == 0  # the CPU runs the plain version
