@@ -50,6 +50,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
    1979 TOP/s int8) and cuBLAS's time for the same products, one product of
    the L stacked weight matrices per step (``torch.matmul`` bf16,
    ``torch._int_mm`` int8), as the yardstick.
+8. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
+   K8d row windows staged by TMA bulk copies, K8e's layer loop, and K8c at
+   H=2048) through ``run_all`` (launch counters 0 just before, read just
+   after; exactly 1 + repeats launches per case), each against its plain
+   version (row windows bit-equal, and the sums of their halo rows' words
+   as the kernel read them from shared memory equal to x's; the layer grid
+   within ``2 sqrt(9C L) 2^-24 max|out|``), with device ms, GB/s of what
+   the function needs and of what it stages, issued TFLOP/s, the bound
+   (the function's bytes over 3.35 TB/s or operations over 989 TFLOP/s) and a
+   yardstick the port never calls: ``torch.mul(x[0, :, halo:halo+H], 2.0,
+   out=...)`` for a row window (no halo staged), one ``torch.matmul`` of
+   the stacked ``[C, L 9C]`` weights against prebuilt ``[L 9C, P]`` patches
+   for the layer grid.
 
 The line before the last is one JSON object with a row per kernel (for the
 per-layer kernels, times summed over one window's 7 launches at the bench
@@ -72,13 +85,7 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes")
-
-# H100 SXM data sheet: HBM bandwidth, dense bf16 tensor-core and f32 rates
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-INT8_OP_PER_S = 1979e12
-F32_FLOP_PER_S = 67e12
+PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes", "staging")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # (case, Cin, recurrent, hard reset)
@@ -190,6 +197,8 @@ def bound(cin, recurrent):
     """Least time of one unit at the bench shape: each input read once and
     each output written once at the HBM rate, against its bf16 conv and f32
     LIF operations at the peak rates. Returns (ms, "bytes"|"operations")."""
+    from evflow_torch.device import BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S
+
     px = B_BENCH * H_BENCH * W_BENCH
     C = C_BENCH
     k_in = cin + (C if recurrent else 0)
@@ -504,6 +513,8 @@ def wholenet_bound(runner, batch):
     """Least time of one window of the runner's kernel at ``batch`` x 256^2:
     its own state, input, weight and flow bytes once each at the HBM rate,
     against its bf16 conv and f32 LIF operations. Returns (ms, by)."""
+    from evflow_torch.device import BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S
+
     w = runner.weights
     px = batch * H_BENCH * W_BENCH
     n = px * w.channels
@@ -783,6 +794,7 @@ PROBES = {  # probe wrapper: the JAX probe's pallas_call
     "dot_variant": "benchmarks/probe_inkernel_dot2.py:47",
 }
 PROBE_SOURCE = "evflow_torch/csrc/probe_inkernel_dot.cu"
+STAGING_SOURCE = "evflow_torch/csrc/probe_staging.cu"
 
 
 def probe_row_name(case):
@@ -819,11 +831,13 @@ def library_call(case):
 def phase_probes(state):
     """The in-kernel dot probes at the JAX probes' shapes: the entry point
     ``run_all`` with the launch counters 0 just before and read just after,
-    then each kernel against its plain version (``inkernel_dot.compare``)
+    then each kernel against its plain version (within ``inkernel_dot.tolerance``)
     and its times beside the bound and cuBLAS."""
     import torch
 
+    from evflow_torch.device import BF16_FLOP_PER_S, HBM_BYTES_PER_S, INT8_OP_PER_S
     from evflow_torch.probes import inkernel_dot as P
+    from evflow_torch.probes._harness import compare
 
     name = card()
     repeats = 3
@@ -846,12 +860,12 @@ def phase_probes(state):
         ctas, tile = P.last_launch["grid"], P.last_launch["tile_m"]
         ref = case.plain(*case.args, **case.kwargs)
         torch.cuda.synchronize()
-        res = P.compare(case, out, ref)
+        res = compare(out, ref, P.tolerance(case, ref))
         if case.kwargs.get("acc_dtype") == torch.bfloat16:
             # the check tells the accumulations apart: f32 sums of the same
             # operands must fail it
             control = case.fn(*case.args, **dict(case.kwargs, acc_dtype=torch.float32))
-            res["f32_control"] = P.compare(case, control, ref)
+            res["f32_control"] = compare(control, ref, P.tolerance(case, ref))
             res["ok"] = res["ok"] and not res["f32_control"]["ok"]
         ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
         plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
@@ -879,7 +893,93 @@ def phase_probes(state):
                           library_ms=lib_ms)
         errs[row] = res["max_abs_err"]
         launches[row] = per_case[case.name]
-        state.setdefault("probe_rows", []).append((row, PROBES[case.fn.__name__]))
+        state.setdefault("probe_rows", []).append((row, PROBE_SOURCE, PROBES[case.fn.__name__]))
+    state.setdefault("times", {}).update(times)
+    state.setdefault("max_abs_err", {}).update(errs)
+    state.setdefault("launches", {}).update(launches)
+
+
+def staging_yardstick(case):
+    """One PyTorch call for the case's function, never called by the port:
+    the row window's interior times 2 into an f32 output (no halo staged);
+    the layer grid as one product of the stacked weights ``[C, L 9C]``
+    against the stacked patches ``[L 9C, P]``, both built here."""
+    import torch
+
+    from evflow_torch.probes import staging as S
+
+    if case.fn is S.row_window_copy:
+        (x,), halo = case.args, case.kwargs["halo"]
+        h = x.shape[2] - 2 * halo
+        out = torch.empty(x.shape[1], h, x.shape[3], device=x.device, dtype=torch.float32)
+        inner = x[0, :, halo:halo + h]
+        return lambda: torch.mul(inner, 2.0, out=out)
+    w_all, m = case.args
+    e = case.kwargs["e"]
+    layers, c, _ = w_all.shape
+    s = m[:, :, :e - 2].reshape(layers, c, -1).clone()
+    s[1::2] = 0
+    patches = torch.cat([s] * 9, dim=1).reshape(layers * 9 * c, -1).contiguous()
+    stacked = w_all.permute(1, 0, 2).reshape(c, -1).contiguous()
+    return lambda: torch.matmul(stacked, patches)
+
+
+def phase_staging(state):
+    """The staging probes at the JAX probes' shapes and K8c at H=2048: the
+    entry point ``run_all`` with the launch counters 0 just before and read
+    just after, then each kernel against its plain version (a row window
+    also with the sums of its halo rows as the kernel read them from shared
+    memory), and its times beside the bound and the yardstick."""
+    import torch
+
+    from evflow_torch.probes import staging as S
+    from evflow_torch.probes._harness import compare
+
+    name = card()
+    repeats = 3
+    for fn in S.WRAPPERS:
+        fn.launches = 0
+    rows = S.run_all(repeats=repeats)
+    counts = {fn.__name__: fn.launches for fn in S.WRAPPERS}
+    per_case = {r["name"]: r["launches"] for r in rows}
+    ok = (len(rows) == len(S.probe_cases("meta"))
+          and all(n == 1 + repeats for n in per_case.values())
+          and all(counts[fn] == sum(r["launches"] for r in rows if r["wrapper"] == fn)
+                  for fn in counts))
+    emit({"phase": "staging", "run_all": rows, "launches": counts, "card": name, "ok": ok})
+    if not ok:
+        raise SystemExit(f"the staging probes' entry point launched {counts}, per case {per_case}")
+
+    times, errs, launches = {}, {}, {}
+    for case in S.probe_cases("cuda", seed=0):
+        out = case.fn(*case.args, **case.kwargs)
+        launch = dict(S.last_launch)
+        ref = case.plain(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        res = compare(out, ref, S.tolerance(case, ref))
+        if case.fn is S.row_window_copy:
+            # the halo rows as they landed in shared memory, summed by the kernel
+            _, sums = case.fn(*case.args, **case.kwargs, halo_sums=True)
+            res["halo_rows_staged"] = torch.equal(sums, S.halo_sums_plain(*case.args,
+                                                                          **case.kwargs))
+            res["ok"] = res["ok"] and res["halo_rows_staged"]
+        ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
+        plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
+        lib_ms = device_ms(staging_yardstick(case), iters=20)
+        bms, by = S.bound(case)
+        row = f"{case.fn.__name__}[{case.name.split(' [')[0]}]"
+        emit({"phase": "staging", "case": case.name, "kernel": row, **res, "ms": ms,
+              "gbps": case.nbytes / ms / 1e6, "staged_gbps": case.staged_bytes / ms / 1e6,
+              "issued_tflops": case.issued_flops / ms / 1e9,
+              "ctas": launch["grid"], "channels_per_cta": launch["cpc"],
+              "smem": launch["smem"], "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+              "library_ms": lib_ms, "card": name})
+        if not res["ok"]:
+            raise SystemExit(f"staging probe {case.name} disagrees with its plain version: {res}")
+        times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        errs[row] = res["max_abs_err"]
+        launches[row] = per_case[case.name]
+        state.setdefault("probe_rows", []).append((row, STAGING_SOURCE, case.replaces))
     state.setdefault("times", {}).update(times)
     state.setdefault("max_abs_err", {}).update(errs)
     state.setdefault("launches", {}).update(launches)
@@ -908,7 +1008,7 @@ def main(argv=None):
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet,
-             "probes": phase_probes}
+             "probes": phase_probes, "staging": phase_staging}
     try:
         for p in PHASES:
             if p in phases:
@@ -920,8 +1020,7 @@ def main(argv=None):
             state["tmp"].cleanup()
 
     rows = []
-    probe_rows = [(row, PROBE_SOURCE, replaces) for row, replaces in state.get("probe_rows", [])]
-    for kname, *_, source, replaces in KERNELS + WHOLENET + tuple(probe_rows):
+    for kname, *_, source, replaces in KERNELS + WHOLENET + tuple(state.get("probe_rows", [])):
         tm = state.get("times", {}).get(kname, {})
         rows.append({"name": kname, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": state.get("launches", {}).get(kname),

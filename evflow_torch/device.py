@@ -7,7 +7,15 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "describe_card"]
+__all__ = ["resolve_device", "describe_card", "HBM_BYTES_PER_S", "BF16_FLOP_PER_S",
+           "INT8_OP_PER_S", "F32_FLOP_PER_S"]
+
+# H100 SXM data sheet, the rates every bound in the port is taken against:
+# HBM bandwidth, dense bf16 tensor-core, dense int8 tensor-core and f32 rates
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
+F32_FLOP_PER_S = 67e12
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

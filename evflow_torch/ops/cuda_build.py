@@ -23,13 +23,14 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "SIGNATURES", "build", "entry_point", "nvcc_path", "BUILD_DIR"]
+__all__ = ["SOURCES", "SIGNATURES", "ENTRY_SOURCES", "build", "entry_point", "nvcc_path",
+           "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("conv_lif", "conv_lif_cmajor", "fused_net", "fused_net_loop", "fused_net_loop2",
-           "fused_net_lgrid", "fused_net_batch", "probe_inkernel_dot")
+           "fused_net_lgrid", "fused_net_batch", "probe_inkernel_dot", "probe_staging")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -101,7 +102,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
 _CONV_LIF_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # the whole-network kernels take one pointer to a ``WholeNetArgs`` struct
 # (``csrc/fused_net_common.cuh``, mirrored by ``ops/fused_net.py``) and the
-# stream; the dot probes a ``ProbeArgs`` struct (``probes/inkernel_dot.py``)
+# stream; the probes their own structs (``probes/inkernel_dot.py``,
+# ``probes/staging.py``)
 _STRUCT_ARGS = [ctypes.c_void_p, ctypes.c_void_p]
 SIGNATURES = {
     "conv_lif": _CONV_LIF_ARGS,
@@ -112,12 +114,16 @@ SIGNATURES = {
     "fused_net_lgrid": _STRUCT_ARGS,
     "fused_net_batch": _STRUCT_ARGS,
     "probe_inkernel_dot": _STRUCT_ARGS,
+    "probe_row_window": _STRUCT_ARGS,
+    "probe_layer_grid": _STRUCT_ARGS,
 }
+# entry points whose source is named otherwise (the rest live in ``<name>.cu``)
+ENTRY_SOURCES = {"probe_row_window": "probe_staging", "probe_layer_grid": "probe_staging"}
 
 
 def entry_point(name: str):
-    """The C entry point ``name`` of ``csrc/<name>.cu``, building and
-    loading the library on first use.
+    """The C entry point ``name`` of ``csrc/<name>.cu`` (or of the source
+    ``ENTRY_SOURCES`` names), building and loading the library on first use.
 
     Its argument types come from ``SIGNATURES``: the conv+LIF kernels take
     nine pointers, seven ints and the stream; the whole-network kernels a
@@ -127,8 +133,9 @@ def entry_point(name: str):
     with _LOCK:
         fn = _ENTRIES.get(name)
         if fn is None:
-            build([name])
-            fn = getattr(ctypes.CDLL(str(_lib_path(name))), name)
+            source = ENTRY_SOURCES.get(name, name)
+            build([source])
+            fn = getattr(ctypes.CDLL(str(_lib_path(source))), name)
             fn.argtypes = SIGNATURES[name]
             fn.restype = ctypes.c_int
             _ENTRIES[name] = fn

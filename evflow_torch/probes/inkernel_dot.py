@@ -43,7 +43,8 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from evflow_torch.device import describe_card, resolve_device
+from evflow_torch.device import describe_card
+from evflow_torch.probes._harness import card_device, launch, on_card, run_cases
 
 __all__ = [
     "dot_pixel_major", "dot_channel_major", "dot_channel_major_s8", "dot_ksplit",
@@ -103,19 +104,13 @@ last_launch = {"grid": 0, "tile_m": 0, "smem": 0}
 
 def _launch(fn, x, w, out, *, x_st, w_st, o_st, Np, k, M, dots, steps, kseg, pixel_major,
             mode):
-    from evflow_torch.ops.cuda_build import entry_point
-
     args = ProbeArgs(
         x=x.data_ptr(), w=w.data_ptr(), out=out.data_ptr(),
         x_sp=x_st[0], x_sk=x_st[1], w_si=w_st[0], w_sm=w_st[1], w_sj=w_st[2], w_sk=w_st[3],
         o_sp=o_st[0], o_sm=o_st[1], Np=Np, K=k, M=M, L=dots, S=steps, kseg=kseg,
         pixel_major=int(pixel_major), mode=mode,
         tile_m=tile_m(M, k, dots, x.element_size(), pixel_major))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = entry_point("probe_inkernel_dot")(ctypes.addressof(args), stream)
-    if err != 0:
-        raise RuntimeError(f"probe_inkernel_dot kernel launch failed with cudaError_t {err}")
+    launch("probe_inkernel_dot", args, x.device)
     fn.launches += 1
     last_launch.update(grid=args.grid, tile_m=args.tile_m, smem=args.smem)
     return out
@@ -123,14 +118,12 @@ def _launch(fn, x, w, out, *, x_st, w_st, o_st, Np, k, M, dots, steps, kseg, pix
 
 def _check(name: str, x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype, steps: int) -> bool:
     """True for CUDA operands, False for CPU ones; raises on anything else."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, got {x.device}")
-    for t in (x, w):
-        if t.device != x.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous {dtype} on {x.device}")
+    cuda = on_card(name, x, w)
+    if x.dtype != dtype or w.dtype != dtype:
+        raise ValueError(f"{name}: operands must be {dtype}, got {x.dtype}, {w.dtype}")
     if steps < 1:
         raise ValueError(f"{name}: steps must be >= 1, got {steps}")
-    return x.device.type == "cuda"
+    return cuda
 
 
 def _check_k(name: str, k: int, dtype: torch.dtype):
@@ -336,51 +329,15 @@ def tolerance(case: Case, ref: torch.Tensor) -> float:
     return 2.0 * math.sqrt(k * dots * steps) * 2.0 ** -24 * float(ref.abs().max())
 
 
-def compare(case: Case, out: torch.Tensor, ref: torch.Tensor) -> dict:
-    """``out`` against ``ref`` under ``tolerance``: the largest error, the
-    tolerance, the share of elements that are not equal, and whether every
-    element is within the tolerance."""
-    err = (out.double() - ref.double()).abs()
-    tol = tolerance(case, ref)
-    ok = bool((err <= tol).all()) and bool(torch.isfinite(out.double()).all())
-    return {"max_abs_err": float(err.max()), "tolerance": tol,
-            "unequal_share": float((err > 0).double().mean()),
-            "max_abs_out": float(ref.double().abs().max()), "ok": ok}
-
-
-def time_ms(fn: Callable[[], object], repeats: int = 3) -> float:
-    """Best CUDA-event time of ``repeats`` calls, after one warm-up call."""
-    fn()
-    best = math.inf
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end))
-    return best
-
-
 def run_all(device: Optional[str] = None, seed: int = 0, repeats: int = 3) -> List[dict]:
     """Every probe once at its shapes on the card, timed as the JAX probes
     time theirs (best of ``repeats`` after a warm-up call): a row per case
     with ms, TF/s (TOP/s for int8), the CTAs and their output rows, and the
     kernel launches the case made (``1 + repeats``)."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("the probes measure the card: run them on cuda")
-    rows = []
-    for case in probe_cases(dev, seed):
-        before = case.fn.launches
-        ms = time_ms(lambda: case.fn(*case.args, **case.kwargs), repeats)
-        rows.append({"name": case.name, "wrapper": case.fn.__name__, "ms": ms,
-                     "tflops": case.flops / ms / 1e9, "ctas": last_launch["grid"],
-                     "tile_m": last_launch["tile_m"], "int8": case.int8,
-                     "launches": case.fn.launches - before})
-    return rows
+    return run_cases(probe_cases(card_device(device), seed), repeats,
+                     lambda case, ms: {"tflops": case.flops / ms / 1e9,
+                                       "ctas": last_launch["grid"],
+                                       "tile_m": last_launch["tile_m"], "int8": case.int8})
 
 
 def main(argv=None):

@@ -1,5 +1,6 @@
 """Shared fixtures of the port's tests (``tests/test_torch_*.py``): seeded
-flax FireNet variables, and the synthetic evaluation config.
+flax FireNet variables, the synthetic evaluation config, and the JAX probe
+kernels of ``benchmarks/probe_*.py`` without their benchmarks.
 
 The flax variables are drawn with numpy so both packages get the same
 numbers: kernels in the flax init range, BN statistics and LIF parameters
@@ -10,7 +11,9 @@ parity test would compare zeros).
 
 from __future__ import annotations
 
+import ast
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ import numpy as np
 from evflow.registry import build_model as build_jax_model
 
 SN = {"leak": [0.0, 1.0], "thresh": [0.0, 0.8]}
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def model_cfg(name="LIFFireNet", C=8, **extra):
@@ -82,3 +86,14 @@ def eval_config(root, res=16, std=32, C=8, metrics=("AEE", "AAE", "AE_ofMeans"))
         "vis": {"enabled": False, "store": False, "activity": False},
         "loss": {},
     }
+
+
+def probe_namespace(name: str, **consts):
+    """The imports and functions of ``benchmarks/<name>.py``, with ``consts``
+    bound as module globals; nothing of its top-level benchmark runs (nor
+    any other module-level assignment: pass derived constants too)."""
+    tree = ast.parse((ROOT / "benchmarks" / f"{name}.py").read_text())
+    keep = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom, ast.FunctionDef))]
+    ns = dict(consts)
+    exec(compile(ast.Module(body=keep, type_ignores=[]), f"{name}.py", "exec"), ns)
+    return ns

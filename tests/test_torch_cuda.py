@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version at
 shapes that leave ragged tiles, the launch counters, the fused evaluation
 path, the whole-network kernels (K3, K4, K5, K6, K7) against
-``firenet_step_plain``, and the in-kernel dot probes against theirs.
+``firenet_step_plain``, and the in-kernel dot and staging probes against
+theirs.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -230,6 +231,7 @@ def test_probe_matches_plain_on_ragged_tiles(cuda, index):
     within ``inkernel_dot.tolerance`` (int8 and bf16 accumulation exact; an
     f32 accumulation of the bf16 case's operands fails the check)."""
     from evflow_torch.probes import inkernel_dot as P
+    from evflow_torch.probes._harness import compare
 
     case = P.probe_cases(cuda, seed=index, np_pixels=200, steps=3)[index]
     before = case.fn.launches
@@ -238,14 +240,14 @@ def test_probe_matches_plain_on_ragged_tiles(cuda, index):
     ref = case.plain(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == ref.shape
-    res = P.compare(case, out, ref)
+    res = compare(out, ref, P.tolerance(case, ref))
     assert res["ok"], res
     bf16_acc = case.kwargs.get("acc_dtype") == torch.bfloat16
     if case.int8 or bf16_acc:
         assert torch.equal(out, ref)
     if bf16_acc:
         control = case.fn(*case.args, acc_dtype=torch.float32, steps=3)
-        assert not P.compare(case, control, ref)["ok"]
+        assert not compare(control, ref, P.tolerance(case, ref))["ok"]
 
 
 def test_probe_refuses_what_it_cannot_take(cuda):
@@ -262,3 +264,75 @@ def test_probe_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):  # no tile fits shared memory
         P.dot_variant(torch.zeros(1024, 200, device=cuda, dtype=torch.bfloat16),
                       torch.zeros(9, 32, 1024, device=cuda, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_row_window_matches_plain_on_ragged_groups(cuda, dtype):
+    """The row-window kernel bit-equal to its plain version at C=12 in
+    groups of 5 channels (the last one of 2), W=24, with each CTA staging
+    its channels' whole halo'd windows: the sums of the halo rows it read
+    from shared memory equal x's."""
+    from evflow_torch.probes import staging as S
+
+    C, H, W, th, halo = 12, 448, 24, 8, 6
+    x = torch.tensor(np.random.default_rng(0).standard_normal((1, C, H + 2 * halo, W),
+                                                              dtype=np.float32),
+                     device=cuda).to(dtype)
+    before = S.row_window_copy.launches
+    out = S.row_window_copy(x, th, halo)
+    assert S.row_window_copy.launches == before + 1
+    ref = S.row_window_copy_plain(x, th, halo)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    cpc, esize = S.last_launch["cpc"], x.element_size()
+    assert cpc == 5 and S.last_launch["grid"] == (H // th) * 3
+    assert S.last_launch["smem"] >= cpc * (th + 2 * halo) * W * esize
+    out2, sums = S.row_window_copy(x, th, halo, halo_sums=True)
+    assert torch.equal(out2, ref) and torch.equal(sums, S.halo_sums_plain(x, th, halo))
+
+
+@pytest.mark.parametrize("C", [12, 32])
+def test_layer_grid_matches_plain_on_ragged_tiles(cuda, C):
+    """The layer-grid kernel against its plain version at (E-2) W = 240
+    pixels (3 blocks of 64 and one of 48), L=5, C=12 (padded to 16 channels)
+    and 32: within ``staging.tolerance``."""
+    from evflow_torch.probes import staging as S
+    from evflow_torch.probes._harness import compare
+
+    L, E, W = 5, 12, 24
+    rng = np.random.default_rng(C)
+    w_all = torch.tensor(rng.standard_normal((L, C, 9 * C), dtype=np.float32) * 0.05,
+                         device=cuda).to(torch.bfloat16)
+    m = torch.tensor(rng.standard_normal((L, C, E + 8, W), dtype=np.float32),
+                     device=cuda).to(torch.bfloat16)
+    case = S.Case("ragged", S.layer_grid, S.layer_grid_plain, (w_all, m), {"e": E}, 0, 0.0, 0,
+                  0.0, "")
+    before = S.layer_grid.launches
+    out = S.layer_grid(w_all, m, E)
+    assert S.layer_grid.launches == before + 1 and S.last_launch["grid"] == 4
+    ref = S.layer_grid_plain(w_all, m, E)
+    torch.cuda.synchronize()
+    res = compare(out, ref, S.tolerance(case, ref))
+    assert res["ok"], res
+    # the odd layers' zeroed buffer: m's odd layers do not reach the output
+    m2 = m.clone()
+    m2[1::2] = float("nan")
+    assert torch.equal(S.layer_grid(w_all, m2, E), out)
+
+
+def test_staging_refuses_what_it_cannot_take(cuda):
+    from evflow_torch.probes import staging as S
+
+    x = torch.zeros(1, 8, 44, 16, device=cuda, dtype=torch.bfloat16)
+    w_all = torch.zeros(3, 8, 72, device=cuda, dtype=torch.bfloat16)
+    m = torch.zeros(3, 8, 20, 16, device=cuda, dtype=torch.bfloat16)
+    before = (S.row_window_copy.launches, S.layer_grid.launches)
+    shifted = torch.zeros(x.numel() + 4, device=cuda, dtype=x.dtype)[4:].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):  # 8 bytes past a 16-byte boundary
+        S.row_window_copy(shifted, 8, 6)
+    with pytest.raises(ValueError):  # two devices
+        S.layer_grid(w_all, m.cpu(), 12)
+    with pytest.raises(ValueError):  # C beyond the kernel's 64
+        S.layer_grid(torch.zeros(1, 72, 648, device=cuda, dtype=torch.bfloat16),
+                     torch.zeros(1, 72, 12, 16, device=cuda, dtype=torch.bfloat16), 12)
+    assert (S.row_window_copy.launches, S.layer_grid.launches) == before

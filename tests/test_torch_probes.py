@@ -19,30 +19,17 @@ the two differ by at most S times half a bf16 ulp of |out| / S. An f32
 accumulation of the same operands falls outside that limit.
 """
 
-import ast
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from _torch_port import probe_namespace
 from evflow_torch.probes import inkernel_dot as P
 
-ROOT = Path(__file__).resolve().parents[1]
 NPX, STEPS = 256, 2
 CASES = {c.name: c for c in P.probe_cases("cpu", seed=3, np_pixels=NPX, steps=STEPS)}
-
-
-def probe_namespace(name: str, **consts):
-    """The imports and functions of ``benchmarks/<name>.py``, with ``consts``
-    bound as module globals; nothing of its top-level benchmark runs."""
-    tree = ast.parse((ROOT / "benchmarks" / f"{name}.py").read_text())
-    keep = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom, ast.FunctionDef))]
-    ns = dict(consts)
-    exec(compile(ast.Module(body=keep, type_ignores=[]), f"{name}.py", "exec"), ns)
-    return ns
 
 
 @pytest.fixture(scope="module")
