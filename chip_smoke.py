@@ -63,6 +63,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
    out=...)`` for a row window (no halo staged), one ``torch.matmul`` of
    the stacked ``[C, L 9C]`` weights against prebuilt ``[L 9C, P]`` patches
    for the layer grid.
+9. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
+   three cases, one conv+LIF unit in a runtime layer loop with and without
+   the LIF and the per-layer output, and K8j, the same body behind staged
+   spike slots) at the JAX probes' shapes through ``run_all`` (launch
+   counters 0 just before, read just after; exactly 1 + repeats launches
+   per case), each against its plain version (equal, case 14 too, on
+   operands that make every sum exact: ``unit_loop.draw_operands``) and K8j's
+   stored spike slots equal to the plain slots, with device ms, the bound
+   (the bytes and operations of the cone of rows the outputs need), the
+   CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
+   W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
 
 The line before the last is one JSON object with a row per kernel (for the
 per-layer kernels, times summed over one window's 7 launches at the bench
@@ -85,7 +96,8 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes", "staging")
+PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes", "staging",
+          "unitloop")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # (case, Cin, recurrent, hard reset)
@@ -795,6 +807,7 @@ PROBES = {  # probe wrapper: the JAX probe's pallas_call
 }
 PROBE_SOURCE = "evflow_torch/csrc/probe_inkernel_dot.cu"
 STAGING_SOURCE = "evflow_torch/csrc/probe_staging.cu"
+UNITLOOP_SOURCE = "evflow_torch/csrc/probe_unit_loop.cu"
 
 
 def probe_row_name(case):
@@ -828,6 +841,26 @@ def library_call(case):
     return (lambda: torch.matmul(ws, xs)), steps
 
 
+def counted_run_all(module, phase, name, repeats=3):
+    """``module.run_all`` (a probe module's entry point) with the launch
+    counters set to 0 just before and read just after; fails unless every
+    case ran and made exactly 1 + ``repeats`` launches. Returns the
+    launches per case name."""
+    for fn in module.WRAPPERS:
+        fn.launches = 0
+    rows = module.run_all(repeats=repeats)
+    counts = {fn.__name__: fn.launches for fn in module.WRAPPERS}
+    per_case = {r["name"]: r["launches"] for r in rows}
+    ok = (len(rows) == len(module.probe_cases("meta"))
+          and all(n == 1 + repeats for n in per_case.values())
+          and all(counts[fn] == sum(r["launches"] for r in rows if r["wrapper"] == fn)
+                  for fn in counts))
+    emit({"phase": phase, "run_all": rows, "launches": counts, "card": name, "ok": ok})
+    if not ok:
+        raise SystemExit(f"{module.__name__}.run_all launched {counts}, per case {per_case}")
+    return per_case
+
+
 def phase_probes(state):
     """The in-kernel dot probes at the JAX probes' shapes: the entry point
     ``run_all`` with the launch counters 0 just before and read just after,
@@ -840,19 +873,7 @@ def phase_probes(state):
     from evflow_torch.probes._harness import compare
 
     name = card()
-    repeats = 3
-    for fn in P.WRAPPERS:
-        fn.launches = 0
-    rows = P.run_all(repeats=repeats)
-    counts = {fn.__name__: fn.launches for fn in P.WRAPPERS}
-    per_case = {r["name"]: r["launches"] for r in rows}
-    ok = (len(rows) == len(P.probe_cases("meta"))
-          and all(n == 1 + repeats for n in per_case.values())
-          and all(counts[fn] == sum(r["launches"] for r in rows if r["wrapper"] == fn)
-                  for fn in counts))
-    emit({"phase": "probes", "run_all": rows, "launches": counts, "card": name, "ok": ok})
-    if not ok:
-        raise SystemExit(f"the probes' entry point launched {counts}, per case {per_case}")
+    per_case = counted_run_all(P, "probes", name)
 
     times, errs, launches = {}, {}, {}
     for case in P.probe_cases("cuda", seed=0):
@@ -936,19 +957,7 @@ def phase_staging(state):
     from evflow_torch.probes._harness import compare
 
     name = card()
-    repeats = 3
-    for fn in S.WRAPPERS:
-        fn.launches = 0
-    rows = S.run_all(repeats=repeats)
-    counts = {fn.__name__: fn.launches for fn in S.WRAPPERS}
-    per_case = {r["name"]: r["launches"] for r in rows}
-    ok = (len(rows) == len(S.probe_cases("meta"))
-          and all(n == 1 + repeats for n in per_case.values())
-          and all(counts[fn] == sum(r["launches"] for r in rows if r["wrapper"] == fn)
-                  for fn in counts))
-    emit({"phase": "staging", "run_all": rows, "launches": counts, "card": name, "ok": ok})
-    if not ok:
-        raise SystemExit(f"the staging probes' entry point launched {counts}, per case {per_case}")
+    per_case = counted_run_all(S, "staging", name)
 
     times, errs, launches = {}, {}, {}
     for case in S.probe_cases("cuda", seed=0):
@@ -985,6 +994,72 @@ def phase_staging(state):
     state.setdefault("launches", {}).update(launches)
 
 
+def unitloop_yardstick(case):
+    """L cuDNN bf16 convs, never called by the port: the case's input twice
+    (h and aux) ``[1, 2C, E, W]`` by each layer's weights as ``[C, 2C, 3,
+    3]``, padding 1; the conv alone, no LIF, no chain."""
+    import torch
+    import torch.nn.functional as F
+
+    from evflow_torch.probes import unit_loop as U
+
+    x, w = (case.args[0], case.args[1]) if case.fn is U.unit_loop else (case.args[0][0],
+                                                                        case.args[3])
+    layers, c = w.shape[:2]
+    inp = torch.cat([x, x])[None].contiguous()
+    wts = [w[l].reshape(c, 2, 3, 3, c).permute(0, 1, 4, 2, 3).reshape(c, 2 * c, 3, 3).contiguous()
+           for l in range(layers)]
+    return lambda: [F.conv2d(inp, k, padding=1) for k in wts]
+
+
+def phase_unitloop(state):
+    """The unit-loop probes at the JAX probes' shapes: the entry point
+    ``run_all`` with the launch counters 0 just before and read just after,
+    then each kernel against its plain version (K8j also with the spike
+    slots it stored), and its times beside the bound and the yardstick."""
+    import torch
+
+    from evflow_torch.probes import unit_loop as U
+    from evflow_torch.probes._harness import compare
+
+    name = card()
+    per_case = counted_run_all(U, "unitloop", name)
+
+    times, errs, launches = {}, {}, {}
+    for case in U.probe_cases("cuda", seed=0):
+        out = case.fn(*case.args, **case.kwargs)
+        launch = dict(U.last_launch)
+        ref = case.plain(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        res = compare(out, ref, U.tolerance(case, ref))
+        if case.fn is U.unit_loop_dma:
+            # the runtime-index stores to the spike slots, which the output cannot show
+            out2, slots = case.fn(*case.args, **case.kwargs, spike_slots=True)
+            _, ref_slots = case.plain(*case.args, **case.kwargs, spike_slots=True)
+            res["spike_slots_equal"] = torch.equal(slots, ref_slots) and torch.equal(out2, out)
+            res["spike_slot_rate"] = float(ref_slots.float().mean())
+            res["ok"] = res["ok"] and res["spike_slots_equal"]
+        ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
+        plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
+        lib_ms = device_ms(unitloop_yardstick(case), iters=20)
+        bms, by = U.bound(case)
+        row = f"{case.fn.__name__}[{case.name.split(' [')[0]}]"
+        emit({"phase": "unitloop", "case": case.name, "kernel": row, **res, "ms": ms,
+              "gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
+              "ctas": launch["grid"], "threads": launch["threads"], "smem": launch["smem"],
+              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+              "card": name})
+        if not res["ok"]:
+            raise SystemExit(f"unit-loop probe {case.name} disagrees with its plain version: {res}")
+        times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        errs[row] = res["max_abs_err"]
+        launches[row] = per_case[case.name]
+        state.setdefault("probe_rows", []).append((row, UNITLOOP_SOURCE, case.replaces))
+    state.setdefault("times", {}).update(times)
+    state.setdefault("max_abs_err", {}).update(errs)
+    state.setdefault("launches", {}).update(launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1008,7 +1083,7 @@ def main(argv=None):
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet,
-             "probes": phase_probes, "staging": phase_staging}
+             "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop}
     try:
         for p in PHASES:
             if p in phases:

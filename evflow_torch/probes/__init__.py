@@ -11,5 +11,9 @@ wrapper and a ``main()`` that prints the probe's measurements on the card:
 * ``staging``: ``benchmarks/probe_manual_dma.py``, ``probe_manual_dma2.py``
   and ``probe_layer_grid.py``, halo'd row windows and a layer loop staged
   from device memory with TMA bulk copies on an mbarrier
-  (``python -m evflow_torch.probes.staging``).
+  (``python -m evflow_torch.probes.staging``);
+* ``unit_loop``: ``benchmarks/probe_loop_dyn4.py`` and ``probe_loop_dyn5.py``,
+  one conv+LIF unit as the body of a runtime layer loop, its membrane,
+  weights and spike slots staged per layer with TMA tensor copies
+  (``python -m evflow_torch.probes.unit_loop``).
 """

@@ -4,20 +4,23 @@ C entry point, the comparison with the plain version, and the timing.
 A probe module keeps only its kernels' wrappers, its cases, its tolerances
 and its bounds; each case is a ``NamedTuple`` with at least ``name``, ``fn``
 (the wrapper, which carries a ``launches`` counter), ``args`` and
-``kwargs``.
+``kwargs``. The staging and unit-loop probes share ``Case``, which also
+counts what the function needs (and so its ``bound``) apart from what the
+TPU probe stages and issues.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, NamedTuple, Optional
 
 import torch
 
-from evflow_torch.device import resolve_device
+from evflow_torch.device import BF16_FLOP_PER_S, HBM_BYTES_PER_S, resolve_device
 
-__all__ = ["on_card", "launch", "compare", "time_ms", "run_cases", "card_device"]
+__all__ = ["on_card", "launch", "compare", "time_ms", "run_cases", "card_device", "Case",
+           "bound"]
 
 
 def on_card(name: str, *ts: torch.Tensor, align: int = 0) -> bool:
@@ -98,3 +101,24 @@ def run_cases(cases: Iterable, repeats: int, row: Callable[[object, float], dict
         rows.append({"name": case.name, "wrapper": case.fn.__name__, "ms": ms,
                      **row(case, ms), "launches": case.fn.launches - before})
     return rows
+
+
+class Case(NamedTuple):
+    name: str
+    fn: Callable
+    plain: Callable
+    args: tuple
+    kwargs: dict
+    nbytes: int          # bytes the function needs: each needed input read once, the output written
+    flops: float         # operations the function needs
+    staged_bytes: int    # bytes the TPU probe stages
+    issued_flops: float  # operations the TPU probe issues
+    replaces: str        # the JAX probe's pallas_call
+
+
+def bound(case: Case):
+    """(least ms on an H100 SXM for what the function needs, "bytes" |
+    "operations")."""
+    t_bytes = case.nbytes / HBM_BYTES_PER_S
+    t_ops = case.flops / BF16_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")

@@ -36,13 +36,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
-from typing import Callable, List, NamedTuple, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
-from evflow_torch.device import BF16_FLOP_PER_S, HBM_BYTES_PER_S, describe_card
-from evflow_torch.probes._harness import card_device, launch, on_card, run_cases
+from evflow_torch.device import describe_card
+from evflow_torch.probes._harness import Case, bound, card_device, launch, on_card, run_cases
 
 __all__ = [
     "row_window_copy", "row_window_copy_plain", "halo_sums_plain", "layer_grid",
@@ -212,19 +212,6 @@ for _fn in WRAPPERS:
 
 # --- the probes' cases ----------------------------------------------------------
 
-class Case(NamedTuple):
-    name: str
-    fn: Callable
-    plain: Callable
-    args: tuple
-    kwargs: dict
-    nbytes: int          # what the function needs: see row_window_bytes, layer_grid_bytes
-    flops: float         # what the function needs: 2 C C (E-2) W per even layer; 0 for copies
-    staged_bytes: int    # what the probe stages: see row_window_bytes, layer_grid_bytes
-    issued_flops: float  # what the probe issues: 2 C 9C (E-2) W L; 0 for the copies
-    replaces: str        # the JAX probe's pallas_call
-
-
 def row_window_bytes(c: int, h: int, w: int, th: int, halo: int, esize: int):
     """(needed, staged): the f32 interior written, and the interior read once
     (needed) or every tile's halo'd E-row window read (staged)."""
@@ -238,14 +225,6 @@ def layer_grid_bytes(layers: int, c: int, e: int, w: int):
     even = (layers + 1) // 2
     rest = even * c * (e - 2) * w * 2 + c * (e - 2) * w * 4
     return even * c * 9 * c * 2 + rest, layers * c * 9 * c * 2 + rest
-
-
-def bound(case: Case):
-    """(least ms on an H100 SXM for what the function needs, "bytes" |
-    "operations")."""
-    t_bytes = case.nbytes / HBM_BYTES_PER_S
-    t_ops = case.flops / BF16_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
 
 
 def probe_cases(device, seed: int = 0) -> List[Case]:

@@ -40,6 +40,11 @@ def firenet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
         raise NotImplementedError("quantized FireNet models are not ported yet")
     if cfg.get("state_dtype") not in (None, "float32"):
         raise NotImplementedError("only f32 LIF state is ported")
+    # auto, im2col, dypack and lax all compute the same f32 conv; dypack_int8
+    # quantises every 3x3 conv to int8, which the port does not do yet
+    if cfg.get("conv_impl") == "dypack_int8":
+        raise NotImplementedError("conv_impl 'dypack_int8' (int8 convs) is not ported yet: "
+                                  "ROADMAP.md queue 1, item 8")
     kwargs = dict(
         num_bins=int(cfg.get("num_bins", 2)),
         base_num_channels=int(cfg.get("base_num_channels", 32)),

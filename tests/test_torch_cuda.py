@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version at
 shapes that leave ragged tiles, the launch counters, the fused evaluation
 path, the whole-network kernels (K3, K4, K5, K6, K7) against
-``firenet_step_plain``, and the in-kernel dot and staging probes against
-theirs.
+``firenet_step_plain``, and the in-kernel dot, staging and unit-loop probes
+against theirs.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -336,3 +336,56 @@ def test_staging_refuses_what_it_cannot_take(cuda):
         S.layer_grid(torch.zeros(1, 72, 648, device=cuda, dtype=torch.bfloat16),
                      torch.zeros(1, 72, 12, 16, device=cuda, dtype=torch.bfloat16), 12)
     assert (S.row_window_copy.launches, S.layer_grid.launches) == before
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 24, 256, 8), (4, 32, 20, 40, 6), (2, 32, 16, 24, 8)],
+                         ids=["full", "ragged", "two-layers"])
+@pytest.mark.parametrize("index", range(4), ids=["13", "14", "15", "dma"])
+def test_unit_loop_matches_plain(cuda, shape, index):
+    """Each unit-loop case against its plain version: at the JAX probes'
+    shapes, at W=40 (three tiles of 16 columns, the last one of 8) with E=20
+    and TH=6, and at L=2 over W=24: equal, case 14 too (every sum exact,
+    ``unit_loop.tolerance``); one launch each, and K8j's stored spike slots
+    equal to the plain slots."""
+    from evflow_torch.probes import unit_loop as U
+    from evflow_torch.probes._harness import compare
+
+    case = U.probe_cases(cuda, seed=index, shape=shape)[index]
+    before = case.fn.launches
+    out = case.fn(*case.args, **case.kwargs)
+    assert case.fn.launches == before + 1
+    assert U.last_launch["grid"] == -(-shape[3] // 16)
+    ref = case.plain(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    res = compare(out, ref, U.tolerance(case, ref))
+    assert res["ok"], res
+    assert torch.equal(out, ref)
+    if case.fn is U.unit_loop_dma:
+        out2, slots = case.fn(*case.args, **case.kwargs, spike_slots=True)
+        _, ref_slots = case.plain(*case.args, **case.kwargs, spike_slots=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out2, out) and torch.equal(slots, ref_slots)
+        assert 0 < float(ref_slots.float().mean()) < 1
+
+
+def test_unit_loop_refuses_what_it_cannot_take(cuda):
+    """C other than the kernel's 32, an operand 8 bytes past a 16-byte
+    boundary, and operands on two devices are refused before any launch."""
+    import numpy as np
+
+    from evflow_torch.probes import unit_loop as U
+
+    rng = np.random.default_rng(0)
+    x, w, p, mem = U.draw_operands(rng, 2, 32, 16, 24, device=cuda)
+    before = (U.unit_loop.launches, U.unit_loop_dma.launches)
+    with pytest.raises(ValueError, match="C=32"):
+        U.unit_loop(*U.draw_operands(rng, 2, 16, 16, 24, device=cuda))
+    shifted = torch.zeros(x.numel() + 4, device=cuda, dtype=x.dtype)[4:].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        U.unit_loop(shifted, w, p, mem)
+    with pytest.raises(ValueError, match="one device"):
+        U.unit_loop(x, w, p.cpu(), mem)
+    xd, md, sd, wd, pd = U.draw_operands(rng, 2, 32, 16, 24, device=cuda, dma=True)
+    with pytest.raises(ValueError, match="one device"):
+        U.unit_loop_dma(xd, md, sd.cpu(), wd, pd)
+    assert (U.unit_loop.launches, U.unit_loop_dma.launches) == before

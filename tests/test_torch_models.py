@@ -182,3 +182,37 @@ def test_from_jax_variables_round_trip(tmp_path, cfg_extra):
     assert len(flat_a) == len(flat_b)
     for path_, leaf in flat_a:
         np.testing.assert_array_equal(np.asarray(flat_b[path_]), leaf, err_msg=str(path_))
+
+
+def test_conv_impl_int8_is_refused():
+    """``conv_impl: dypack_int8`` runs every 3x3 conv in int8 in the
+    reference; the port has no int8 conv yet, so the config is refused (in
+    ``firenet_kwargs`` and ``build_model``) before any model is built or
+    kernel launched, instead of silently running f32 convs."""
+    from evflow_torch.ops.conv_lif import fused_conv_lif
+    from evflow_torch.ops.conv_lif_cmajor import fused_conv_lif_cmajor
+    from evflow_torch.registry import firenet_kwargs
+
+    before = (fused_conv_lif.launches, fused_conv_lif_cmajor.launches)
+    cfg = model_cfg("LIFFireNet", conv_impl="dypack_int8")
+    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
+        firenet_kwargs(cfg)
+    with pytest.raises(NotImplementedError, match="dypack_int8"):
+        build_model(cfg, device="cpu")
+    assert (fused_conv_lif.launches, fused_conv_lif_cmajor.launches) == before
+
+
+@pytest.mark.parametrize("impl", ["auto", "im2col", "dypack", "lax"])
+def test_conv_impl_f32_values_build_the_default_model(impl):
+    """The four f32 ``conv_impl`` values compute the same conv: each builds
+    a model whose flow and states on a seeded window equal the default's."""
+    cfg = model_cfg("LIFFireNet")
+    _, v = seeded_flax_firenet(cfg, seed=10)
+    ref, tm = port_model(cfg, v), port_model(dict(cfg, conv_impl=impl), v)
+    cnt = torch.tensor(counts(np.random.default_rng(11), (B, H, W, 2)))
+    with torch.no_grad():
+        rout, rst = ref(None, cnt)
+        tout, tst = tm(None, cnt)
+    assert torch.equal(tout["flow"][0], rout["flow"][0])
+    assert all(torch.equal(a.mem, b.mem) and torch.equal(a.spk, b.spk) for a, b in zip(tst, rst))
+    assert float(rout["flow"][0].abs().max()) > 0  # a flow, not zeros
