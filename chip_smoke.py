@@ -74,6 +74,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (the bytes and operations of the cone of rows the outputs need), the
    CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
    W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
+10. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
+   K8f's k1-k5 and K8h's k10-k12, a layer loop reading and writing a
+   shared-memory scratch at the runtime layer index) at the JAX probes'
+   shapes (L=4, C=32, E=24, W=256) through ``run_all`` (launch counters 0
+   just before, read just after; exactly 1 + repeats launches per case),
+   each against its plain version (equal, on integer operands scaled 16^l
+   per layer that make every sum exact: ``loop_dyn.draw_operands``), k3's
+   and k11's whole scratch (``scratch=True``) equal to the plain one, and
+   k4 launched into a NaN-filled output, every element written; with
+   device ms, the bound (the function's bytes over 3.35 TB/s, or its
+   operations over 67 TFLOP/s f32 or 989 bf16), GB/s and TFLOP/s of what
+   it needs, the CTAs, threads and shared bytes, and one PyTorch call for
+   the same function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0],
+   2)``, ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1,
+   2, 0] with x, one ``torch.matmul`` of the stacked ``[C, L 3C] @ [L 3C,
+   E W]`` operands.
 
 The line before the last is one JSON object with a row per kernel (for the
 per-layer kernels, times summed over one window's 7 launches at the bench
@@ -97,7 +113,7 @@ import tempfile
 import time
 
 PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes", "staging",
-          "unitloop")
+          "unitloop", "loopdyn")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # (case, Cin, recurrent, hard reset)
@@ -808,6 +824,7 @@ PROBES = {  # probe wrapper: the JAX probe's pallas_call
 PROBE_SOURCE = "evflow_torch/csrc/probe_inkernel_dot.cu"
 STAGING_SOURCE = "evflow_torch/csrc/probe_staging.cu"
 UNITLOOP_SOURCE = "evflow_torch/csrc/probe_unit_loop.cu"
+LOOPDYN_SOURCE = "evflow_torch/csrc/probe_loop_dyn.cu"
 
 
 def probe_row_name(case):
@@ -1060,6 +1077,91 @@ def phase_unitloop(state):
     state.setdefault("launches", {}).update(launches)
 
 
+def loopdyn_yardstick(case):
+    """One PyTorch call for the body's function, never called by the port:
+    the layer sum ``x.sum(0)`` in f32 (k1, k10); ``torch.tensordot`` of
+    each layer's count among the slots read ([1, 1, 2, 0]) with x (k5);
+    ``torch.mul(x[0], 2)`` (k3, k11, in f32: the x2 alone, no bf16 scratch);
+    ``torch.mul(x, 3)`` (k4); one product of the stacked weights ``[C, L
+    3C]`` against the stacked, thrice repeated layers ``[L 3C, E W]``, both
+    built here (k2 in f32 without TF32, k12 in bf16)."""
+    import torch
+
+    from evflow_torch.probes import loop_dyn as D
+
+    body, x = D.body_of(case), case.args[0]
+    layers = x.shape[0]
+    if body in ("k1", "k10"):
+        return lambda: x.sum(0, dtype=torch.float32)
+    if body == "k5":
+        coef = torch.tensor([sum(D.slot_of(l) == j for l in range(layers)) for j in range(layers)],
+                            dtype=x.dtype, device=x.device)
+        return lambda: torch.tensordot(coef, x, dims=1)
+    if body in ("k3", "k11"):
+        return lambda: torch.mul(x[0], 2)
+    if body == "k4":
+        return lambda: torch.mul(x, 3)
+    w = case.args[1]
+    c = w.shape[1]
+    stacked = w.permute(1, 0, 2).reshape(c, -1).contiguous()
+    layers3 = x.reshape(layers, c, -1).repeat(1, 3, 1).reshape(layers * 3 * c, -1).contiguous()
+    return lambda: torch.matmul(stacked, layers3)
+
+
+def phase_loopdyn(state):
+    """The runtime-indexed loop probes at the JAX probes' shapes: the entry
+    point ``run_all`` with the launch counters 0 just before and read just
+    after, then each body against its plain version (k3 and k11 also with
+    their whole scratch, k4 also into a NaN-filled output), and its times
+    beside the bound and the yardstick."""
+    import torch
+
+    from evflow_torch.probes import loop_dyn as D
+    from evflow_torch.probes._harness import compare
+
+    name = card()
+    per_case = counted_run_all(D, "loopdyn", name)
+
+    times, errs, launches = {}, {}, {}
+    for case in D.probe_cases("cuda", seed=0):
+        body = D.body_of(case)
+        out = case.fn(*case.args, **case.kwargs)
+        launch = dict(D.last_launch)
+        ref = case.plain(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        res = compare(out, ref, D.tolerance(case, ref))
+        if body in ("k3", "k11"):
+            # the runtime-index stores to every layer, which the output cannot show
+            out2, scr = case.fn(*case.args, **case.kwargs, scratch=True)
+            _, ref_scr = case.plain(*case.args, **case.kwargs, scratch=True)
+            res["scratch_equal"] = torch.equal(scr, ref_scr) and torch.equal(out2, out)
+            res["ok"] = res["ok"] and res["scratch_equal"]
+        if body == "k4":
+            filled = torch.full_like(ref, float("nan"))
+            case.fn(*case.args, out=filled)
+            res["nan_out_written"] = torch.equal(filled, ref)
+            res["ok"] = res["ok"] and res["nan_out_written"]
+        ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
+        plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
+        lib_ms = device_ms(loopdyn_yardstick(case), iters=20)
+        bms, by = D.bound(case)
+        row = f"{case.fn.__name__}[{body}]"
+        emit({"phase": "loopdyn", "case": case.name, "kernel": row, **res, "ms": ms,
+              "gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
+              "ctas": launch["grid"], "threads": launch["threads"], "smem": launch["smem"],
+              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+              "card": name})
+        if not res["ok"]:
+            raise SystemExit(f"loop probe {case.name} disagrees with its plain version: {res}")
+        times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        errs[row] = res["max_abs_err"]
+        launches[row] = per_case[case.name]
+        state.setdefault("probe_rows", []).append((row, LOOPDYN_SOURCE, case.replaces))
+    state.setdefault("times", {}).update(times)
+    state.setdefault("max_abs_err", {}).update(errs)
+    state.setdefault("launches", {}).update(launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1083,7 +1185,8 @@ def main(argv=None):
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet,
-             "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop}
+             "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
+             "loopdyn": phase_loopdyn}
     try:
         for p in PHASES:
             if p in phases:

@@ -1,0 +1,428 @@
+// The runtime-indexed loop probes: a layer loop with a runtime trip count
+// that reads and writes a shared-memory scratch at the runtime layer index,
+// for sm_90a. Four kernels, templated on the scratch type and index map.
+//
+// Replaces the TPU kernels of benchmarks/probe_loop_dyn.py (K8f, the
+// pallas_call in `run`, :21; x [L, C, E, W] f32, w [L, C, 3C] f32, a VMEM
+// scratch [L, C, E, W]) and benchmarks/probe_loop_dyn3.py (K8h, the same
+// bodies with bf16 scratch or operands, :29, :43, :61):
+//   load_sum_kernel<float, Identity>   k1  (:40): scr = x; out = sum_l scr[l]
+//   load_sum_kernel<float, Slot>       k5  (:84): out = sum_l scr[s(l)],
+//                                      s(l) = l==1 ? 0 : l==2 ? 1 : 2
+//   load_sum_kernel<bf16, Identity>    k10 (dyn3 :22): k1 with bf16 scratch,
+//                                      each element widened before the add
+//   store_kernel<float>                k3  (:64): scr[l] = 2 x[l]; out = scr[0]
+//   store_kernel<bf16>                 k11 (dyn3 :37): scr[l] = bf16(x[l]) * 2
+//                                      in bf16; out = f32(scr[0])
+//   store_bulk_kernel                  k4  (:73): out[l] = 3 x[l] through a
+//                                      stage and a copy to the runtime index;
+//                                      it also stands for k9
+//                                      (probe_loop_dyn2.py:83, the same
+//                                      function with the fixed `.at[l]`)
+//   load_dot_f32_kernel                k2  (:50): out = sum_l w[l] @
+//                                      concat(scr[l], scr[l], scr[l]), f32
+//   load_dot_bf16_kernel               k12 (dyn3 :51): k2 on bf16 x and w,
+//                                      f32 accumulation
+// with the pixels p = (e, w) of a layer flattened: x [L, C, P], P = E W.
+//
+// Design. The TPU keeps the whole [L, C, E, W] scratch (3.1 MB in f32) in
+// VMEM under grid=(1,); a CTA has 227 KB. So each CTA owns TP = 64 pixels
+// of every channel and keeps its own [L, C, TP] slab of the scratch in
+// shared memory (32 KB in f32 at L=4; 96 CTAs at E W = 6144). The layer
+// count L is a kernel argument and every layer loop carries `#pragma unroll
+// 1`, so the scratch index l (or s(l)) stays a runtime offset into shared
+// memory, as fori_loop's is into VMEM. Each thread owns 8 consecutive
+// pixels of one channel (256 threads = 32 channels x 8 groups); its
+// running sums are 8 registers with compile-time indices, never an array
+// indexed by l.
+//   Load-sum: the slab is filled from x with 16-byte loads (the `scr[:] =
+// x[:]` copy, every layer), then after a barrier each layer's row is read
+// at the runtime index and added in f32.
+//   Store: each layer's 2 x[l] is rounded to the scratch type (bf16: round
+// first, then x2 in bf16, as k11 does; the doubling is exact) and written
+// at the runtime index; after a barrier scr[0] is read back by other threads
+// (channels across lanes) and written out widened to f32. Only scr[0] shows
+// in the output, so where `scratch` is given the whole slab is written out
+// as well, on a branch that the timed launches skip.
+//   Bulk store: a CTA owns one contiguous, 16-byte aligned run of TILE
+// elements of the flattened layer [C P]. For each l its threads write 3
+// x[l] into a shared stage, fence the writes to the async proxy and meet at
+// a barrier; one thread then issues one TMA bulk store of the run to out +
+// l C P + offset (cp.async.bulk.global.shared::cta), commits it and waits
+// until the stage has been read before the next layer overwrites it: the
+// TPU's start()/wait() per layer.
+//   Dot: w[l] ([C, 3C], 12 KB in f32) is staged into shared memory at the
+// runtime l each layer; the concat is not built, K index k reads channel k
+// mod C of the slab. f32 products must stay exact (TF32 would round the
+// operands), so k2 runs on the CUDA cores: per thread 96 x 8 fused
+// multiply-adds per layer, the weight rows padded to 3C + 1 words so that
+// the four channels of a warp read four banks. k12 runs mma.sync m16n8k16
+// bf16 -> f32 (conv_lif_common.cuh's mma_bf16_16816): output channels on
+// M (two m16 fragments, A = w[l] from shared memory, rows padded by 8), the
+// warp's 8 pixels on N, 3C / 16 = 6 k16 steps, B packed from the slab's
+// channel rows (channel block 16 ks mod C).
+//
+// Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s f32, 989 bf16) at the
+// probes' shapes (L=4, C=32, E=24, W=256), for what each function needs
+// (probes/loop_dyn.py::loop_dyn_bytes): every body is bound by bytes.
+//   k1 3.93 MB -> 1.17 us, k5 3.15 MB (x[3] is never read) -> 0.94 us,
+//   k10 2.36 MB -> 0.70 us, k3 and k11 1.57 MB (x[0] and out) -> 0.47 us,
+//   k4 6.29 MB -> 1.88 us, k2 3.98 MB -> 1.19 us (50.3 MFLOP f32, the three
+//   weight blocks folded: 0.75 us), k12 2.38 MB -> 0.71 us.
+// The design reads each input byte once and writes each output byte once
+// (k3 and k11 also read x[1..L-1], k5 also x[3], as the TPU bodies do), on
+// 96 CTAs, one pass and no pipelining: at a few MB per launch the time is
+// set by the launch and the latency of one synchronous pass, not the bytes.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -o libprobe_loop_dyn.so probe_loop_dyn.cu
+#include "conv_lif_common.cuh"
+#include "tma.cuh"
+
+namespace evflow {
+namespace loopdyn {
+
+constexpr int C = 32;          // channels: the probes' C, the only width the kernels take
+constexpr int TP = 64;         // pixels of every channel per CTA
+constexpr int PPT = 8;         // consecutive pixels per thread
+constexpr int GROUPS = TP / PPT;
+constexpr int THREADS = C * GROUPS;  // 256
+constexpr int TILE = C * TP;   // elements of the flattened layer per bulk-store CTA
+constexpr int K = 3 * C;       // the dot's depth: concat(h, h, h)
+constexpr int WPITCH_F32 = K + 1;
+constexpr int WPITCH_BF16 = K + 8;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
+
+enum Op { LOAD_SUM = 0, STORE = 1, STORE_BULK = 2, LOAD_DOT = 3 };
+
+// Mirrored by ctypes in evflow_torch/probes/loop_dyn.py.
+struct LoopDynArgs {
+  const void* x;  // [L, C, P]: f32; bf16 where `bf16` is set (load-sum, dot)
+  const void* w;  // [L, C, 3C] of x's type (dot), else null
+  void* out;      // [C, P] f32, or [L, C, P] f32 (bulk store)
+  void* scratch;  // [L, C, P] of the scratch type (store), or null
+  int op;         // Op
+  int bf16;       // load-sum, dot: x (and w) bf16; store: bf16 scratch
+  int slot;       // load-sum: read slot s(l), not l
+  int L, C, P;
+  int grid, threads, smem;  // set by the launch
+};
+
+struct Identity {
+  __device__ __forceinline__ static int at(int l) { return l; }
+};
+struct Slot {
+  __device__ __forceinline__ static int at(int l) { return l == 1 ? 0 : (l == 2 ? 1 : 2); }
+};
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[PPT]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[PPT]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) v[i] = __bfloat162float(h[i]);
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[PPT]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// 2 v rounded to the scratch type: f32 directly; bf16 rounded first, then
+// doubled in bf16.
+__device__ __forceinline__ void store_doubled(float* p, const float (&v)[PPT]) {
+  float d[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) d[i] = __fmul_rn(v[i], 2.f);
+  store8(p, d);
+}
+
+__device__ __forceinline__ void store_doubled(__nv_bfloat16* p, const float (&v)[PPT]) {
+  uint4 u;
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&u);
+  const __nv_bfloat16 two = __float2bfloat16_rn(2.f);
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) h[i] = __hmul(__float2bfloat16_rn(v[i]), two);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ void copy8(float* dst, const float* src) {
+  float v[PPT];
+  load8(src, v);
+  store8(dst, v);
+}
+
+__device__ __forceinline__ void copy8(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+
+// x[l, c, p0 : p0 + n] of every layer and channel into scr[l][c][0 : n], 16
+// bytes at a time, zeros past n (n and p0 are multiples of 8).
+template <typename T>
+__device__ void fill_slab(const T* __restrict__ x, T* scr, int L, int P, int p0, int n) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int VPR = TP / V;  // 16-byte pieces per slab row
+  for (int i = threadIdx.x; i < L * C * VPR; i += THREADS) {
+    const int row = i / VPR, v = i - row * VPR;  // row = l C + c
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (v * V < n) val = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * P + p0 + v * V);
+    *reinterpret_cast<uint4*>(scr + row * TP + v * V) = val;
+  }
+}
+
+template <typename T, typename Idx>
+__global__ void __launch_bounds__(THREADS) load_sum_kernel(const T* __restrict__ x,
+                                                           float* __restrict__ out, int L,
+                                                           int P) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* scr = reinterpret_cast<T*>(smem_raw);  // [L][C][TP]
+  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
+  fill_slab(x, scr, L, P, p0, n);
+  __syncthreads();
+  const int c = threadIdx.x / GROUPS, px = (threadIdx.x % GROUPS) * PPT;
+  float acc[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    float v[PPT];
+    load8(scr + (Idx::at(l) * C + c) * TP + px, v);  // the runtime layer (or slot) index
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) acc[i] = __fadd_rn(acc[i], v[i]);
+  }
+  if (px < n) store8(out + static_cast<size_t>(c) * P + p0 + px, acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) store_kernel(const float* __restrict__ x,
+                                                        float* __restrict__ out,
+                                                        T* __restrict__ scratch, int L, int P) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* scr = reinterpret_cast<T*>(smem_raw);  // [L][C][TP]
+  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
+  const int c = threadIdx.x / GROUPS, px = (threadIdx.x % GROUPS) * PPT;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    float v[PPT];
+    if (px < n) {
+      load8(x + (static_cast<size_t>(l) * C + c) * P + p0 + px, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < PPT; ++i) v[i] = 0.f;
+    }
+    store_doubled(scr + (l * C + c) * TP + px, v);  // the runtime layer index
+  }
+  __syncthreads();
+  // read back by other threads: channels across lanes
+  const int rc = threadIdx.x % C, rpx = (threadIdx.x / C) * PPT;
+  if (rpx >= n) return;
+  float v[PPT];
+  load8(scr + rc * TP + rpx, v);
+  store8(out + static_cast<size_t>(rc) * P + p0 + rpx, v);
+  if (scratch != nullptr) {
+#pragma unroll 1
+    for (int l = 0; l < L; ++l) {
+      copy8(scratch + (static_cast<size_t>(l) * C + rc) * P + p0 + rpx, scr + (l * C + rc) * TP + rpx);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) store_bulk_kernel(const float* __restrict__ x,
+                                                             float* __restrict__ out, int L,
+                                                             int layer) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* stage = reinterpret_cast<float*>(smem_raw);  // [TILE]
+  const int t0 = blockIdx.x * TILE, n = min(TILE, layer - t0);  // n a multiple of 8
+  // x[l] and out[l] by pointer steps: a 64-bit l * layer product here
+  // cost a 4-byte spill
+  const float* src = x + t0;
+  float* dst = out + t0;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l, src += layer, dst += layer) {
+    for (int i = threadIdx.x * 4; i < n; i += THREADS * 4) {
+      float4 v = *reinterpret_cast<const float4*>(src + i);
+      v.x = __fmul_rn(v.x, 3.f);
+      v.y = __fmul_rn(v.y, 3.f);
+      v.z = __fmul_rn(v.z, 3.f);
+      v.w = __fmul_rn(v.w, 3.f);
+      *reinterpret_cast<float4*>(stage + i) = v;
+    }
+    fence_proxy_async();  // this thread's stage writes, before the bulk store reads them
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      bulk_store(dst, stage, n * 4);  // out[l]: the runtime layer index
+      bulk_commit();
+      bulk_wait_read();  // the stage may be written again
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) bulk_wait();
+}
+
+__global__ void __launch_bounds__(THREADS) load_dot_f32_kernel(const float* __restrict__ x,
+                                                               const float* __restrict__ w,
+                                                               float* __restrict__ out, int L,
+                                                               int P) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* scr = reinterpret_cast<float*>(smem_raw);  // [L][C][TP]
+  float* wsm = scr + L * C * TP;                    // [C][WPITCH_F32]
+  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
+  fill_slab(x, scr, L, P, p0, n);
+  const int co = threadIdx.x / GROUPS, px = (threadIdx.x % GROUPS) * PPT;
+  float acc[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    __syncthreads();  // the slab is filled; the last layer's weights are read
+    const float* wl = w + static_cast<size_t>(l) * C * K;  // w[l]: the runtime layer index
+    for (int i = threadIdx.x; i < C * K; i += THREADS) {
+      const int r = i / K;
+      wsm[r * WPITCH_F32 + i - r * K] = wl[i];
+    }
+    __syncthreads();
+    const float* h = scr + l * C * TP + px;  // scr[l]: the runtime layer index
+    const float* wr = wsm + co * WPITCH_F32;
+#pragma unroll 1
+    for (int b = 0; b < 3; ++b) {  // the three concatenated copies of scr[l]
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) {
+        const float wk = wr[b * C + c];
+        float v[PPT];
+        load8(h + c * TP, v);
+#pragma unroll
+        for (int i = 0; i < PPT; ++i) acc[i] = fmaf(wk, v[i], acc[i]);
+      }
+    }
+  }
+  if (px < n) store8(out + static_cast<size_t>(co) * P + p0 + px, acc);
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__global__ void __launch_bounds__(THREADS) load_dot_bf16_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    float* __restrict__ out, int L, int P) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* scr = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [L][C][TP]
+  __nv_bfloat16* wsm = scr + L * C * TP;                             // [C][WPITCH_BF16]
+  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
+  fill_slab(x, scr, L, P, p0, n);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int n0 = warp * 8;  // the warp's 8 pixels: N of one n8 fragment
+  float d[2][4];
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[mf][i] = 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    __syncthreads();  // the slab is filled; the last layer's weights are read
+    const uint4* wl = reinterpret_cast<const uint4*>(w + static_cast<size_t>(l) * C * K);
+    for (int i = threadIdx.x; i < C * K / 8; i += THREADS) {  // w[l]: the runtime layer index
+      const int r = i / (K / 8), v = i - r * (K / 8);
+      *reinterpret_cast<uint4*>(wsm + r * WPITCH_BF16 + v * 8) = wl[i];
+    }
+    __syncthreads();
+    const __nv_bfloat16* h = scr + l * C * TP;  // scr[l]: the runtime layer index
+#pragma unroll
+    for (int ks = 0; ks < K / 16; ++ks) {
+      const int k0 = ks * 16, c0 = k0 % C;  // concat: K index k is channel k mod C
+      const __nv_bfloat16* pb = h + (c0 + 2 * q) * TP + n0 + g;
+      const uint32_t b0 = pack2(pb[0], pb[TP]), b1 = pack2(pb[8 * TP], pb[9 * TP]);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        const __nv_bfloat16* pa = wsm + (mf * 16 + g) * WPITCH_BF16 + k0 + 2 * q;
+        const uint32_t a[4] = {lds32(pa), lds32(pa + 8 * WPITCH_BF16), lds32(pa + 8),
+                               lds32(pa + 8 * WPITCH_BF16 + 8)};
+        mma_bf16_16816(d[mf], a, b0, b1);
+      }
+    }
+  }
+  if (n0 >= n) return;
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf) {
+    float* o = out + static_cast<size_t>(mf * 16 + g) * P + p0 + n0 + 2 * q;
+    *reinterpret_cast<float2*>(o) = make_float2(d[mf][0], d[mf][1]);
+    *reinterpret_cast<float2*>(o + 8 * static_cast<size_t>(P)) = make_float2(d[mf][2], d[mf][3]);
+  }
+}
+
+template <typename Kernel, typename... Args>
+int run(LoopDynArgs& a, Kernel kernel, int grid, int smem, cudaStream_t stream, Args... args) {
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  a.grid = grid;
+  a.threads = THREADS;
+  a.smem = smem;
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(LoopDynArgs& a, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const int tiles = (a.P + TP - 1) / TP;
+  const int slab = a.L * C * TP * (a.bf16 ? 2 : 4);
+  float* out = static_cast<float*>(a.out);
+  switch (a.op) {
+    case LOAD_SUM:
+      if (a.bf16) {
+        auto k = a.slot ? load_sum_kernel<bf, Slot> : load_sum_kernel<bf, Identity>;
+        return run(a, k, tiles, slab, s, static_cast<const bf*>(a.x), out, a.L, a.P);
+      } else {
+        auto k = a.slot ? load_sum_kernel<float, Slot> : load_sum_kernel<float, Identity>;
+        return run(a, k, tiles, slab, s, static_cast<const float*>(a.x), out, a.L, a.P);
+      }
+    case STORE:
+      if (a.bf16) {
+        return run(a, store_kernel<bf>, tiles, slab, s, static_cast<const float*>(a.x), out,
+                   static_cast<bf*>(a.scratch), a.L, a.P);
+      }
+      return run(a, store_kernel<float>, tiles, slab, s, static_cast<const float*>(a.x), out,
+                 static_cast<float*>(a.scratch), a.L, a.P);
+    case STORE_BULK:
+      return run(a, store_bulk_kernel, (C * a.P + TILE - 1) / TILE, TILE * 4, s,
+                 static_cast<const float*>(a.x), out, a.L, C * a.P);
+    default:  // LOAD_DOT
+      if (a.bf16) {
+        return run(a, load_dot_bf16_kernel, tiles, slab + C * WPITCH_BF16 * 2, s,
+                   static_cast<const bf*>(a.x), static_cast<const bf*>(a.w), out, a.L, a.P);
+      }
+      return run(a, load_dot_f32_kernel, tiles, slab + C * WPITCH_F32 * 4, s,
+                 static_cast<const float*>(a.x), static_cast<const float*>(a.w), out, a.L, a.P);
+  }
+}
+
+bool args_valid(const LoopDynArgs& a) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
+                         reinterpret_cast<uintptr_t>(a.out) |
+                         reinterpret_cast<uintptr_t>(a.scratch);
+  return a.x != nullptr && a.out != nullptr && ptrs % 16 == 0 && a.op >= LOAD_SUM &&
+         a.op <= LOAD_DOT && a.C == C && a.L >= 1 && a.P >= 8 && a.P % 8 == 0 &&
+         (!a.slot || (a.op == LOAD_SUM && a.L >= 3)) && (a.op != LOAD_DOT || a.w != nullptr) &&
+         (a.op == STORE || a.scratch == nullptr) && (a.op != STORE_BULK || !a.bf16);
+}
+
+}  // namespace loopdyn
+}  // namespace evflow
+
+// The one entry point: the kernel `op` names. It returns the launch's
+// cudaError_t (0 on success) and refuses what the kernels do not take: C
+// other than 32, pointers not 16-byte aligned, E W not a multiple of 8, the
+// slot map with fewer than 3 layers, a slab beyond a CTA's shared memory.
+extern "C" int probe_loop_dyn(evflow::loopdyn::LoopDynArgs* a, void* stream) {
+  using namespace evflow::loopdyn;
+  if (!args_valid(*a)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(*a, static_cast<cudaStream_t>(stream));
+}

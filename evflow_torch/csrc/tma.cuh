@@ -1,6 +1,7 @@
 // The TMA engine's copies from device memory into shared memory, completing
-// on an mbarrier, for sm_90a: shared by the probes that stage their operands
-// (probe_staging.cu, probe_unit_loop.cu).
+// on an mbarrier, and its bulk stores back, for sm_90a: shared by the probes
+// that stage their operands (probe_staging.cu, probe_unit_loop.cu) and
+// store them (probe_loop_dyn.cu).
 #pragma once
 
 #include <cuda.h>
@@ -64,9 +65,33 @@ __device__ __forceinline__ void tensor_copy_4d(void* dst, const CUtensorMap* map
 }
 
 // Orders this thread's generic-proxy accesses of shared memory before later
-// bulk copies into it.
+// bulk copies into it (or, for a bulk store, out of it).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) from 16-byte aligned shared to 16-byte aligned
+// global memory, in the current bulk async-group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// Closes the current bulk async-group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until every committed bulk store has read its shared-memory source,
+// which may then be written again.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until every committed bulk store has completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace evflow

@@ -15,5 +15,9 @@ wrapper and a ``main()`` that prints the probe's measurements on the card:
 * ``unit_loop``: ``benchmarks/probe_loop_dyn4.py`` and ``probe_loop_dyn5.py``,
   one conv+LIF unit as the body of a runtime layer loop, its membrane,
   weights and spike slots staged per layer with TMA tensor copies
-  (``python -m evflow_torch.probes.unit_loop``).
+  (``python -m evflow_torch.probes.unit_loop``);
+* ``loop_dyn``: ``benchmarks/probe_loop_dyn.py`` and ``probe_loop_dyn3.py``,
+  a runtime layer loop reading and writing a shared-memory scratch at the
+  runtime layer index: load-sums, stores, a TMA bulk store and dots
+  (``python -m evflow_torch.probes.loop_dyn``).
 """

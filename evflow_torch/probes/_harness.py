@@ -4,9 +4,10 @@ C entry point, the comparison with the plain version, and the timing.
 A probe module keeps only its kernels' wrappers, its cases, its tolerances
 and its bounds; each case is a ``NamedTuple`` with at least ``name``, ``fn``
 (the wrapper, which carries a ``launches`` counter), ``args`` and
-``kwargs``. The staging and unit-loop probes share ``Case``, which also
-counts what the function needs (and so its ``bound``) apart from what the
-TPU probe stages and issues.
+``kwargs``. The staging, unit-loop and loop_dyn probes share ``Case``,
+which also counts what the function needs (and so its ``bound``, at the
+peak rate of its operations' type) apart from what the TPU probe stages
+and issues.
 """
 
 from __future__ import annotations
@@ -114,11 +115,13 @@ class Case(NamedTuple):
     staged_bytes: int    # bytes the TPU probe stages
     issued_flops: float  # operations the TPU probe issues
     replaces: str        # the JAX probe's pallas_call
+    rate: float = BF16_FLOP_PER_S  # the card's peak rate for the type of those operations
 
 
 def bound(case: Case):
     """(least ms on an H100 SXM for what the function needs, "bytes" |
-    "operations")."""
+    "operations"): the bytes over the memory rate, the operations over
+    ``case.rate``."""
     t_bytes = case.nbytes / HBM_BYTES_PER_S
-    t_ops = case.flops / BF16_FLOP_PER_S
+    t_ops = case.flops / case.rate
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")

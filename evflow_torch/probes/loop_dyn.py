@@ -1,0 +1,378 @@
+"""The runtime-indexed loop probes on Hopper (port of
+``benchmarks/probe_loop_dyn.py``, K8f, and ``probe_loop_dyn3.py``, K8h).
+
+The TPU probes asked whether a layer loop with a runtime trip count
+(``fori_loop``) can read and write on-chip scratch at the runtime layer
+index ``l``, in f32 (K8f) and with bf16 scratch or operands (K8h). Over x
+``[L, C, E, W]`` and, for the dots, w ``[L, C, 3C]``, the eight bodies
+compute:
+
+* ``k1`` / ``k10`` (``dyn_load_sum``): ``out = sum_l x[l]`` read from a
+  copy in scratch, f32 / bf16 scratch, f32 sum;
+* ``k5`` (``dyn_load_sum(slot=True)``): ``out = sum_l x[s(l)]``, s(l) = 0
+  at l=1, 1 at l=2, else 2: x0 + x1 + 2 x2, x3 never read;
+* ``k3`` / ``k11`` (``dyn_store``): ``scr[l] = 2 x[l]`` stored at the
+  runtime index in f32 / bf16 (rounded, then doubled), ``out = f32(scr[0])``;
+  ``scratch=True`` returns the whole scratch as well, which the output
+  cannot show;
+* ``k4`` (``dyn_store_bulk``): ``out[l] = 3 x[l]`` through a stage and a
+  copy to the runtime index. The JAX ``k4`` raises in interpret mode (its
+  ``o_hbm.at[pl.ds(l, 1)][0]`` is not a Ref); ``k9`` of
+  ``probe_loop_dyn2.py`` computes the same function with ``.at[l]``, and
+  this kernel stands for both;
+* ``k2`` / ``k12`` (``dyn_load_dot``): ``out = sum_l w[l] @ concat(x[l],
+  x[l], x[l])`` in f32 / on bf16 operands, f32 accumulation.
+
+Each body is one launch of one of four kernels in
+``evflow_torch/csrc/probe_loop_dyn.cu`` (see the source's note), through
+one entry point. The plain versions sum in float64 and round once to f32.
+CPU tensors run the plain version; CUDA tensors launch the kernel or raise.
+
+A case's bound counts what its function needs (``nbytes``, ``flops``; the
+dots' three weight blocks fold into one, see ``loop_dyn_bytes``) over the
+rate of its operations' type (``Case.rate``); what the TPU probe stages and
+issues is counted apart.
+
+    python -m evflow_torch.probes.loop_dyn   # one line per body, needs CUDA
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from evflow_torch.device import BF16_FLOP_PER_S, F32_FLOP_PER_S, describe_card
+from evflow_torch.probes._harness import Case, bound, card_device, launch, on_card, run_cases
+
+__all__ = [
+    "dyn_load_sum", "dyn_load_sum_plain", "dyn_store", "dyn_store_plain", "dyn_store_bulk",
+    "dyn_store_bulk_plain", "dyn_load_dot", "dyn_load_dot_plain", "slot_of", "loop_dyn_bytes",
+    "draw_operands", "probe_cases", "body_of", "bound", "tolerance", "run_all", "WRAPPERS",
+    "BODIES", "last_launch",
+]
+
+# the probes' shapes (probe_loop_dyn.py:17, probe_loop_dyn3.py:13), C being
+# also the only width the kernels take
+L, C, E, W = 4, 32, 24, 256
+TP = 64                 # pixels of every channel per CTA (csrc/probe_loop_dyn.cu)
+SMEM_LIMIT = 232448     # dynamic shared memory of one CTA
+LOAD_SUM, STORE, STORE_BULK, LOAD_DOT = range(4)
+
+
+class LoopDynArgs(ctypes.Structure):
+    """ctypes mirror of ``LoopDynArgs`` in ``csrc/probe_loop_dyn.cu``."""
+
+    _fields_ = [("x", ctypes.c_void_p), ("w", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("scratch", ctypes.c_void_p), ("op", ctypes.c_int), ("bf16", ctypes.c_int),
+                ("slot", ctypes.c_int), ("L", ctypes.c_int), ("C", ctypes.c_int),
+                ("P", ctypes.c_int), ("grid", ctypes.c_int), ("threads", ctypes.c_int),
+                ("smem", ctypes.c_int)]
+
+
+last_launch = {"grid": 0, "threads": 0, "smem": 0}
+
+
+def slot_of(l: int) -> int:
+    """The scratch slot k5 reads at layer ``l``: 0 at l=1, 1 at l=2, else 2."""
+    return 0 if l == 1 else (1 if l == 2 else 2)
+
+
+# --- operand checks ------------------------------------------------------------
+
+def _x_shape(name, x, dtypes, slot=False):
+    if x.dtype not in dtypes:
+        raise ValueError(f"{name} takes x of {' or '.join(map(str, dtypes))}, got {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name} takes x [L, C, E, W], got {tuple(x.shape)}")
+    if slot and x.shape[0] < 3:
+        raise ValueError(f"{name}: the slot map reads layers 0..2, got L={x.shape[0]}")
+    return tuple(x.shape)
+
+
+def _dot_shape(x, w):
+    layers, c, _, _ = _x_shape("dyn_load_dot", x, (torch.float32, torch.bfloat16))
+    if w.dtype != x.dtype or tuple(w.shape) != (layers, c, 3 * c):
+        raise ValueError(f"dyn_load_dot takes w [L, C, 3C] of x's type, got {w.dtype} "
+                         f"{tuple(w.shape)} against x {tuple(x.shape)}")
+
+
+def _check_card(name, shape, slab_bytes):
+    layers, c, e, w = shape
+    if c != C:
+        raise ValueError(f"{name}: the kernel takes C={C}, got {c}")
+    if (e * w) % 8:
+        raise ValueError(f"{name}: the kernel takes E W a multiple of 8, got {e * w}")
+    if slab_bytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: L={layers} layers of scratch need {slab_bytes} bytes of "
+                         f"shared memory, beyond {SMEM_LIMIT}")
+
+
+# --- plain versions ------------------------------------------------------------
+
+def dyn_load_sum_plain(x: torch.Tensor, slot: bool = False) -> torch.Tensor:
+    layers = _x_shape("dyn_load_sum", x, (torch.float32, torch.bfloat16), slot)[0]
+    idx = [slot_of(l) if slot else l for l in range(layers)]
+    return x[idx].double().sum(0).float()
+
+
+def dyn_store_plain(x: torch.Tensor, scratch_dtype: torch.dtype = torch.float32,
+                    scratch: bool = False):
+    _x_shape("dyn_store", x, (torch.float32,))
+    scr = x.to(scratch_dtype) * 2  # rounded to the scratch type first, then doubled in it
+    out = scr[0].float()
+    return (out, scr) if scratch else out
+
+
+def dyn_store_bulk_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _x_shape("dyn_store_bulk", x, (torch.float32,))
+    res = x * 3.0
+    return res if out is None else out.copy_(res)
+
+
+def dyn_load_dot_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _dot_shape(x, w)
+    layers, c = x.shape[:2]
+    pg = torch.cat([x.double()] * 3, dim=1).reshape(layers, 3 * c, -1)  # concat(h, h, h)
+    return torch.matmul(w.double(), pg).sum(0).float().reshape(x.shape[1:])
+
+
+# --- the kernels ---------------------------------------------------------------
+
+def _launch(op, x, out, w=None, scratch=None, bf16=False, slot=False):
+    layers, c = x.shape[:2]
+    args = LoopDynArgs(x=x.data_ptr(), w=None if w is None else w.data_ptr(), out=out.data_ptr(),
+                       scratch=None if scratch is None else scratch.data_ptr(), op=op,
+                       bf16=int(bf16), slot=int(slot), L=layers, C=c, P=x.shape[2] * x.shape[3])
+    launch("probe_loop_dyn", args, x.device)
+    last_launch.update(grid=args.grid, threads=args.threads, smem=args.smem)
+
+
+def _slab(layers, esize):
+    return layers * C * TP * esize
+
+
+def dyn_load_sum(x: torch.Tensor, slot: bool = False) -> torch.Tensor:
+    """k1 / k10 (k5 with ``slot``): x ``[L, C, E, W]`` f32 or bf16 copied
+    into scratch, its layers (or slots) summed at the runtime index ->
+    ``[C, E, W]`` f32."""
+    cuda = on_card("dyn_load_sum", x, align=16)
+    shape = _x_shape("dyn_load_sum", x, (torch.float32, torch.bfloat16), slot)
+    if not cuda:
+        return dyn_load_sum_plain(x, slot)
+    _check_card("dyn_load_sum", shape, _slab(shape[0], x.element_size()))
+    out = torch.empty(shape[1:], device=x.device, dtype=torch.float32)
+    _launch(LOAD_SUM, x, out, bf16=x.dtype == torch.bfloat16, slot=slot)
+    dyn_load_sum.launches += 1
+    return out
+
+
+def dyn_store(x: torch.Tensor, scratch_dtype: torch.dtype = torch.float32,
+              scratch: bool = False):
+    """k3 / k11: ``scr[l] = 2 x[l]`` stored at the runtime index into f32 or
+    bf16 scratch (bf16: rounded, then doubled), -> ``f32(scr[0])`` ``[C, E,
+    W]``; with ``scratch`` also the whole scratch ``[L, C, E, W]``, written
+    out by the kernel on a branch that the other launches skip."""
+    if scratch_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dyn_store keeps f32 or bf16 scratch, got {scratch_dtype}")
+    cuda = on_card("dyn_store", x, align=16)
+    shape = _x_shape("dyn_store", x, (torch.float32,))
+    if not cuda:
+        return dyn_store_plain(x, scratch_dtype, scratch)
+    esize = torch.finfo(scratch_dtype).bits // 8
+    _check_card("dyn_store", shape, _slab(shape[0], esize))
+    out = torch.empty(shape[1:], device=x.device, dtype=torch.float32)
+    scr = torch.empty(shape, device=x.device, dtype=scratch_dtype) if scratch else None
+    _launch(STORE, x, out, scratch=scr, bf16=scratch_dtype == torch.bfloat16)
+    dyn_store.launches += 1
+    return (out, scr) if scratch else out
+
+
+def dyn_store_bulk(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """k4 (and k9): ``out[l] = 3 x[l]`` ``[L, C, E, W]`` f32, each layer
+    staged and copied to its runtime index; into ``out`` where given (f32,
+    x's shape), which every launch writes whole."""
+    cuda = on_card("dyn_store_bulk", x, *(() if out is None else (out,)), align=16)
+    shape = _x_shape("dyn_store_bulk", x, (torch.float32,))
+    if out is not None and (out.dtype != torch.float32 or tuple(out.shape) != shape):
+        raise ValueError(f"dyn_store_bulk writes out {shape} f32, got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    if not cuda:
+        return dyn_store_bulk_plain(x, out)
+    _check_card("dyn_store_bulk", shape, 0)
+    if out is None:
+        out = torch.empty(shape, device=x.device, dtype=torch.float32)
+    _launch(STORE_BULK, x, out)
+    dyn_store_bulk.launches += 1
+    return out
+
+
+def dyn_load_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """k2 / k12: ``sum_l w[l] @ concat(x[l], x[l], x[l])``, x ``[L, C, E,
+    W]`` and w ``[L, C, 3C]`` both f32 or both bf16, -> ``[C, E, W]`` f32."""
+    cuda = on_card("dyn_load_dot", x, w, align=16)
+    _dot_shape(x, w)
+    if not cuda:
+        return dyn_load_dot_plain(x, w)
+    esize = x.element_size()
+    wpitch = 3 * C + (8 if esize == 2 else 1)
+    _check_card("dyn_load_dot", tuple(x.shape), _slab(x.shape[0], esize) + C * wpitch * esize)
+    out = torch.empty(x.shape[1:], device=x.device, dtype=torch.float32)
+    _launch(LOAD_DOT, x, out, w=w, bf16=esize == 2)
+    dyn_load_dot.launches += 1
+    return out
+
+
+WRAPPERS = (dyn_load_sum, dyn_store, dyn_store_bulk, dyn_load_dot)
+for _fn in WRAPPERS:
+    _fn.launches = 0
+
+
+# --- the probes' cases -----------------------------------------------------------
+
+# body: (probe, the file's name for it, wrapper, plain, kwargs, the TPU pallas_call)
+BODIES = {
+    "k1": ("K8f", "dyn-load", dyn_load_sum, dyn_load_sum_plain, {},
+           "benchmarks/probe_loop_dyn.py:21"),
+    "k2": ("K8f", "dyn-load+dot", dyn_load_dot, dyn_load_dot_plain, {},
+           "benchmarks/probe_loop_dyn.py:21"),
+    "k3": ("K8f", "dyn-store", dyn_store, dyn_store_plain, {"scratch_dtype": torch.float32},
+           "benchmarks/probe_loop_dyn.py:21"),
+    "k4": ("K8f", "dma-store", dyn_store_bulk, dyn_store_bulk_plain, {},
+           "benchmarks/probe_loop_dyn.py:21"),
+    "k5": ("K8f", "dyn-load-where", dyn_load_sum, dyn_load_sum_plain, {"slot": True},
+           "benchmarks/probe_loop_dyn.py:21"),
+    "k10": ("K8h", "dyn-load-bf16", dyn_load_sum, dyn_load_sum_plain, {},
+            "benchmarks/probe_loop_dyn3.py:29"),
+    "k11": ("K8h", "dyn-store-bf16", dyn_store, dyn_store_plain,
+            {"scratch_dtype": torch.bfloat16}, "benchmarks/probe_loop_dyn3.py:43"),
+    "k12": ("K8h", "dyn-load-bf16-dot", dyn_load_dot, dyn_load_dot_plain, {},
+            "benchmarks/probe_loop_dyn3.py:61"),
+}
+
+
+def loop_dyn_bytes(body: str, layers: int, c: int, e: int, w: int):
+    """(needed bytes, needed flops, staged bytes, issued flops) of one call.
+
+    Needed: each input the function reads, once, and its f32 output: every
+    layer of x for k1, k10, k2, k12 and k4 (k4 writes every layer too), x[0]
+    alone for k3 and k11 (the output is scr[0]), layers 0..2 for k5; the
+    dots' weights. The dots need 2 C C flops per pixel and layer: ``w[l] @
+    concat(h, h, h)`` is ``(w0 + w1 + w2) @ h``. The copies, sums and
+    scalings count no flops (as the staging probes' x2 does not): they are
+    far below the bytes. Staged and issued: what the TPU's ``pallas_call``
+    moves in and out (K8f passes x and w to every body, K8h only what each
+    takes) and the three blocks' 2 C 3C flops per pixel and layer."""
+    px = e * w
+    f32, bf16 = c * px * 4, c * px * 2
+    x_layer = bf16 if body in ("k10", "k12") else f32
+    out = layers * f32 if body == "k4" else f32
+    w_bytes = layers * c * 3 * c * (2 if body == "k12" else 4)
+    read = {"k3": 1, "k11": 1, "k5": min(3, layers)}.get(body, layers)
+    dot = body in ("k2", "k12")
+    needed = read * x_layer + (w_bytes if dot else 0) + out
+    staged = layers * x_layer + (w_bytes if BODIES[body][0] == "K8f" or dot else 0) + out
+    flops = 2.0 * c * c * px * layers if dot else 0.0
+    return needed, flops, staged, 3 * flops
+
+
+def draw_operands(rng, kind: str, layers: int, c: int, e: int, w: int, device="cpu"):
+    """The operands of body ``kind`` (``k1`` .. ``k12``), with numpy from
+    ``rng``: x[l] integers in [-4, 4] times 16^l, w integers in [-2, 2],
+    and for k11 standard normals in f32 (most of them not bf16-exact, so the
+    rounding shows). Every value is exact in bf16, and for L <= 4 and C <=
+    32 every sum is an exact integer below 2^24 (a dot's 3C terms at most 2
+    4 16^3 each), so any summation order gives the same f32 result. The
+    16^l scale makes every layer differ: a kernel reading the wrong layer
+    moves the output. Returns the body's positional arguments."""
+    if kind not in BODIES:
+        raise ValueError(f"unknown body {kind!r}; one of {sorted(BODIES)}")
+    dtype = torch.bfloat16 if kind in ("k10", "k12") else torch.float32
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a, np.float32)).to(device=device, dtype=dtype)
+
+    shape = (layers, c, e, w)
+    if kind == "k11":
+        return (tensor(rng.standard_normal(shape, dtype=np.float32)),)
+    scale = 16.0 ** np.arange(layers)[:, None, None, None]
+    x = tensor(rng.integers(-4, 5, shape) * scale)
+    if kind in ("k2", "k12"):
+        return x, tensor(rng.integers(-2, 3, (layers, c, 3 * c)))
+    return (x,)
+
+
+def probe_cases(device, seed: int = 0, shape=(L, C, E, W)) -> List[Case]:
+    """The eight bodies (k1-k5, k10-k12) at the JAX files' shapes, operands
+    from ``draw_operands`` with numpy from ``seed``; on ``meta`` only their
+    shapes."""
+    layers, c, e, w = shape
+    rng = np.random.default_rng(seed)
+    meta = torch.device(device).type == "meta"
+
+    def operands(kind):
+        if not meta:
+            return draw_operands(rng, kind, layers, c, e, w, device)
+        dtype = torch.bfloat16 if kind in ("k10", "k12") else torch.float32
+        x = torch.empty(shape, device="meta", dtype=dtype)
+        if kind in ("k2", "k12"):
+            return x, torch.empty(layers, c, 3 * c, device="meta", dtype=dtype)
+        return (x,)
+
+    cases = []
+    for body, (probe, tag, fn, plain, kwargs, replaces) in BODIES.items():
+        needed, flops, staged, issued = loop_dyn_bytes(body, layers, c, e, w)
+        rate = F32_FLOP_PER_S if body == "k2" else BF16_FLOP_PER_S
+        cases.append(Case(f"{probe} {body} {tag} [{layers},{c},{e},{w}]", fn, plain,
+                          operands(body), dict(kwargs), needed, flops, staged, issued, replaces,
+                          rate))
+    return cases
+
+
+def body_of(case: Case) -> str:
+    """``k1`` .. ``k12``: the body a case runs."""
+    return case.name.split()[1]
+
+
+def tolerance(case: Case, ref: torch.Tensor) -> float:
+    """What the kernel's output may differ from ``ref`` (the plain version)
+    by, in every case: nothing. Every sum is exact (``draw_operands``), the
+    copies and the x2 and x3 are exact or round once alike."""
+    return 0.0
+
+
+def run_all(device: Optional[str] = None, seed: int = 0, repeats: int = 3) -> List[dict]:
+    """Every body once at its shapes on the card, timed as the other probes
+    are (best of ``repeats`` after a warm-up call): a row per case with ms,
+    the GB/s and TFLOP/s of what the function needs, the bound, the CTAs,
+    threads and shared bytes, and the kernel launches the case made (``1 +
+    repeats``)."""
+    def row(case, ms):
+        bms, by = bound(case)
+        return {"gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
+                "bound_ms": bms, "bound_by": by, "ctas": last_launch["grid"],
+                "threads": last_launch["threads"], "smem": last_launch["smem"]}
+
+    return run_cases(probe_cases(card_device(device), seed), repeats, row)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Runtime-indexed loop probes on the card.")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--repeats", type=int, default=3)
+    args = ap.parse_args(argv)
+    rows = run_all(seed=args.seed, repeats=args.repeats)
+    card = describe_card()
+    for r in rows:
+        print(f"{r['wrapper']} {r['name']}: {r['ms']:.6f} ms -> {r['gbps']:.1f} GB/s, "
+              f"{r['tflops']:.3f} TF/s needed, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
+              f"{r['ctas']} CTAs x {r['threads']} threads, {r['smem']} B shared) [{card}]",
+              flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

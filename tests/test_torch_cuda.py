@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version at
 shapes that leave ragged tiles, the launch counters, the fused evaluation
 path, the whole-network kernels (K3, K4, K5, K6, K7) against
-``firenet_step_plain``, and the in-kernel dot, staging and unit-loop probes
-against theirs.
+``firenet_step_plain``, and the in-kernel dot, staging, unit-loop and
+runtime-indexed loop probes against theirs.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -389,3 +389,63 @@ def test_unit_loop_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="one device"):
         U.unit_loop_dma(xd, md, sd.cpu(), wd, pd)
     assert (U.unit_loop.launches, U.unit_loop_dma.launches) == before
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 24, 256), (4, 32, 5, 24), (3, 32, 5, 24)],
+                         ids=["full", "ragged", "three-layers"])
+@pytest.mark.parametrize("body", ["k1", "k2", "k3", "k4", "k5", "k10", "k11", "k12"])
+def test_loop_dyn_matches_plain(cuda, shape, body):
+    """Each runtime-indexed loop body against its plain version: at the JAX
+    probes' shapes (96 CTAs), and at E W = 120 pixels (a tile of 64 pixels
+    and one of 56; for k4 a run of 2048 elements and one of 1792) with 4 and
+    3 layers: equal (every sum exact, ``loop_dyn.tolerance``), one launch
+    each; k3 and k11 also with their whole scratch, every layer equal; k4
+    also into a NaN-filled output, every element written."""
+    from evflow_torch.probes import loop_dyn as D
+
+    case = next(c for c in D.probe_cases(cuda, seed=1, shape=shape) if D.body_of(c) == body)
+    before = case.fn.launches
+    out = case.fn(*case.args, **case.kwargs)
+    assert case.fn.launches == before + 1
+    assert D.last_launch["grid"] == -(-shape[2] * shape[3] // 64)
+    ref = case.plain(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert float((ref != 0).float().mean()) > 0.5
+    if body in ("k3", "k11"):
+        out2, scr = case.fn(*case.args, **case.kwargs, scratch=True)
+        _, ref_scr = case.plain(*case.args, **case.kwargs, scratch=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out2, out) and torch.equal(scr, ref_scr)
+    if body == "k4":
+        filled = torch.full_like(ref, float("nan"))
+        assert case.fn(*case.args, out=filled) is filled
+        torch.cuda.synchronize()
+        assert torch.equal(filled, ref)
+
+
+def test_loop_dyn_refuses_what_it_cannot_take(cuda):
+    """C other than the kernels' 32, E W not a multiple of 8, a k4 output 4
+    bytes past a 16-byte boundary, a scratch beyond a CTA's shared memory
+    and operands on two devices are refused before any launch; the entry
+    point itself refuses the slot map on fewer than 3 layers."""
+    from evflow_torch.probes import loop_dyn as D
+
+    rng = np.random.default_rng(0)
+    (x,) = D.draw_operands(rng, "k4", 4, 32, 5, 24, device=cuda)
+    xd, wd = D.draw_operands(rng, "k2", 4, 32, 5, 24, device=cuda)
+    before = [fn.launches for fn in D.WRAPPERS]
+    with pytest.raises(ValueError, match="C=32"):
+        D.dyn_load_sum(D.draw_operands(rng, "k1", 4, 16, 5, 24, device=cuda)[0])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        D.dyn_store(D.draw_operands(rng, "k3", 4, 32, 5, 5, device=cuda)[0])
+    shifted = torch.empty(x.numel() + 4, device=cuda)[1:1 + x.numel()].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        D.dyn_store_bulk(x, out=shifted)
+    with pytest.raises(ValueError, match="shared memory"):
+        D.dyn_load_sum(torch.zeros(30, 32, 1, 8, device=cuda))
+    with pytest.raises(ValueError, match="one device"):
+        D.dyn_load_dot(xd, wd.cpu())
+    assert [fn.launches for fn in D.WRAPPERS] == before
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        D._launch(D.LOAD_SUM, x[:2], torch.empty(x.shape[1:], device=cuda), slot=True)
