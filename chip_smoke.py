@@ -75,21 +75,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
    CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
    W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
 10. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
-   K8f's k1-k5 and K8h's k10-k12, a layer loop reading and writing a
-   shared-memory scratch at the runtime layer index) at the JAX probes'
-   shapes (L=4, C=32, E=24, W=256) through ``run_all`` (launch counters 0
-   just before, read just after; exactly 1 + repeats launches per case),
-   each against its plain version (equal, on integer operands scaled 16^l
-   per layer that make every sum exact: ``loop_dyn.draw_operands``), k3's
-   and k11's whole scratch (``scratch=True``) equal to the plain one, and
-   k4 launched into a NaN-filled output, every element written; with
-   device ms, the bound (the function's bytes over 3.35 TB/s, or its
-   operations over 67 TFLOP/s f32 or 989 bf16), GB/s and TFLOP/s of what
-   it needs, the CTAs, threads and shared bytes, and one PyTorch call for
-   the same function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0],
-   2)``, ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1,
-   2, 0] with x, one ``torch.matmul`` of the stacked ``[C, L 3C] @ [L 3C,
-   E W]`` operands.
+   K8f's k1-k5, K8h's k10-k12 and K8g's k6-k8, a layer loop reading and
+   writing a shared-memory scratch at the runtime layer index) at the JAX
+   probes' shapes (L=4, C=32, E=24, W=256; k6's p ``[4,32,3]``, k7's w
+   ``[4,32,288]``, k8's TH=8) through ``run_all`` (launch counters 0 just
+   before, read just after; exactly 1 + repeats launches per case), each
+   against its plain version (equal, on integer operands scaled 16^l per
+   layer that make every sum exact: ``loop_dyn.draw_operands``; the f32
+   dots k2 and k7 also on f32 normals, within ``loop_dyn.f32_tolerance``,
+   which a dot on TF32 or bf16 operands misses), k3's and
+   k11's whole scratch (``scratch=True``) equal to the plain one, and k4
+   launched into a NaN-filled output, every element written; with device
+   ms, the bound (the function's bytes over 3.35 TB/s, or its operations
+   over 67 TFLOP/s f32 or 989 bf16), GB/s and TFLOP/s of what it needs,
+   the CTAs, threads and shared bytes, and one PyTorch call for the same
+   function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0], 2)``,
+   ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1, 2, 0]
+   with x, one ``torch.matmul`` of the stacked ``[C, L 3C] @ [L 3C, E W]``
+   operands; k6 ``p[:, :, 1].sum(0)`` broadcast, k7 one ``F.conv2d`` of
+   ``[1, L C, E, W]`` (f32, TF32 off), k8 ``torch.mul(x[:, :, 8:16], 2)``.
+11. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
+   K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
+   in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
+   W=256, bf16 normals) through ``run_all`` (launch counters as in phase
+   10), each against its plain version (k_misc and k_roll equal, each bf16
+   sum rounded once alike; k_dot3 within ``2 sqrt(K) 2^-24 max|out|``),
+   with device ms, the bound, and the yardstick: ``(torch.roll(v, 1, 2) +
+   torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
+   0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
+   (``out_dtype``).
 
 The line before the last is one JSON object with a row per kernel (for the
 per-layer kernels, times summed over one window's 7 launches at the bench
@@ -113,7 +127,7 @@ import tempfile
 import time
 
 PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes", "staging",
-          "unitloop", "loopdyn")
+          "unitloop", "loopdyn", "mosaicops")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # (case, Cin, recurrent, hard reset)
@@ -825,6 +839,7 @@ PROBE_SOURCE = "evflow_torch/csrc/probe_inkernel_dot.cu"
 STAGING_SOURCE = "evflow_torch/csrc/probe_staging.cu"
 UNITLOOP_SOURCE = "evflow_torch/csrc/probe_unit_loop.cu"
 LOOPDYN_SOURCE = "evflow_torch/csrc/probe_loop_dyn.cu"
+MOSAIC_SOURCE = "evflow_torch/csrc/probe_mosaic_ops.cu"
 
 
 def probe_row_name(case):
@@ -1084,13 +1099,27 @@ def loopdyn_yardstick(case):
     ``torch.mul(x[0], 2)`` (k3, k11, in f32: the x2 alone, no bf16 scratch);
     ``torch.mul(x, 3)`` (k4); one product of the stacked weights ``[C, L
     3C]`` against the stacked, thrice repeated layers ``[L 3C, E W]``, both
-    built here (k2 in f32 without TF32, k12 in bf16)."""
+    built here (k2 in f32 without TF32, k12 in bf16); the narrow column's
+    sum broadcast (k6); one f32 conv (TF32 off) of the layers stacked as
+    channels by ``conv_weights(w)`` (k7); ``torch.mul`` of the row window
+    (k8)."""
     import torch
+    import torch.nn.functional as F
 
     from evflow_torch.probes import loop_dyn as D
 
     body, x = D.body_of(case), case.args[0]
     layers = x.shape[0]
+    if body == "k6":
+        _, e, w = case.args
+        return lambda: x[:, :, 1].sum(0)[:, None, None].expand(x.shape[1], e, w).contiguous()
+    if body == "k7":
+        inp = x.reshape(1, -1, *x.shape[2:])
+        wc = D.conv_weights(case.args[1]).contiguous()
+        return lambda: F.conv2d(inp, wc, padding=1)
+    if body == "k8":
+        row0, rows, scale = (case.kwargs[k] for k in ("row0", "rows", "scale"))
+        return lambda: torch.mul(x[:, :, row0:row0 + rows], scale)
     if body in ("k1", "k10"):
         return lambda: x.sum(0, dtype=torch.float32)
     if body == "k5":
@@ -1114,6 +1143,7 @@ def phase_loopdyn(state):
     after, then each body against its plain version (k3 and k11 also with
     their whole scratch, k4 also into a NaN-filled output), and its times
     beside the bound and the yardstick."""
+    import numpy as np
     import torch
 
     from evflow_torch.probes import loop_dyn as D
@@ -1157,6 +1187,84 @@ def phase_loopdyn(state):
         errs[row] = res["max_abs_err"]
         launches[row] = per_case[case.name]
         state.setdefault("probe_rows", []).append((row, LOOPDYN_SOURCE, case.replaces))
+        if body in D.F32_DOTS:
+            # the integer draw cannot show operands rounded to TF32 or bf16: f32 normals can
+            args = D.draw_operands(np.random.default_rng(1), body, *case.args[0].shape,
+                                   device="cuda", normals=True)
+            out = case.fn(*args)
+            ref = case.plain(*args)
+            torch.cuda.synchronize()
+            res = compare(out, ref, D.f32_tolerance(*args, ref))
+            emit({"phase": "loopdyn", "case": case.name + " f32 normals", "kernel": row, **res,
+                  "card": name})
+            if not res["ok"]:
+                raise SystemExit(f"loop probe {case.name} on f32 normals is off its plain "
+                                 f"version by more than f32 rounding: {res}")
+            errs[row] = max(errs[row], res["max_abs_err"])
+    state.setdefault("times", {}).update(times)
+    state.setdefault("max_abs_err", {}).update(errs)
+    state.setdefault("launches", {}).update(launches)
+
+
+def mosaicops_yardstick(case):
+    """One PyTorch call for the body's function, never called by the port:
+    the two ``torch.roll`` added in bf16 and widened (k_roll); v plus its
+    ``torch.where``-masked self in bf16, widened (k_misc); ``torch.mm`` of
+    the bf16 operands with an f32 output, as the kernel writes (k_dot3)."""
+    import torch
+
+    from evflow_torch.probes import mosaic_ops as M
+
+    body = M.body_of(case)
+    if body == "k_dot3":
+        w, x3 = case.args
+        x2 = x3.reshape(x3.shape[0], -1)
+        return lambda: torch.mm(w, x2, out_dtype=torch.float32)
+    (v,) = case.args
+    if body == "k_roll":
+        return lambda: (torch.roll(v, 1, 2) + torch.roll(v, 1, 1)).float()
+    lane = torch.arange(v.shape[2], device=v.device)
+    return lambda: (v + torch.where(lane > 0, v, 0)).float()
+
+
+def phase_mosaicops(state):
+    """The Mosaic-ops probes at the JAX probe's shapes: the entry point
+    ``run_all`` with the launch counters 0 just before and read just after,
+    then each body against its plain version, and its times beside the
+    bound and the yardstick."""
+    import torch
+
+    from evflow_torch.probes import mosaic_ops as M
+    from evflow_torch.probes._harness import compare
+
+    name = card()
+    per_case = counted_run_all(M, "mosaicops", name)
+
+    times, errs, launches = {}, {}, {}
+    for case in M.probe_cases("cuda", seed=0):
+        body = M.body_of(case)
+        out = case.fn(*case.args, **case.kwargs)
+        launch = dict(M.last_launch)
+        ref = case.plain(*case.args, **case.kwargs)
+        torch.cuda.synchronize()
+        res = compare(out, ref, M.tolerance(case, ref))
+        ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
+        plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
+        lib_ms = device_ms(mosaicops_yardstick(case), iters=20)
+        bms, by = M.bound(case)
+        row = f"{case.fn.__name__}[{body}]"
+        emit({"phase": "mosaicops", "case": case.name, "kernel": row, **res, "ms": ms,
+              "gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
+              "ctas": launch["grid"], "smem": launch["smem"], "plain_ms": plain_ms,
+              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "card": name})
+        if not res["ok"]:
+            raise SystemExit(f"Mosaic-ops probe {case.name} disagrees with its plain version: "
+                             f"{res}")
+        times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        errs[row] = res["max_abs_err"]
+        launches[row] = per_case[case.name]
+        source = PROBE_SOURCE if body == "k_dot3" else MOSAIC_SOURCE
+        state.setdefault("probe_rows", []).append((row, source, case.replaces))
     state.setdefault("times", {}).update(times)
     state.setdefault("max_abs_err", {}).update(errs)
     state.setdefault("launches", {}).update(launches)
@@ -1186,7 +1294,7 @@ def main(argv=None):
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet,
              "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
-             "loopdyn": phase_loopdyn}
+             "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops}
     try:
         for p in PHASES:
             if p in phases:

@@ -1,11 +1,12 @@
 // The runtime-indexed loop probes: a layer loop with a runtime trip count
 // that reads and writes a shared-memory scratch at the runtime layer index,
-// for sm_90a. Four kernels, templated on the scratch type and index map.
+// for sm_90a. Seven kernels, some templated on the scratch type and index map.
 //
 // Replaces the TPU kernels of benchmarks/probe_loop_dyn.py (K8f, the
 // pallas_call in `run`, :21; x [L, C, E, W] f32, w [L, C, 3C] f32, a VMEM
-// scratch [L, C, E, W]) and benchmarks/probe_loop_dyn3.py (K8h, the same
-// bodies with bf16 scratch or operands, :29, :43, :61):
+// scratch [L, C, E, W]), benchmarks/probe_loop_dyn2.py (K8g, :31, :60, :75,
+// :91) and benchmarks/probe_loop_dyn3.py (K8h, the K8f bodies with bf16
+// scratch or operands, :29, :43, :61):
 //   load_sum_kernel<float, Identity>   k1  (:40): scr = x; out = sum_l scr[l]
 //   load_sum_kernel<float, Slot>       k5  (:84): out = sum_l scr[s(l)],
 //                                      s(l) = l==1 ? 0 : l==2 ? 1 : 2
@@ -18,11 +19,20 @@
 //                                      stage and a copy to the runtime index;
 //                                      it also stands for k9
 //                                      (probe_loop_dyn2.py:83, the same
-//                                      function with the fixed `.at[l]`)
+//                                      function with the fixed `.at[l]`), and
+//                                      with a source row window it is
+//                                      k8 (dyn2 :69): out[l, 0] = 2 x[l][:,
+//                                      8 : 8 + TH], out [L, 1, C, TH, W]
 //   load_dot_f32_kernel                k2  (:50): out = sum_l w[l] @
 //                                      concat(scr[l], scr[l], scr[l]), f32
 //   load_dot_bf16_kernel               k12 (dyn3 :51): k2 on bf16 x and w,
 //                                      f32 accumulation
+//   narrow_sum_kernel                  k6  (dyn2 :24): out[c, :, :] = sum_l
+//                                      p[l][c][1], p [L, C, 3] f32
+//   conv_sum_kernel                    k7  (dyn2 :39): out = sum_l of the 3x3
+//                                      SAME conv of x[l] (zero rows and
+//                                      columns outside the image) with w[l]
+//                                      [C, 9C], w[l][co, (dy 3 + dx) C + ci]
 // with the pixels p = (e, w) of a layer flattened: x [L, C, P], P = E W.
 //
 // Design. The TPU keeps the whole [L, C, E, W] scratch (3.1 MB in f32) in
@@ -45,12 +55,15 @@
 // in the output, so where `scratch` is given the whole slab is written out
 // as well, on a branch that the timed launches skip.
 //   Bulk store: a CTA owns one contiguous, 16-byte aligned run of TILE
-// elements of the flattened layer [C P]. For each l its threads write 3
-// x[l] into a shared stage, fence the writes to the async proxy and meet at
-// a barrier; one thread then issues one TMA bulk store of the run to out +
-// l C P + offset (cp.async.bulk.global.shared::cta), commits it and waits
-// until the stage has been read before the next layer overwrites it: the
-// TPU's start()/wait() per layer.
+// elements of the flattened output layer [C, rows W]. For each l its
+// threads write scale x[l] (from each channel's rows row0 .. row0 + rows)
+// into a shared stage, fence the writes to the async proxy and meet at a
+// barrier; one thread then issues one TMA bulk store of the run to out + l
+// C rows W + offset (cp.async.bulk.global.shared::cta), commits it and
+// waits until the stage has been read before the next layer overwrites it:
+// the TPU's start()/wait() per layer. At k8's TH W = TILE each run is one
+// channel's window: one bulk store per (l, c). The output [L, 1, C, TH, W]
+// of k8 is a view of [L, C, TH, W].
 //   Dot: w[l] ([C, 3C], 12 KB in f32) is staged into shared memory at the
 // runtime l each layer; the concat is not built, K index k reads channel k
 // mod C of the slab. f32 products must stay exact (TF32 would round the
@@ -61,18 +74,40 @@
 // M (two m16 fragments, A = w[l] from shared memory, rows padded by 8), the
 // warp's 8 pixels on N, 3C / 16 = 6 k16 steps, B packed from the slab's
 // channel rows (channel block 16 ks mod C).
+//   Narrow sum: p [L, C, 3] has a 12-byte row, so no tensor map (global
+// strides are multiples of 16 bytes) and no vector load of a row can take
+// it. Each CTA stages the whole block (12 L C bytes, a multiple of 16) with
+// one bulk copy on an mbarrier, then each thread adds column 1 of its
+// channel's row at the runtime l and writes the sum over its 8 pixels.
+//   Conv: a CTA owns one image row e and TW = 64 columns of all 32 output
+// channels (96 CTAs at E=24, W=256). Per layer, at the runtime l, it stages
+// w[l] transposed to [9C][C] (lanes on output channels, 16-byte loads along
+// K, so the stores hit 32 banks) and x[l]'s rows e-1..e+1 and columns
+// w0-1..w0+TW, zeros outside the image (scalar loads: the halo starts one
+// column off any 16-byte boundary). The loads of layer l + 1 are issued
+// into registers before layer l's dots, so they wait in flight and not in
+// line (each thread's offsets, the same in every layer, are computed once).
+// Warp j owns output channels 4j..4j+3,
+// lane i columns i and i+32: per K index one broadcast 16-byte load of the
+// four weights, two conflict-free loads of x and 8 FFMA into registers
+// that carry the sum over layers. Exact f32, as in k2.
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s f32, 989 bf16) at the
-// probes' shapes (L=4, C=32, E=24, W=256), for what each function needs
-// (probes/loop_dyn.py::loop_dyn_bytes): every body is bound by bytes.
+// probes' shapes (L=4, C=32, E=24, W=256, TH=8), for what each function
+// needs (probes/loop_dyn.py::loop_dyn_bytes): every body but k7 is bound by
+// bytes.
 //   k1 3.93 MB -> 1.17 us, k5 3.15 MB (x[3] is never read) -> 0.94 us,
 //   k10 2.36 MB -> 0.70 us, k3 and k11 1.57 MB (x[0] and out) -> 0.47 us,
 //   k4 6.29 MB -> 1.88 us, k2 3.98 MB -> 1.19 us (50.3 MFLOP f32, the three
-//   weight blocks folded: 0.75 us), k12 2.38 MB -> 0.71 us.
+//   weight blocks folded: 0.75 us), k12 2.38 MB -> 0.71 us, k6 0.79 MB ->
+//   0.24 us, k8 2.10 MB (the windows and out) -> 0.63 us, k7 453.0 MFLOP
+//   f32 -> 6.76 us (4.08 MB: 1.22 us).
 // The design reads each input byte once and writes each output byte once
-// (k3 and k11 also read x[1..L-1], k5 also x[3], as the TPU bodies do), on
-// 96 CTAs, one pass and no pipelining: at a few MB per launch the time is
-// set by the launch and the latency of one synchronous pass, not the bytes.
+// (k3 and k11 also read x[1..L-1], k5 also x[3], as the TPU bodies do; k7
+// reads its halo rows again from L2), on 96 CTAs (k8 on 32), one pass and no
+// pipelining: at a few MB per launch the time is set by the launch and the
+// latency of one synchronous pass, not the bytes; k7's time by its FFMA
+// and shared-memory load issue.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libprobe_loop_dyn.so probe_loop_dyn.cu
@@ -92,19 +127,26 @@ constexpr int K = 3 * C;       // the dot's depth: concat(h, h, h)
 constexpr int WPITCH_F32 = K + 1;
 constexpr int WPITCH_BF16 = K + 8;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
+constexpr int CONV_TW = 64;    // output columns of one row per conv CTA
+constexpr int CONV_XP = CONV_TW + 2;  // staged columns: the tile and its halo
+constexpr int CONV_SMEM = (9 * C * C + C * 3 * CONV_XP) * 4;
 
-enum Op { LOAD_SUM = 0, STORE = 1, STORE_BULK = 2, LOAD_DOT = 3 };
+enum Op { LOAD_SUM = 0, STORE = 1, STORE_BULK = 2, LOAD_DOT = 3, NARROW_SUM = 4, CONV = 5 };
 
 // Mirrored by ctypes in evflow_torch/probes/loop_dyn.py.
 struct LoopDynArgs {
-  const void* x;  // [L, C, P]: f32; bf16 where `bf16` is set (load-sum, dot)
-  const void* w;  // [L, C, 3C] of x's type (dot), else null
-  void* out;      // [C, P] f32, or [L, C, P] f32 (bulk store)
+  const void* x;  // [L, C, P]: f32; bf16 where `bf16` is set (load-sum, dot);
+                  // p [L, C, 3] f32 (narrow sum)
+  const void* w;  // [L, C, 3C] of x's type (dot), [L, C, 9C] f32 (conv), else null
+  void* out;      // [C, P] f32, or [L, C, rows W] f32 (bulk store)
   void* scratch;  // [L, C, P] of the scratch type (store), or null
   int op;         // Op
   int bf16;       // load-sum, dot: x (and w) bf16; store: bf16 scratch
   int slot;       // load-sum: read slot s(l), not l
   int L, C, P;
+  int W;          // the row width, P = E W
+  int row0, rows; // bulk store: the source rows row0 .. row0 + rows of each channel
+  float scale;    // bulk store: the factor
   int grid, threads, smem;  // set by the launch
 };
 
@@ -232,24 +274,41 @@ __global__ void __launch_bounds__(THREADS) store_kernel(const float* __restrict_
   }
 }
 
+// out[l][c][j] = scale x[l][c][off + j] for j < run, through the stage:
+// in_chan and run are a channel's elements in x and in out, off the window's
+// first element (k4: in_chan = run = P, off = 0).
 __global__ void __launch_bounds__(THREADS) store_bulk_kernel(const float* __restrict__ x,
                                                              float* __restrict__ out, int L,
-                                                             int layer) {
+                                                             int in_chan, int run, int off,
+                                                             float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* stage = reinterpret_cast<float*>(smem_raw);  // [TILE]
-  const int t0 = blockIdx.x * TILE, n = min(TILE, layer - t0);  // n a multiple of 8
+  constexpr int PIECES = TILE / (THREADS * 4);  // 16-byte pieces of the run a thread
+  const int layer = C * run;
+  const int t0 = blockIdx.x * TILE, n = min(TILE, layer - t0);  // n a multiple of 4
+  // each piece's source within x[l], the same in every layer (run a
+  // multiple of 4: no piece spans two channels)
+  int from[PIECES];
+#pragma unroll
+  for (int j = 0; j < PIECES; ++j) {
+    const int o = t0 + (threadIdx.x + j * THREADS) * 4, c = o / run;
+    from[j] = c * in_chan + off + (o - c * run);
+  }
   // x[l] and out[l] by pointer steps: a 64-bit l * layer product here
   // cost a 4-byte spill
-  const float* src = x + t0;
+  const float* src = x;
   float* dst = out + t0;
 #pragma unroll 1
-  for (int l = 0; l < L; ++l, src += layer, dst += layer) {
-    for (int i = threadIdx.x * 4; i < n; i += THREADS * 4) {
-      float4 v = *reinterpret_cast<const float4*>(src + i);
-      v.x = __fmul_rn(v.x, 3.f);
-      v.y = __fmul_rn(v.y, 3.f);
-      v.z = __fmul_rn(v.z, 3.f);
-      v.w = __fmul_rn(v.w, 3.f);
+  for (int l = 0; l < L; ++l, src += C * in_chan, dst += layer) {
+#pragma unroll
+    for (int j = 0; j < PIECES; ++j) {
+      const int i = (threadIdx.x + j * THREADS) * 4;
+      if (i >= n) break;
+      float4 v = *reinterpret_cast<const float4*>(src + from[j]);
+      v.x = __fmul_rn(v.x, scale);
+      v.y = __fmul_rn(v.y, scale);
+      v.z = __fmul_rn(v.z, scale);
+      v.w = __fmul_rn(v.w, scale);
       *reinterpret_cast<float4*>(stage + i) = v;
     }
     fence_proxy_async();  // this thread's stage writes, before the bulk store reads them
@@ -262,6 +321,124 @@ __global__ void __launch_bounds__(THREADS) store_bulk_kernel(const float* __rest
     __syncthreads();
   }
   if (threadIdx.x == 0) bulk_wait();
+}
+
+__global__ void __launch_bounds__(THREADS) narrow_sum_kernel(const float* __restrict__ p,
+                                                             float* __restrict__ out, int L,
+                                                             int P) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  float* psm = reinterpret_cast<float*>(smem_raw + 16);  // [L][C][3]
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    mbar_expect_tx(bar, L * C * 3 * 4);
+    bulk_copy(psm, p, L * C * 3 * 4, bar);  // the whole narrow block, 12-byte rows
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  mbar_wait(bar, 0);
+  const int c = threadIdx.x / GROUPS, px = (threadIdx.x % GROUPS) * PPT;
+  float s = 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) s = __fadd_rn(s, psm[(l * C + c) * 3 + 1]);  // p[l][c][1], runtime l
+  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
+  if (px >= n) return;
+  float v[PPT];
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) v[i] = s;
+  store8(out + static_cast<size_t>(c) * P + p0 + px, v);
+}
+
+__global__ void __launch_bounds__(THREADS) conv_sum_kernel(const float* __restrict__ x,
+                                                           const float* __restrict__ w,
+                                                           float* __restrict__ out, int L, int E,
+                                                           int W) {
+  constexpr int WQ = 9 * C * C / 4 / THREADS;                     // 16-byte weight loads a thread
+  constexpr int XN = (C * 3 * CONV_XP + THREADS - 1) / THREADS;  // x loads a thread
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [9C][C]: w[l] with K major
+  float* xs = ws + 9 * C * C;                      // [C][3][CONV_XP]: rows e-1..e+1
+  const int tiles = (W + CONV_TW - 1) / CONV_TW;
+  const int e = blockIdx.x / tiles, w0 = (blockIdx.x - e * tiles) * CONV_TW;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = E * W;
+  // the tile's elements this thread stages, the same in every layer: their
+  // offsets in x[l], -1 outside the image (a zero)
+  int xoff[XN];
+#pragma unroll
+  for (int j = 0; j < XN; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / CONV_XP, col = i - r * CONV_XP;  // r = ci 3 + dy
+    const int ci = r / 3, row = e - 1 + (r - ci * 3), wc = w0 - 1 + col;
+    xoff[j] = (i < C * 3 * CONV_XP && row >= 0 && row < E && wc >= 0 && wc < W)
+                  ? ci * P + row * W + wc
+                  : -1;
+  }
+  // w[l] and x[l] in registers: a layer's loads fly during the last one's
+  // dots. Weights with lanes on output channels, 16-byte loads along K.
+  float4 wv[WQ];
+  float xv[XN];
+  auto load = [&](const float* xl, const float4* wl) {
+#pragma unroll
+    for (int j = 0; j < WQ; ++j) wv[j] = wl[lane * (9 * C / 4) + warp + j * (THREADS / 32)];
+#pragma unroll
+    for (int j = 0; j < XN; ++j) xv[j] = xoff[j] >= 0 ? xl[xoff[j]] : 0.f;
+  };
+  float acc[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = 0.f;
+  const float* xl = x;
+  const float4* wl = reinterpret_cast<const float4*>(w);
+  load(xl, wl);
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    __syncthreads();  // the last layer's tiles are read
+#pragma unroll
+    for (int j = 0; j < WQ; ++j) {
+      float* d = ws + 4 * (warp + j * (THREADS / 32)) * C + lane;  // K index 4 kq, channel lane
+      d[0] = wv[j].x;
+      d[C] = wv[j].y;
+      d[2 * C] = wv[j].z;
+      d[3 * C] = wv[j].w;
+    }
+#pragma unroll
+    for (int j = 0; j < XN; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if (i < C * 3 * CONV_XP) xs[i] = xv[j];
+    }
+    __syncthreads();
+    if (l + 1 < L) {  // x[l + 1], w[l + 1]: the runtime layer index
+      xl += C * P;
+      wl += 9 * C * C / 4;
+      load(xl, wl);
+    }
+#pragma unroll 2
+    for (int ci = 0; ci < C; ++ci) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const float* xr = xs + (ci * 3 + dy) * CONV_XP + lane;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float4 wk =
+              reinterpret_cast<const float4*>(ws + ((dy * 3 + dx) * C + ci) * C)[warp];
+          const float a = xr[dx], b = xr[dx + 32];
+          acc[0][0] = fmaf(wk.x, a, acc[0][0]);
+          acc[0][1] = fmaf(wk.x, b, acc[0][1]);
+          acc[1][0] = fmaf(wk.y, a, acc[1][0]);
+          acc[1][1] = fmaf(wk.y, b, acc[1][1]);
+          acc[2][0] = fmaf(wk.z, a, acc[2][0]);
+          acc[2][1] = fmaf(wk.z, b, acc[2][1]);
+          acc[3][0] = fmaf(wk.w, a, acc[3][0]);
+          acc[3][1] = fmaf(wk.w, b, acc[3][1]);
+        }
+      }
+    }
+  }
+  float* o = out + static_cast<size_t>(warp * 4) * P + e * W + w0 + lane;
+#pragma unroll
+  for (int j = 0; j < 4; ++j, o += P) {
+    if (w0 + lane < W) o[0] = acc[j][0];
+    if (w0 + lane + 32 < W) o[32] = acc[j][1];
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) load_dot_f32_kernel(const float* __restrict__ x,
@@ -392,8 +569,16 @@ int launch(LoopDynArgs& a, cudaStream_t s) {
       return run(a, store_kernel<float>, tiles, slab, s, static_cast<const float*>(a.x), out,
                  static_cast<float*>(a.scratch), a.L, a.P);
     case STORE_BULK:
-      return run(a, store_bulk_kernel, (C * a.P + TILE - 1) / TILE, TILE * 4, s,
-                 static_cast<const float*>(a.x), out, a.L, C * a.P);
+      return run(a, store_bulk_kernel, (C * a.rows * a.W + TILE - 1) / TILE, TILE * 4, s,
+                 static_cast<const float*>(a.x), out, a.L, a.P, a.rows * a.W, a.row0 * a.W,
+                 a.scale);
+    case NARROW_SUM:
+      return run(a, narrow_sum_kernel, tiles, 16 + a.L * C * 3 * 4, s,
+                 static_cast<const float*>(a.x), out, a.L, a.P);
+    case CONV:
+      return run(a, conv_sum_kernel, (a.P / a.W) * ((a.W + CONV_TW - 1) / CONV_TW), CONV_SMEM, s,
+                 static_cast<const float*>(a.x), static_cast<const float*>(a.w), out, a.L,
+                 a.P / a.W, a.W);
     default:  // LOAD_DOT
       if (a.bf16) {
         return run(a, load_dot_bf16_kernel, tiles, slab + C * WPITCH_BF16 * 2, s,
@@ -408,10 +593,16 @@ bool args_valid(const LoopDynArgs& a) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.w) |
                          reinterpret_cast<uintptr_t>(a.out) |
                          reinterpret_cast<uintptr_t>(a.scratch);
+  const bool dot = a.op == LOAD_DOT || a.op == CONV;
+  const bool window = a.W >= 1 && a.P % a.W == 0 && a.row0 >= 0 && a.rows >= 1 &&
+                      a.row0 + a.rows <= a.P / a.W && (a.rows * a.W) % 4 == 0 &&
+                      (a.row0 * a.W) % 4 == 0;
   return a.x != nullptr && a.out != nullptr && ptrs % 16 == 0 && a.op >= LOAD_SUM &&
-         a.op <= LOAD_DOT && a.C == C && a.L >= 1 && a.P >= 8 && a.P % 8 == 0 &&
-         (!a.slot || (a.op == LOAD_SUM && a.L >= 3)) && (a.op != LOAD_DOT || a.w != nullptr) &&
-         (a.op == STORE || a.scratch == nullptr) && (a.op != STORE_BULK || !a.bf16);
+         a.op <= CONV && a.C == C && a.L >= 1 && a.P >= 8 && (a.op == CONV || a.P % 8 == 0) &&
+         (!a.slot || (a.op == LOAD_SUM && a.L >= 3)) && dot == (a.w != nullptr) &&
+         (a.op == STORE || a.scratch == nullptr) &&
+         (a.op == LOAD_SUM || a.op == STORE || a.op == LOAD_DOT || !a.bf16) &&
+         (a.op != STORE_BULK || window) && (a.op != CONV || (a.W >= 1 && a.P % a.W == 0));
 }
 
 }  // namespace loopdyn
@@ -419,8 +610,10 @@ bool args_valid(const LoopDynArgs& a) {
 
 // The one entry point: the kernel `op` names. It returns the launch's
 // cudaError_t (0 on success) and refuses what the kernels do not take: C
-// other than 32, pointers not 16-byte aligned, E W not a multiple of 8, the
-// slot map with fewer than 3 layers, a slab beyond a CTA's shared memory.
+// other than 32, pointers not 16-byte aligned, E W not a multiple of 8 (but
+// for the conv), the slot map with fewer than 3 layers, a bulk store's row
+// window outside the image or off a 16-byte boundary, a slab beyond a CTA's
+// shared memory.
 extern "C" int probe_loop_dyn(evflow::loopdyn::LoopDynArgs* a, void* stream) {
   using namespace evflow::loopdyn;
   if (!args_valid(*a)) return static_cast<int>(cudaErrorInvalidValue);

@@ -16,8 +16,12 @@ wrapper and a ``main()`` that prints the probe's measurements on the card:
   one conv+LIF unit as the body of a runtime layer loop, its membrane,
   weights and spike slots staged per layer with TMA tensor copies
   (``python -m evflow_torch.probes.unit_loop``);
-* ``loop_dyn``: ``benchmarks/probe_loop_dyn.py`` and ``probe_loop_dyn3.py``,
-  a runtime layer loop reading and writing a shared-memory scratch at the
-  runtime layer index: load-sums, stores, a TMA bulk store and dots
-  (``python -m evflow_torch.probes.loop_dyn``).
+* ``loop_dyn``: ``benchmarks/probe_loop_dyn.py``, ``probe_loop_dyn2.py`` and
+  ``probe_loop_dyn3.py``, a runtime layer loop reading and writing a
+  shared-memory scratch at the runtime layer index: load-sums, stores, a
+  TMA bulk store (whole layers or a row window), dots, a narrow load and a
+  SAME conv (``python -m evflow_torch.probes.loop_dyn``);
+* ``mosaic_ops``: ``benchmarks/probe_mosaic_ops.py``, a bf16 block rolled
+  along both axes and added, added to its masked self, and a dot of a 3-D
+  operand (``python -m evflow_torch.probes.mosaic_ops``).
 """

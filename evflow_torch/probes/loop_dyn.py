@@ -1,11 +1,12 @@
 """The runtime-indexed loop probes on Hopper (port of
-``benchmarks/probe_loop_dyn.py``, K8f, and ``probe_loop_dyn3.py``, K8h).
+``benchmarks/probe_loop_dyn.py``, K8f, ``probe_loop_dyn2.py``, K8g, and
+``probe_loop_dyn3.py``, K8h).
 
 The TPU probes asked whether a layer loop with a runtime trip count
 (``fori_loop``) can read and write on-chip scratch at the runtime layer
-index ``l``, in f32 (K8f) and with bf16 scratch or operands (K8h). Over x
-``[L, C, E, W]`` and, for the dots, w ``[L, C, 3C]``, the eight bodies
-compute:
+index ``l``, in f32 (K8f, K8g) and with bf16 scratch or operands (K8h).
+Over x ``[L, C, E, W]`` and, for the dots, w ``[L, C, 3C]``, the eleven
+bodies compute:
 
 * ``k1`` / ``k10`` (``dyn_load_sum``): ``out = sum_l x[l]`` read from a
   copy in scratch, f32 / bf16 scratch, f32 sum;
@@ -21,9 +22,17 @@ compute:
   ``probe_loop_dyn2.py`` computes the same function with ``.at[l]``, and
   this kernel stands for both;
 * ``k2`` / ``k12`` (``dyn_load_dot``): ``out = sum_l w[l] @ concat(x[l],
-  x[l], x[l])`` in f32 / on bf16 operands, f32 accumulation.
+  x[l], x[l])`` in f32 / on bf16 operands, f32 accumulation;
+* ``k6`` (``dyn_narrow_sum``): ``out[c, :, :] = sum_l p[l][c][1]`` from a
+  narrow p ``[L, C, 3]``, broadcast over ``[E, W]``;
+* ``k7`` (``dyn_conv_sum``): ``out = sum_l conv3x3(x[l], w[l])``, SAME
+  padding with zero rows and columns, w ``[L, C, 9C]`` with
+  ``w[l][co, (dy 3 + dx) C + ci]``, exact f32;
+* ``k8`` (``dyn_store_window``): ``out[l, 0] = 2 x[l][:, 8 : 8 + TH]``, a
+  row window of every layer stored at the runtime index into ``[L, 1, C,
+  TH, W]``: k4's bulk store with a source window and a scale.
 
-Each body is one launch of one of four kernels in
+Each body is one launch of one of seven kernels in
 ``evflow_torch/csrc/probe_loop_dyn.cu`` (see the source's note), through
 one entry point. The plain versions sum in float64 and round once to f32.
 CPU tensors run the plain version; CUDA tensors launch the kernel or raise.
@@ -40,27 +49,32 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import math
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from evflow_torch.device import BF16_FLOP_PER_S, F32_FLOP_PER_S, describe_card
 from evflow_torch.probes._harness import Case, bound, card_device, launch, on_card, run_cases
 
 __all__ = [
     "dyn_load_sum", "dyn_load_sum_plain", "dyn_store", "dyn_store_plain", "dyn_store_bulk",
-    "dyn_store_bulk_plain", "dyn_load_dot", "dyn_load_dot_plain", "slot_of", "loop_dyn_bytes",
-    "draw_operands", "probe_cases", "body_of", "bound", "tolerance", "run_all", "WRAPPERS",
+    "dyn_store_bulk_plain", "dyn_load_dot", "dyn_load_dot_plain", "dyn_narrow_sum",
+    "dyn_narrow_sum_plain", "dyn_conv_sum", "dyn_conv_sum_plain", "dyn_store_window",
+    "dyn_store_window_plain", "conv_weights", "slot_of", "loop_dyn_bytes", "draw_operands",
+    "probe_cases", "body_of", "bound", "tolerance", "f32_tolerance", "run_all", "WRAPPERS",
     "BODIES", "last_launch",
 ]
 
-# the probes' shapes (probe_loop_dyn.py:17, probe_loop_dyn3.py:13), C being
-# also the only width the kernels take
-L, C, E, W = 4, 32, 24, 256
+# the probes' shapes (probe_loop_dyn.py:17, probe_loop_dyn2.py:15,
+# probe_loop_dyn3.py:13), C being also the only width the kernels take
+L, C, E, W, TH = 4, 32, 24, 256, 8
+ROW0 = 8                # k8's first stored row (probe_loop_dyn2.py:72)
 TP = 64                 # pixels of every channel per CTA (csrc/probe_loop_dyn.cu)
 SMEM_LIMIT = 232448     # dynamic shared memory of one CTA
-LOAD_SUM, STORE, STORE_BULK, LOAD_DOT = range(4)
+LOAD_SUM, STORE, STORE_BULK, LOAD_DOT, NARROW_SUM, CONV = range(6)
 
 
 class LoopDynArgs(ctypes.Structure):
@@ -69,8 +83,9 @@ class LoopDynArgs(ctypes.Structure):
     _fields_ = [("x", ctypes.c_void_p), ("w", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("scratch", ctypes.c_void_p), ("op", ctypes.c_int), ("bf16", ctypes.c_int),
                 ("slot", ctypes.c_int), ("L", ctypes.c_int), ("C", ctypes.c_int),
-                ("P", ctypes.c_int), ("grid", ctypes.c_int), ("threads", ctypes.c_int),
-                ("smem", ctypes.c_int)]
+                ("P", ctypes.c_int), ("W", ctypes.c_int), ("row0", ctypes.c_int),
+                ("rows", ctypes.c_int), ("scale", ctypes.c_float), ("grid", ctypes.c_int),
+                ("threads", ctypes.c_int), ("smem", ctypes.c_int)]
 
 
 last_launch = {"grid": 0, "threads": 0, "smem": 0}
@@ -93,18 +108,32 @@ def _x_shape(name, x, dtypes, slot=False):
     return tuple(x.shape)
 
 
-def _dot_shape(x, w):
-    layers, c, _, _ = _x_shape("dyn_load_dot", x, (torch.float32, torch.bfloat16))
-    if w.dtype != x.dtype or tuple(w.shape) != (layers, c, 3 * c):
-        raise ValueError(f"dyn_load_dot takes w [L, C, 3C] of x's type, got {w.dtype} "
+def _dot_shape(x, w, name="dyn_load_dot", taps=3, dtypes=(torch.float32, torch.bfloat16)):
+    layers, c, _, _ = _x_shape(name, x, dtypes)
+    if w.dtype != x.dtype or tuple(w.shape) != (layers, c, taps * c):
+        raise ValueError(f"{name} takes w [L, C, {taps}C] of x's type, got {w.dtype} "
                          f"{tuple(w.shape)} against x {tuple(x.shape)}")
 
 
-def _check_card(name, shape, slab_bytes):
+def _narrow_shape(p, e, w):
+    if p.dtype != torch.float32 or p.dim() != 3 or p.shape[2] != 3:
+        raise ValueError(f"dyn_narrow_sum takes p [L, C, 3] f32, got {p.dtype} {tuple(p.shape)}")
+    if e < 1 or w < 1:
+        raise ValueError(f"dyn_narrow_sum broadcasts over [E, W] >= 1, got [{e}, {w}]")
+    return (p.shape[0], p.shape[1], e, w)
+
+
+def _window(x, row0, rows):
+    e = _x_shape("dyn_store_window", x, (torch.float32,))[2]
+    if row0 < 0 or rows < 1 or row0 + rows > e:
+        raise ValueError(f"dyn_store_window: rows {row0}..{row0 + rows} lie outside E={e}")
+
+
+def _check_card(name, shape, slab_bytes, px8=True):
     layers, c, e, w = shape
     if c != C:
         raise ValueError(f"{name}: the kernel takes C={C}, got {c}")
-    if (e * w) % 8:
+    if px8 and (e * w) % 8:
         raise ValueError(f"{name}: the kernel takes E W a multiple of 8, got {e * w}")
     if slab_bytes > SMEM_LIMIT:
         raise ValueError(f"{name}: L={layers} layers of scratch need {slab_bytes} bytes of "
@@ -140,13 +169,44 @@ def dyn_load_dot_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(w.double(), pg).sum(0).float().reshape(x.shape[1:])
 
 
+def dyn_narrow_sum_plain(p: torch.Tensor, e: int, w: int) -> torch.Tensor:
+    _, c, e, w = _narrow_shape(p, e, w)
+    return p[:, :, 1].double().sum(0).float()[:, None, None].expand(c, e, w).contiguous()
+
+
+def conv_weights(w: torch.Tensor) -> torch.Tensor:
+    """w ``[L, C, 9C]`` (``w[l][co, (dy 3 + dx) C + ci]``) as ``[C, L C, 3,
+    3]``: the sum over layers of the convs is one conv of x ``[1, L C, E,
+    W]``."""
+    layers, c = w.shape[:2]
+    return w.reshape(layers, c, 3, 3, c).permute(1, 0, 4, 2, 3).reshape(c, layers * c, 3, 3)
+
+
+def dyn_conv_sum_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _dot_shape(x, w, "dyn_conv_sum", 9, (torch.float32,))
+    layers, c, e, wd = x.shape
+    out = F.conv2d(x.double().reshape(1, layers * c, e, wd), conv_weights(w.double()), padding=1)
+    return out[0].float()
+
+
+def dyn_store_window_plain(x: torch.Tensor, row0: int = ROW0, rows: int = TH,
+                           scale: float = 2.0) -> torch.Tensor:
+    _window(x, row0, rows)
+    return (x[:, :, row0:row0 + rows] * scale)[:, None].contiguous()
+
+
 # --- the kernels ---------------------------------------------------------------
 
-def _launch(op, x, out, w=None, scratch=None, bf16=False, slot=False):
+def _launch(op, x, out, w=None, scratch=None, bf16=False, slot=False, image=None, row0=0,
+            rows=0, scale=0.0):
+    """Launches ``op`` over x ``[L, C, E, W]`` (or p ``[L, C, 3]`` with its
+    output's ``image`` = (E, W))."""
     layers, c = x.shape[:2]
+    e, wd = x.shape[2:] if image is None else image
     args = LoopDynArgs(x=x.data_ptr(), w=None if w is None else w.data_ptr(), out=out.data_ptr(),
                        scratch=None if scratch is None else scratch.data_ptr(), op=op,
-                       bf16=int(bf16), slot=int(slot), L=layers, C=c, P=x.shape[2] * x.shape[3])
+                       bf16=int(bf16), slot=int(slot), L=layers, C=c, P=e * wd, W=wd, row0=row0,
+                       rows=rows, scale=scale)
     launch("probe_loop_dyn", args, x.device)
     last_launch.update(grid=args.grid, threads=args.threads, smem=args.smem)
 
@@ -205,8 +265,59 @@ def dyn_store_bulk(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch
     _check_card("dyn_store_bulk", shape, 0)
     if out is None:
         out = torch.empty(shape, device=x.device, dtype=torch.float32)
-    _launch(STORE_BULK, x, out)
+    _launch(STORE_BULK, x, out, rows=shape[2], scale=3.0)
     dyn_store_bulk.launches += 1
+    return out
+
+
+def dyn_store_window(x: torch.Tensor, row0: int = ROW0, rows: int = TH,
+                     scale: float = 2.0) -> torch.Tensor:
+    """k8: ``out[l, 0] = scale x[l][:, row0 : row0 + rows]`` ``[L, 1, C,
+    rows, W]`` f32 from x ``[L, C, E, W]`` f32, each layer's window staged
+    and copied to its runtime index (k4's bulk store with a source window);
+    on the card ``rows W`` and ``row0 W`` must be multiples of 4 (16-byte
+    runs)."""
+    cuda = on_card("dyn_store_window", x, align=16)
+    _window(x, row0, rows)
+    if not cuda:
+        return dyn_store_window_plain(x, row0, rows, scale)
+    layers, c, _, w = x.shape
+    _check_card("dyn_store_window", tuple(x.shape), 0)
+    if (rows * w) % 4 or (row0 * w) % 4:
+        raise ValueError(f"dyn_store_window: rows W and row0 W must be multiples of 4 (16-byte "
+                         f"runs), got rows={rows}, row0={row0}, W={w}")
+    out = torch.empty(layers, 1, c, rows, w, device=x.device, dtype=torch.float32)
+    _launch(STORE_BULK, x, out, row0=row0, rows=rows, scale=float(scale))
+    dyn_store_window.launches += 1
+    return out
+
+
+def dyn_narrow_sum(p: torch.Tensor, e: int = E, w: int = W) -> torch.Tensor:
+    """k6: ``out[c, :, :] = sum_l p[l][c][1]``, p ``[L, C, 3]`` f32 (a
+    12-byte row, staged whole) -> ``[C, e, w]`` f32."""
+    cuda = on_card("dyn_narrow_sum", p, align=16)
+    shape = _narrow_shape(p, e, w)
+    if not cuda:
+        return dyn_narrow_sum_plain(p, e, w)
+    _check_card("dyn_narrow_sum", shape, 16 + p.numel() * 4)
+    out = torch.empty(shape[1:], device=p.device, dtype=torch.float32)
+    _launch(NARROW_SUM, p, out, image=(e, w))
+    dyn_narrow_sum.launches += 1
+    return out
+
+
+def dyn_conv_sum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """k7: ``sum_l conv3x3_SAME(x[l], w[l])``, x ``[L, C, E, W]`` f32, w
+    ``[L, C, 9C]`` f32 (``w[l][co, (dy 3 + dx) C + ci]``), zero rows and
+    columns outside the image, exact f32 -> ``[C, E, W]`` f32."""
+    cuda = on_card("dyn_conv_sum", x, w, align=16)
+    _dot_shape(x, w, "dyn_conv_sum", 9, (torch.float32,))
+    if not cuda:
+        return dyn_conv_sum_plain(x, w)
+    _check_card("dyn_conv_sum", tuple(x.shape), 0, px8=False)
+    out = torch.empty(x.shape[1:], device=x.device, dtype=torch.float32)
+    _launch(CONV, x, out, w=w)
+    dyn_conv_sum.launches += 1
     return out
 
 
@@ -226,7 +337,8 @@ def dyn_load_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-WRAPPERS = (dyn_load_sum, dyn_store, dyn_store_bulk, dyn_load_dot)
+WRAPPERS = (dyn_load_sum, dyn_store, dyn_store_bulk, dyn_load_dot, dyn_narrow_sum, dyn_conv_sum,
+            dyn_store_window)
 for _fn in WRAPPERS:
     _fn.launches = 0
 
@@ -251,23 +363,44 @@ BODIES = {
             {"scratch_dtype": torch.bfloat16}, "benchmarks/probe_loop_dyn3.py:43"),
     "k12": ("K8h", "dyn-load-bf16-dot", dyn_load_dot, dyn_load_dot_plain, {},
             "benchmarks/probe_loop_dyn3.py:61"),
+    "k6": ("K8g", "p-narrow", dyn_narrow_sum, dyn_narrow_sum_plain, {},
+           "benchmarks/probe_loop_dyn2.py:31"),
+    "k7": ("K8g", "patches+dot", dyn_conv_sum, dyn_conv_sum_plain, {},
+           "benchmarks/probe_loop_dyn2.py:60"),
+    "k8": ("K8g", "5d-store", dyn_store_window, dyn_store_window_plain,
+           {"row0": ROW0, "rows": TH, "scale": 2.0}, "benchmarks/probe_loop_dyn2.py:75"),
 }
+DOTS = ("k2", "k12", "k7")
+F32_DOTS = ("k2", "k7")
 
 
-def loop_dyn_bytes(body: str, layers: int, c: int, e: int, w: int):
+def loop_dyn_bytes(body: str, layers: int, c: int, e: int, w: int, rows: int = TH):
     """(needed bytes, needed flops, staged bytes, issued flops) of one call.
 
     Needed: each input the function reads, once, and its f32 output: every
-    layer of x for k1, k10, k2, k12 and k4 (k4 writes every layer too), x[0]
-    alone for k3 and k11 (the output is scr[0]), layers 0..2 for k5; the
-    dots' weights. The dots need 2 C C flops per pixel and layer: ``w[l] @
-    concat(h, h, h)`` is ``(w0 + w1 + w2) @ h``. The copies, sums and
-    scalings count no flops (as the staging probes' x2 does not): they are
-    far below the bytes. Staged and issued: what the TPU's ``pallas_call``
-    moves in and out (K8f passes x and w to every body, K8h only what each
-    takes) and the three blocks' 2 C 3C flops per pixel and layer."""
+    layer of x for k1, k10, k2, k12, k4 and k7 (k4 writes every layer too),
+    x[0] alone for k3 and k11 (the output is scr[0]), layers 0..2 for k5,
+    the ``rows`` window of every layer for k8 (which writes it too), the
+    whole narrow p for k6; the dots' weights. The dots need 2 C C flops per
+    pixel and layer: ``w[l] @ concat(h, h, h)`` is ``(w0 + w1 + w2) @ h``;
+    k7's conv 2 C 9C. The copies, sums and scalings count no flops (as the
+    staging probes' x2 does not): they are far below the bytes. Staged and
+    issued: what the TPU's ``pallas_call`` moves in and out (K8f passes x
+    and w to every body, K8g and K8h only what each takes; k8 stages the
+    whole x) and the three blocks' 2 C 3C flops per pixel and layer (k7: its
+    conv's)."""
     px = e * w
     f32, bf16 = c * px * 4, c * px * 2
+    if body == "k6":
+        needed = layers * c * 3 * 4 + f32
+        return needed, 0.0, needed, 0.0
+    if body == "k7":
+        flops = 2.0 * c * 9 * c * px * layers
+        needed = layers * f32 + layers * c * 9 * c * 4 + f32
+        return needed, flops, needed, flops
+    if body == "k8":
+        window = layers * c * rows * w * 4
+        return 2 * window, 0.0, layers * f32 + window, 0.0
     x_layer = bf16 if body in ("k10", "k12") else f32
     out = layers * f32 if body == "k4" else f32
     w_bytes = layers * c * 3 * c * (2 if body == "k12" else 4)
@@ -279,17 +412,30 @@ def loop_dyn_bytes(body: str, layers: int, c: int, e: int, w: int):
     return needed, flops, staged, 3 * flops
 
 
-def draw_operands(rng, kind: str, layers: int, c: int, e: int, w: int, device="cpu"):
+def draw_operands(rng, kind: str, layers: int, c: int, e: int, w: int, device="cpu",
+                  normals: bool = False):
     """The operands of body ``kind`` (``k1`` .. ``k12``), with numpy from
-    ``rng``: x[l] integers in [-4, 4] times 16^l, w integers in [-2, 2],
-    and for k11 standard normals in f32 (most of them not bf16-exact, so the
-    rounding shows). Every value is exact in bf16, and for L <= 4 and C <=
-    32 every sum is an exact integer below 2^24 (a dot's 3C terms at most 2
-    4 16^3 each), so any summation order gives the same f32 result. The
-    16^l scale makes every layer differ: a kernel reading the wrong layer
-    moves the output. Returns the body's positional arguments."""
+    ``rng``: x[l] (k6: p[l]) integers in [-4, 4] times 16^l, w integers in
+    [-2, 2], and for k11 standard normals in f32 (most of them not
+    bf16-exact, so the rounding shows). Every value is exact in bf16, and
+    for L <= 4 and C <= 32 every sum is an exact integer below 2^24 (a dot's
+    3C terms, and k7's 9C, at most 2 4 16^3 each), so any summation order
+    gives the same f32 result. The 16^l scale makes every layer differ: a
+    kernel reading the wrong layer moves the output; p's other two columns
+    are drawn alike, so reading another column moves it too. Returns the
+    body's positional arguments (k6: p and the output's E and W).
+
+    With ``normals`` (the f32 dots k2 and k7 only) x and w are f32 standard
+    normals instead, most of them not exact in TF32 or bf16: a dot that
+    rounds its operands misses ``f32_tolerance``, which these are held to."""
     if kind not in BODIES:
         raise ValueError(f"unknown body {kind!r}; one of {sorted(BODIES)}")
+    if normals:
+        if kind not in F32_DOTS:
+            raise ValueError(f"normals are drawn for {F32_DOTS}, not {kind!r}")
+        taps = 9 if kind == "k7" else 3
+        return tuple(torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device)
+                     for shape in ((layers, c, e, w), (layers, c, taps * c)))
     dtype = torch.bfloat16 if kind in ("k10", "k12") else torch.float32
 
     def tensor(a):
@@ -299,16 +445,18 @@ def draw_operands(rng, kind: str, layers: int, c: int, e: int, w: int, device="c
     if kind == "k11":
         return (tensor(rng.standard_normal(shape, dtype=np.float32)),)
     scale = 16.0 ** np.arange(layers)[:, None, None, None]
+    if kind == "k6":
+        return tensor(rng.integers(-4, 5, (layers, c, 3)) * scale[..., 0]), e, w
     x = tensor(rng.integers(-4, 5, shape) * scale)
-    if kind in ("k2", "k12"):
-        return x, tensor(rng.integers(-2, 3, (layers, c, 3 * c)))
+    if kind in DOTS:
+        return x, tensor(rng.integers(-2, 3, (layers, c, (9 if kind == "k7" else 3) * c)))
     return (x,)
 
 
 def probe_cases(device, seed: int = 0, shape=(L, C, E, W)) -> List[Case]:
-    """The eight bodies (k1-k5, k10-k12) at the JAX files' shapes, operands
-    from ``draw_operands`` with numpy from ``seed``; on ``meta`` only their
-    shapes."""
+    """The eleven bodies (k1-k5, k10-k12, k6-k8) at the JAX files' shapes,
+    operands from ``draw_operands`` with numpy from ``seed``; on ``meta``
+    only their shapes."""
     layers, c, e, w = shape
     rng = np.random.default_rng(seed)
     meta = torch.device(device).type == "meta"
@@ -317,15 +465,18 @@ def probe_cases(device, seed: int = 0, shape=(L, C, E, W)) -> List[Case]:
         if not meta:
             return draw_operands(rng, kind, layers, c, e, w, device)
         dtype = torch.bfloat16 if kind in ("k10", "k12") else torch.float32
+        if kind == "k6":
+            return torch.empty(layers, c, 3, device="meta"), e, w
         x = torch.empty(shape, device="meta", dtype=dtype)
-        if kind in ("k2", "k12"):
-            return x, torch.empty(layers, c, 3 * c, device="meta", dtype=dtype)
+        if kind in DOTS:
+            taps = 9 if kind == "k7" else 3
+            return x, torch.empty(layers, c, taps * c, device="meta", dtype=dtype)
         return (x,)
 
     cases = []
     for body, (probe, tag, fn, plain, kwargs, replaces) in BODIES.items():
         needed, flops, staged, issued = loop_dyn_bytes(body, layers, c, e, w)
-        rate = F32_FLOP_PER_S if body == "k2" else BF16_FLOP_PER_S
+        rate = F32_FLOP_PER_S if body in ("k2", "k7") else BF16_FLOP_PER_S
         cases.append(Case(f"{probe} {body} {tag} [{layers},{c},{e},{w}]", fn, plain,
                           operands(body), dict(kwargs), needed, flops, staged, issued, replaces,
                           rate))
@@ -342,6 +493,16 @@ def tolerance(case: Case, ref: torch.Tensor) -> float:
     by, in every case: nothing. Every sum is exact (``draw_operands``), the
     copies and the x2 and x3 are exact or round once alike."""
     return 0.0
+
+
+def f32_tolerance(x: torch.Tensor, w: torch.Tensor, ref: torch.Tensor) -> float:
+    """What an f32 dot's output (k2, k7) on normal operands may differ from
+    ``ref`` (the plain float64 sums, rounded once) by: ``2 sqrt(n) 2^-24 max
+    |ref|``, n = L w.shape[-1] the terms of each output (L 3C, L 9C), summed
+    in f32 in another order. Operands rounded to TF32 (10 bits) miss it by
+    far."""
+    n = x.shape[0] * w.shape[-1]
+    return 2.0 * math.sqrt(n) * 2.0 ** -24 * float(ref.abs().max())
 
 
 def run_all(device: Optional[str] = None, seed: int = 0, repeats: int = 3) -> List[dict]:

@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version at
 shapes that leave ragged tiles, the launch counters, the fused evaluation
 path, the whole-network kernels (K3, K4, K5, K6, K7) against
-``firenet_step_plain``, and the in-kernel dot, staging, unit-loop and
-runtime-indexed loop probes against theirs.
+``firenet_step_plain``, and the in-kernel dot, staging, unit-loop,
+runtime-indexed loop and Mosaic-ops probes against theirs.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -449,3 +449,116 @@ def test_loop_dyn_refuses_what_it_cannot_take(cuda):
     assert [fn.launches for fn in D.WRAPPERS] == before
     with pytest.raises(RuntimeError, match="cudaError_t"):
         D._launch(D.LOAD_SUM, x[:2], torch.empty(x.shape[1:], device=cuda), slot=True)
+
+
+@pytest.mark.parametrize("body,shape,window,normals", [
+    ("k6", (4, 32, 24, 256), None, False), ("k6", (3, 32, 5, 24), None, False),
+    ("k7", (4, 32, 24, 256), None, False), ("k7", (3, 32, 5, 40), None, False),
+    ("k7", (2, 32, 3, 130), None, False), ("k8", (4, 32, 24, 256), None, False),
+    ("k8", (3, 32, 17, 24), (5, 3), False), ("k7", (4, 32, 24, 256), None, True),
+    ("k7", (3, 32, 5, 40), None, True), ("k2", (4, 32, 24, 256), None, True),
+], ids=["k6-full", "k6-ragged", "k7-full", "k7-ragged", "k7-wide", "k8-full", "k8-ragged",
+        "k7-full-normals", "k7-ragged-normals", "k2-full-normals"])
+def test_loop_dyn2_matches_plain(cuda, body, shape, window, normals):
+    """K8g's bodies against their plain versions, equal (integer operands,
+    ``loop_dyn.draw_operands``), one launch each, at the JAX probe's shapes
+    and at ragged ones: k6 over E W = 120 pixels (a tile of 64 and one of
+    56); k7 over 40 and 130 columns (a part of a 64-column tile) and 5 and
+    3 rows; k8 storing rows 5..7 of 24 columns, runs of 2048 elements that
+    cross channels and a last run of 256. The f32 dots k7 and k2 also on
+    f32 normals, within ``loop_dyn.f32_tolerance``: a dot that rounded its
+    operands to TF32 or bf16 would miss it."""
+    from evflow_torch.probes import loop_dyn as D
+    from evflow_torch.probes._harness import compare
+
+    case = next(c for c in D.probe_cases(cuda, seed=1, shape=shape) if D.body_of(c) == body)
+    args = (D.draw_operands(np.random.default_rng(2), body, *shape, device=cuda, normals=True)
+            if normals else case.args)
+    kwargs = dict(case.kwargs)
+    if window is not None:
+        kwargs.update(row0=window[0], rows=window[1])
+    before = case.fn.launches
+    out = case.fn(*args, **kwargs)
+    assert case.fn.launches == before + 1
+    _, c, e, w = shape
+    grid = {"k2": -(-e * w // 64), "k6": -(-e * w // 64), "k7": e * -(-w // 64),
+            "k8": -(-c * kwargs.get("rows", 0) * w // 2048)}[body]
+    assert D.last_launch["grid"] == grid
+    ref = case.plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    if normals:
+        res = compare(out, ref, D.f32_tolerance(*args, ref))
+        assert res["ok"], res
+    else:
+        assert torch.equal(out, ref)
+    assert float((ref != 0).float().mean()) > 0.5
+
+
+def test_loop_dyn2_refuses_what_it_cannot_take(cuda):
+    """A k8 window whose first element is off a 16-byte boundary, k6 and k7
+    at C other than 32 and operands on two devices are refused before any
+    launch; the entry point itself refuses a window past the image."""
+    from evflow_torch.probes import loop_dyn as D
+
+    x = torch.zeros(4, 32, 16, 6, device=cuda)
+    before = [fn.launches for fn in D.WRAPPERS]
+    with pytest.raises(ValueError, match="multiples of 4"):
+        D.dyn_store_window(x, row0=1, rows=2)
+    with pytest.raises(ValueError, match="C=32"):
+        D.dyn_narrow_sum(torch.zeros(4, 16, 3, device=cuda), 8, 8)
+    with pytest.raises(ValueError, match="C=32"):
+        D.dyn_conv_sum(torch.zeros(4, 16, 5, 8, device=cuda), torch.zeros(4, 16, 144, device=cuda))
+    with pytest.raises(ValueError, match="one device"):
+        D.dyn_conv_sum(x, torch.zeros(4, 32, 288))
+    assert [fn.launches for fn in D.WRAPPERS] == before
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        D._launch(D.STORE_BULK, x, torch.empty(4, 32, 1, 6, device=cuda), row0=16, rows=1,
+                  scale=2.0)
+
+
+@pytest.mark.parametrize("shape", [(32, 288, 32, 256), (16, 32, 3, 24)], ids=["full", "ragged"])
+@pytest.mark.parametrize("body", ["k_misc", "k_roll", "k_dot3"])
+def test_mosaic_ops_matches_plain(cuda, shape, body):
+    """K8o's bodies on normal bf16 draws against their plain versions, one
+    launch each, at the JAX probe's shapes and at a ragged one (3 rows, a
+    part of a CTA, a dot over 72 pixels): k_misc and k_roll equal (each sum
+    rounds once alike; k_roll's rounding shows against the f32 sum), k_dot3
+    within ``mosaic_ops.tolerance``."""
+    from evflow_torch.probes import mosaic_ops as M
+    from evflow_torch.probes._harness import compare
+
+    from evflow_torch.probes import inkernel_dot
+
+    case = next(c for c in M.probe_cases(cuda, seed=1, shape=shape) if M.body_of(c) == body)
+    before, variant = case.fn.launches, inkernel_dot.dot_variant.launches
+    out = case.fn(*case.args)
+    # dot3 launches dot_variant's kernel itself: only its own count moves
+    assert (case.fn.launches, inkernel_dot.dot_variant.launches) == (before + 1, variant)
+    ref = case.plain(*case.args)
+    torch.cuda.synchronize()
+    res = compare(out, ref, M.tolerance(case, ref))
+    assert res["ok"], res
+    if body == "k_roll":
+        v = case.args[0].float()
+        assert float((out != torch.roll(v, 1, 2) + torch.roll(v, 1, 1)).float().mean()) > 0.3
+
+
+def test_mosaic_ops_refuses_what_it_cannot_take(cuda):
+    """W not a multiple of 8 and an operand off a 16-byte boundary are
+    refused before any launch; the entry point itself refuses W = 4."""
+    from evflow_torch.probes import mosaic_ops as M
+
+    before = [fn.launches for fn in M.WRAPPERS]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        M.roll_sum(torch.zeros(4, 4, 12, device=cuda, dtype=torch.bfloat16))
+    shifted = torch.zeros(4 * 4 * 16 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(4, 4, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        M.concat_where(shifted)
+    assert [fn.launches for fn in M.WRAPPERS] == before
+    v = torch.zeros(4, 4, 4, device=cuda, dtype=torch.bfloat16)
+    args = M.MosaicArgs(v=v.data_ptr(), out=torch.empty(4, 4, 4, device=cuda).data_ptr(),
+                        op=M.ROLL, C=4, E=4, W=4)
+    from evflow_torch.probes._harness import launch
+
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        launch("probe_mosaic_ops", args, v.device)

@@ -2,20 +2,23 @@
 plain versions on the CPU) against the JAX probe kernels of
 ``benchmarks/probe_loop_dyn.py`` (K8f: ``k1``-``k5``),
 ``probe_loop_dyn3.py`` (K8h: ``k10``-``k12``) and ``probe_loop_dyn2.py``
-(``k9``, the bulk store's reference, since ``k4`` does not run) in
-interpret mode, on the same numpy-made operands at a small size (L=4, C=8,
-E=8, W=16).
+(K8g: ``k6``-``k8``, and ``k9``, the bulk store's reference, since ``k4``
+does not run) in interpret mode, on the same numpy-made operands at a
+small size (L=4, C=8, E=8, W=16; ``k8``, which stores rows 8..8+TH, at
+E=16 with TH=4).
 
 The probe files run their cases when imported, so each is parsed and only
 its imports and ``def``s are executed, with its size constants rebound
 (``tests/_torch_port.py::probe_namespace``); each ``pallas_call`` is built
 here with the file's own specs (``probe_loop_dyn.py:21-30``,
-``probe_loop_dyn3.py:29-64``, ``probe_loop_dyn2.py:91-97``, with ``pl.ANY``
-for the deprecated ``pltpu.ANY``).
+``probe_loop_dyn3.py:29-64``, ``probe_loop_dyn2.py:31-97``, with
+``pl.ANY`` for the deprecated ``pltpu.ANY``).
 
 Tolerance: equality. The operands (``loop_dyn.draw_operands``) make every
 sum an exact integer, so any order of f32 sums and the plain version's
-float64 sums give the same values; the roundings to bf16 are alike.
+float64 sums give the same values; the roundings to bf16 are alike. The
+f32 dots k2 and k7 are also run on f32 normals, within
+``loop_dyn.f32_tolerance``.
 """
 
 import jax
@@ -23,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
@@ -104,6 +108,109 @@ def test_bulk_store_matches_jax_k9():
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+K8G_E, K8G_TH = 16, 4  # k8 stores rows 8..8+TH: E must reach past them
+
+
+def k8g_probe(body, args):
+    """``probe_loop_dyn2.py``'s ``k6``, ``k7`` or ``k8`` in interpret mode
+    with the file's specs (``:31-36``, ``:60-65``, ``:75-80``)."""
+    e = K8G_E if body == "k8" else E
+    ns = probe_namespace("probe_loop_dyn2", L=L, C=C, E=e, W=W, TH=K8G_TH)
+    if body == "k8":
+        out = dict(out_specs=pl.BlockSpec((L, 1, C, K8G_TH, W), lambda i: (0, 0, 0, 0, 0)),
+                   out_shape=jax.ShapeDtypeStruct((L, 1, C, K8G_TH, W), jnp.float32))
+    else:
+        out = OUT
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    with pltpu.force_tpu_interpret_mode():
+        call = pl.pallas_call(ns[body], grid=(1,), in_specs=vmem_in(len(tensors)), **out)
+        return np.asarray(call(*(jax_of(t) for t in tensors)))
+
+
+@pytest.mark.parametrize("body", ["k6", "k7", "k8"])
+def test_k8g_body_matches_jax_probe(body):
+    """K8g's ``k6`` (the narrow ``[L, C, 3]`` load), ``k7`` (patches and
+    three dots per layer: a SAME conv) and ``k8`` (the 5-D windowed store)
+    against the port's plain versions: equal."""
+    _, _, fn, _, kwargs, _ = D.BODIES[body]
+    e = K8G_E if body == "k8" else E
+    args = D.draw_operands(np.random.default_rng(4), body, L, C, e, W)
+    if body == "k8":
+        kwargs = dict(kwargs, rows=K8G_TH)
+    ref = k8g_probe(body, args)
+    before = fn.launches
+    out = fn(*args, **kwargs)
+    assert fn.launches == before  # the CPU runs the plain version: no launch
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert (ref != 0).mean() > 0.5
+
+
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32's 10 mantissa bits (to nearest)."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("body", ["k2", "k7"])
+def test_f32_dot_matches_jax_probe_on_normals(body):
+    """The f32 dots k2 and k7 on f32 normals: the JAX body in interpret mode
+    within ``loop_dyn.f32_tolerance`` of the port's plain version, and the
+    same dots on operands rounded to TF32 ten times past it, so the check
+    the card's kernels are held to (``chip_smoke.py`` phase ``loopdyn``)
+    tells an exact-f32 dot from a TF32 one."""
+    _, _, fn, plain, _, _ = D.BODIES[body]
+    args = D.draw_operands(np.random.default_rng(8), body, L, C, E, W, normals=True)
+    assert all(t.dtype == torch.float32 for t in args)
+    assert float((tf32(args[0]) != args[0]).float().mean()) > 0.9
+    ref = jax_probe(body, args) if body == "k2" else k8g_probe(body, args)
+    out = fn(*args)
+    tol = D.f32_tolerance(*args, out)
+    assert np.abs(out.numpy() - ref).max() <= tol
+    assert float((plain(*(tf32(t) for t in args)) - out).abs().max()) > 10 * tol
+
+
+def test_narrow_sum_reads_column_1_of_every_layer():
+    p, e, w = D.draw_operands(np.random.default_rng(5), "k6", L, C, E, W)
+    out = D.dyn_narrow_sum(p, e, w)
+    assert torch.equal(out, p[:, :, 1].sum(0)[:, None, None].expand(C, E, W))
+    moved = p.clone()
+    moved[:, :, 0] += 5
+    moved[:, :, 2] -= 3
+    assert torch.equal(D.dyn_narrow_sum(moved, e, w), out)
+    moved[3, :, 1] += 1
+    assert torch.equal(D.dyn_narrow_sum(moved, e, w), out + 1)
+
+
+def test_conv_sum_zero_pads_rows_and_columns():
+    """k7 is a SAME conv whose outside rows and columns are zeros: on ones
+    with ones for weights each output counts the taps inside the image (4
+    at a corner, 6 on an edge, 9 inside) over C channels and L layers; and
+    its weight layout ``w[l][co, (dy 3 + dx) C + ci]`` is ``conv_weights``'s."""
+    x, w = torch.ones(L, C, E, W), torch.ones(L, C, 9 * C)
+    out = D.dyn_conv_sum(x, w)
+    taps = torch.full((E, W), 9.0)
+    taps[[0, -1], :] = 6
+    taps[:, [0, -1]] = 6
+    taps[[0, 0, -1, -1], [0, -1, 0, -1]] = 4
+    assert torch.equal(out, (L * C * taps).expand(C, E, W))
+    x, w = D.draw_operands(np.random.default_rng(6), "k7", L, C, E, W)
+    by_layer = sum(F.conv2d(x[l:l + 1].double(),
+                            w[l].double().reshape(C, 3, 3, C).permute(0, 3, 1, 2), padding=1)[0]
+                   for l in range(L))
+    assert torch.equal(D.dyn_conv_sum(x, w), by_layer.float())
+
+
+def test_store_window_is_the_bulk_store_of_a_row_window():
+    """k8's plain version stores ``scale x[l][:, row0 : row0 + rows]`` into
+    ``[L, 1, C, rows, W]``; at the whole image and scale 3 it is k4's."""
+    (x,) = D.draw_operands(np.random.default_rng(7), "k8", L, C, K8G_E, W)
+    out = D.dyn_store_window(x)
+    assert tuple(out.shape) == (L, 1, C, D.TH, W)
+    assert torch.equal(out[:, 0], 2 * x[:, :, 8:16])
+    assert torch.equal(D.dyn_store_window(x, row0=0, rows=K8G_E, scale=3.0)[:, 0],
+                       D.dyn_store_bulk(x))
+
+
 def test_reference_k4_raises_in_interpret_mode():
     """``probe_loop_dyn.py:76`` hands ``o_hbm.at[pl.ds(l, 1)][0]``, which is
     not a Ref, to the DMA: the JAX ``k4`` raises before it runs (``k9``
@@ -151,20 +258,31 @@ def test_cases_follow_the_files():
     blocks folded), which sets the bound; and what the TPU probe stages and
     issues."""
     cases = D.probe_cases("meta")
-    assert [D.body_of(c) for c in cases] == ["k1", "k2", "k3", "k4", "k5", "k10", "k11", "k12"]
-    assert all(tuple(c.args[0].shape) == (4, 32, 24, 256) for c in cases)
-    assert [c.args[0].dtype for c in cases] == [torch.float32] * 5 + [torch.bfloat16,
-                                                                      torch.float32, torch.bfloat16]
+    assert [D.body_of(c) for c in cases] == ["k1", "k2", "k3", "k4", "k5", "k10", "k11", "k12",
+                                             "k6", "k7", "k8"]
+    k6 = cases[8]
+    assert tuple(k6.args[0].shape) == (4, 32, 3) and k6.args[1:] == (24, 256)
+    assert all(tuple(c.args[0].shape) == (4, 32, 24, 256) for c in cases if c is not k6)
+    assert [c.args[0].dtype for c in cases] == ([torch.float32] * 5
+                                                + [torch.bfloat16, torch.float32, torch.bfloat16]
+                                                + [torch.float32] * 3)
     assert tuple(cases[1].args[1].shape) == (4, 32, 96)
+    assert tuple(cases[9].args[1].shape) == (4, 32, 288)
+    assert cases[10].kwargs == {"row0": 8, "rows": 8, "scale": 2.0}
     assert [c.nbytes for c in cases] == [3_932_160, 3_981_312, 1_572_864, 6_291_456, 3_145_728,
-                                         2_359_296, 1_572_864, 2_383_872]
-    assert [c.flops for c in cases] == [0, 50_331_648, 0, 0, 0, 0, 0, 50_331_648]
-    assert [c.issued_flops for c in cases] == [0, 150_994_944, 0, 0, 0, 0, 0, 150_994_944]
+                                         2_359_296, 1_572_864, 2_383_872, 787_968, 4_079_616,
+                                         2_097_152]
+    assert [c.flops for c in cases] == [0, 50_331_648, 0, 0, 0, 0, 0, 50_331_648, 0,
+                                        452_984_832, 0]
+    assert [c.issued_flops for c in cases] == [0, 150_994_944, 0, 0, 0, 0, 0, 150_994_944, 0,
+                                               452_984_832, 0]
     assert [c.staged_bytes for c in cases] == [3_981_312] * 3 + [6_340_608, 3_981_312,
-                                                                 2_359_296, 3_932_160, 2_383_872]
-    assert [D.bound(c)[1] for c in cases] == ["bytes"] * 8
+                                                                 2_359_296, 3_932_160, 2_383_872,
+                                                                 787_968, 4_079_616, 4_194_304]
+    assert [D.bound(c)[1] for c in cases] == ["bytes"] * 9 + ["operations", "bytes"]
     assert D.bound(cases[0])[0] == pytest.approx(3_932_160 / 3.35e9)
     assert D.bound(cases[3])[0] == pytest.approx(6_291_456 / 3.35e9)
+    assert [round(D.bound(c)[0], 6) for c in cases[8:]] == [0.000235, 0.006761, 0.000626]
     assert all(D.tolerance(c, torch.full((1,), 512.0)) == 0.0 for c in cases)
     assert all(c.fn.launches == 0 for c in cases)  # building cases launches nothing
 
@@ -180,8 +298,8 @@ def test_case_rate_sets_the_bound():
     assert grid.rate == unit.rate == BF16_FLOP_PER_S
     assert S.bound(grid) == (pytest.approx(3_022_848 / 3.35e9), "bytes")
     assert U.bound(unit) == (pytest.approx(2_180_608 / 3.35e9), "bytes")
-    k2, k12 = D.probe_cases("meta")[1], D.probe_cases("meta")[7]
-    assert (k2.rate, k12.rate) == (F32_FLOP_PER_S, BF16_FLOP_PER_S)
+    k2, k12, k7 = (D.probe_cases("meta")[i] for i in (1, 7, 9))
+    assert (k2.rate, k12.rate, k7.rate) == (F32_FLOP_PER_S, BF16_FLOP_PER_S, F32_FLOP_PER_S)
     assert D.bound(k2)[0] == pytest.approx(1e3 * 3_981_312 / HBM_BYTES_PER_S)
     # with no bytes to move, the f32 operations at the f32 rate set the bound
     assert D.bound(k2._replace(nbytes=0)) == (pytest.approx(1e3 * 50_331_648 / 67e12),
@@ -222,8 +340,15 @@ X = torch.zeros(4, 8, 8, 16)
     (lambda: D.dyn_load_dot(X, torch.zeros(4, 8, 16)), r"w \[L, C, 3C\]"),
     (lambda: D.dyn_load_dot(X, torch.zeros(4, 8, 24, dtype=torch.bfloat16)), r"w \[L, C, 3C\]"),
     (lambda: D.dyn_load_dot(X, torch.zeros(4, 8, 24, device="meta")), "one device"),
+    (lambda: D.dyn_narrow_sum(torch.zeros(4, 8, 4), 8, 16), r"p \[L, C, 3\]"),
+    (lambda: D.dyn_narrow_sum(torch.zeros(4, 8, 3), 0, 16), r"\[E, W\] >= 1"),
+    (lambda: D.dyn_conv_sum(X, torch.zeros(4, 8, 24)), r"w \[L, C, 9C\]"),
+    (lambda: D.dyn_conv_sum(X.to(torch.bfloat16), torch.zeros(4, 8, 72)), "takes x of"),
+    (lambda: D.dyn_store_window(X, row0=6, rows=4), "outside E=8"),
+    (lambda: D.dyn_store_window(X, row0=0, rows=0), "outside E=8"),
 ], ids=["meta", "dtype", "rank", "slot-layers", "strided", "store-dtype", "scratch-dtype",
-        "out-shape", "out-device", "w-shape", "w-dtype", "w-device"])
+        "out-shape", "out-device", "w-shape", "w-dtype", "w-device", "p-shape", "p-image",
+        "conv-w-shape", "conv-dtype", "window-rows", "window-empty"])
 def test_wrappers_refuse(call, match):
     before = [fn.launches for fn in D.WRAPPERS]
     with pytest.raises(ValueError, match=match):
