@@ -104,6 +104,17 @@ Phases, each printing JSON lines; any failure exits non-zero:
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
    (``out_dtype``).
+12. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
+   K8k's kA and kB, K8l's two, K8m's four and K8n's three chain variants, on
+   ``csrc/probe_wholenet_bisect.cu``) at the JAX files' shapes (C=32, H=64,
+   W=256, TH=16; B=1 for K8k, 2 for the chain) through ``run_all`` (launch
+   counters as in phase 10), every output of each case (kA's and kB's out;
+   the chain's o0, o1 and flow) against its plain version: equal, on
+   operands that make every sum exact (``wholenet_bisect.draw_operands``),
+   the pred flow within ``2 sqrt(C) 2^-24 max|out|`` plus 4 f32 ulps; with
+   device ms, the bound, the CTAs, threads and shared bytes, and cuDNN bf16
+   convs of the same shapes as the yardstick (kA one, kB seven chained,
+   the chain two chained over ``[B, 32, Hp, W]``).
 
 The line before the last is one JSON object with a row per kernel (for the
 per-layer kernels, times summed over one window's 7 launches at the bench
@@ -127,7 +138,7 @@ import tempfile
 import time
 
 PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes", "staging",
-          "unitloop", "loopdyn", "mosaicops")
+          "unitloop", "loopdyn", "mosaicops", "bisect")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # (case, Cin, recurrent, hard reset)
@@ -840,6 +851,7 @@ STAGING_SOURCE = "evflow_torch/csrc/probe_staging.cu"
 UNITLOOP_SOURCE = "evflow_torch/csrc/probe_unit_loop.cu"
 LOOPDYN_SOURCE = "evflow_torch/csrc/probe_loop_dyn.cu"
 MOSAIC_SOURCE = "evflow_torch/csrc/probe_mosaic_ops.cu"
+BISECT_SOURCE = "evflow_torch/csrc/probe_wholenet_bisect.cu"
 
 
 def probe_row_name(case):
@@ -1270,6 +1282,84 @@ def phase_mosaicops(state):
     state.setdefault("launches", {}).update(launches)
 
 
+def bisect_yardstick(case):
+    """cuDNN bf16 convs of the body's shapes, never called by the port,
+    padding (0, 1) as the probes pad: kA one conv of the H + 2 rows it
+    reads; kB seven chained over the ``[B n, C, E, W]`` blocks; the chain
+    two chained over ``[B, 32, Hp, W]``. The convs alone: no epilogue."""
+    import torch.nn.functional as F
+
+    from evflow_torch.probes import wholenet_bisect as M
+
+    def kernel(w):  # [C, 9 Cin] -> [C, Cin, 3, 3]
+        return w.reshape(w.shape[0], 3, 3, -1).permute(0, 3, 1, 2).contiguous()
+
+    body = M.body_of(case)
+    if body == "kA":
+        x, w, _ = case.args
+        xs, wt = x[:, :, M.TH - 1:x.shape[2] - M.TH + 1].contiguous(), kernel(w)
+        return lambda: F.conv2d(xs, wt, padding=(0, 1))
+    if body == "kB":
+        xb, w = case.args
+        b, c, rows, wd = xb.shape
+        xs = xb.reshape(b, c, rows // M.E, M.E, wd).transpose(1, 2).reshape(-1, c, M.E, wd)
+        xs, wt = xs.contiguous(), kernel(w)
+
+        def seven():
+            v = xs
+            for _ in range(M.KB_LAYERS):
+                v = F.conv2d(v, wt, padding=(0, 1))
+            return v
+        return seven
+    x, w0, w1 = case.args[0], kernel(case.args[3]), kernel(case.args[4])
+    return lambda: F.conv2d(F.conv2d(x, w0, padding=(0, 1)), w1, padding=(0, 1))
+
+
+def phase_bisect(state):
+    """The whole-net bisection probes at the JAX files' shapes: the entry
+    point ``run_all`` with the launch counters 0 just before and read just
+    after, then every output of each case against its plain version, and
+    its times beside the bound and the yardstick."""
+    import torch
+
+    from evflow_torch.probes import wholenet_bisect as M
+    from evflow_torch.probes._harness import compare
+
+    name = card()
+    per_case = counted_run_all(M, "bisect", name)
+
+    times, errs, launches = {}, {}, {}
+    for case in M.probe_cases("cuda", seed=0):
+        body = M.body_of(case)
+        outs = M.outputs(case, case.fn(*case.args, **case.kwargs))
+        launch = dict(M.last_launch)
+        refs = M.outputs(case, case.plain(*case.args, **case.kwargs))
+        torch.cuda.synchronize()
+        res = {k: compare(outs[k], refs[k], M.tolerance(case, refs[k], k)) for k in outs}
+        nonzero = {k: float((refs[k] != 0).float().mean()) for k in refs}
+        ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
+        plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
+        lib_ms = device_ms(bisect_yardstick(case), iters=20)
+        bms, by = M.bound(case)
+        row = f"{case.fn.__name__}[{body}]"
+        ok = all(r["ok"] for r in res.values())
+        emit({"phase": "bisect", "case": case.name, "kernel": row, "ok": ok, "outputs": res,
+              "nonzero_share": nonzero, "ms": ms, "gbps": case.nbytes / ms / 1e6,
+              "tflops": case.flops / ms / 1e9, "ctas": launch["grid"],
+              "threads": launch["threads"], "smem": launch["smem"], "plain_ms": plain_ms,
+              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "card": name})
+        if not ok:
+            raise SystemExit(f"bisection probe {case.name} disagrees with its plain version: "
+                             f"{res}")
+        times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        errs[row] = max(r["max_abs_err"] for r in res.values())
+        launches[row] = per_case[case.name]
+        state.setdefault("probe_rows", []).append((row, BISECT_SOURCE, case.replaces))
+    state.setdefault("times", {}).update(times)
+    state.setdefault("max_abs_err", {}).update(errs)
+    state.setdefault("launches", {}).update(launches)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1294,7 +1384,7 @@ def main(argv=None):
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet,
              "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
-             "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops}
+             "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops, "bisect": phase_bisect}
     try:
         for p in PHASES:
             if p in phases:

@@ -31,7 +31,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("conv_lif", "conv_lif_cmajor", "fused_net", "fused_net_loop", "fused_net_loop2",
            "fused_net_lgrid", "fused_net_batch", "probe_inkernel_dot", "probe_staging",
-           "probe_unit_loop", "probe_loop_dyn", "probe_mosaic_ops")
+           "probe_unit_loop", "probe_loop_dyn", "probe_mosaic_ops", "probe_wholenet_bisect")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -105,7 +105,7 @@ _CONV_LIF_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # (``csrc/fused_net_common.cuh``, mirrored by ``ops/fused_net.py``) and the
 # stream; the probes their own structs (``probes/inkernel_dot.py``,
 # ``probes/staging.py``, ``probes/unit_loop.py``, ``probes/loop_dyn.py``,
-# ``probes/mosaic_ops.py``)
+# ``probes/mosaic_ops.py``, ``probes/wholenet_bisect.py``)
 _STRUCT_ARGS = [ctypes.c_void_p, ctypes.c_void_p]
 SIGNATURES = {
     "conv_lif": _CONV_LIF_ARGS,
@@ -121,6 +121,7 @@ SIGNATURES = {
     "probe_unit_loop": _STRUCT_ARGS,
     "probe_loop_dyn": _STRUCT_ARGS,
     "probe_mosaic_ops": _STRUCT_ARGS,
+    "probe_wholenet_bisect": _STRUCT_ARGS,
 }
 # entry points whose source is named otherwise (the rest live in ``<name>.cu``)
 ENTRY_SOURCES = {"probe_row_window": "probe_staging", "probe_layer_grid": "probe_staging"}

@@ -24,4 +24,9 @@ wrapper and a ``main()`` that prints the probe's measurements on the card:
 * ``mosaic_ops``: ``benchmarks/probe_mosaic_ops.py``, a bf16 block rolled
   along both axes and added, added to its masked self, and a dot of a 3-D
   operand (``python -m evflow_torch.probes.mosaic_ops``).
+* ``wholenet_bisect``: ``benchmarks/probe_wholenet_bisect.py``,
+  ``probe_wholenet_bisect3.py``, ``bisect5.py`` and ``bisect6.py``, one
+  conv, seven chained convs and two chained conv+LIF units in nine
+  variants over a row window whose rows outside the image are read as
+  they are (``python -m evflow_torch.probes.wholenet_bisect``).
 """

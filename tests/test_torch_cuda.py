@@ -2,7 +2,8 @@
 shapes that leave ragged tiles, the launch counters, the fused evaluation
 path, the whole-network kernels (K3, K4, K5, K6, K7) against
 ``firenet_step_plain``, and the in-kernel dot, staging, unit-loop,
-runtime-indexed loop and Mosaic-ops probes against theirs.
+runtime-indexed loop, Mosaic-ops and whole-net bisection probes against
+theirs.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -562,3 +563,67 @@ def test_mosaic_ops_refuses_what_it_cannot_take(cuda):
 
     with pytest.raises(RuntimeError, match="cudaError_t"):
         launch("probe_mosaic_ops", args, v.device)
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 256), (32, 32, 40)], ids=["full", "ragged"])
+@pytest.mark.parametrize("index", range(11))
+def test_wholenet_bisect_matches_plain(cuda, shape, index):
+    """Each of K8k-K8n's 11 cases against its plain version, one launch
+    each, at the JAX files' shapes and at H=32, W=40 (two row tiles, three
+    column tiles, the last of 8 columns): every output equal on the exact
+    draws, the pred flow within ``wholenet_bisect.tolerance``. The outputs'
+    memory held NaN before the call: the kernel writes every element, the
+    zero border rows of o0 and o1 too."""
+    from evflow_torch.probes import wholenet_bisect as M
+    from evflow_torch.probes._harness import compare
+
+    case = M.probe_cases(cuda, seed=index, shape=shape)[index]
+    body = M.body_of(case)
+    refs = M.outputs(case, case.plain(*case.args, **case.kwargs))
+    junk = [torch.full_like(t, float("nan")) for t in refs.values()]
+    del junk  # the caching allocator hands these blocks to the kernel's outputs
+    before = case.fn.launches
+    outs = M.outputs(case, case.fn(*case.args, **case.kwargs))
+    assert case.fn.launches == before + 1
+    b = 1 if body in ("kA", "kB") else 2
+    assert M.last_launch["grid"] == -(-shape[2] // 16) * (shape[1] // 16) * b
+    torch.cuda.synchronize()
+    assert list(outs) == list(refs)
+    for name, out in outs.items():
+        res = compare(out, refs[name], M.tolerance(case, refs[name], name))
+        assert res["ok"], (body, name, res)
+        assert 0.02 < float((refs[name] != 0).float().mean()), (body, name)
+
+
+def test_wholenet_bisect_refuses_what_it_cannot_take(cuda):
+    """C other than the kernel's 32, an operand 2 bytes past a 16-byte
+    boundary and operands on two devices are refused before any launch; the
+    entry point itself refuses H not a multiple of 16. The port's K3 launch
+    refuses ``probe_wholenet_bisect4.py``'s Cin = 32."""
+    from evflow_torch.ops.fused_net import WholeNetWeights
+    from evflow_torch.probes import wholenet_bisect as M
+    from evflow_torch.probes._harness import launch
+
+    rng = np.random.default_rng(0)
+    before = [fn.launches for fn in M.WRAPPERS]
+    with pytest.raises(ValueError, match="C=32"):
+        M.bisect_a(*M.draw_operands(rng, "kA", 1, 16, 16, 16, device=cuda))
+    x, w, p = M.draw_operands(rng, "kA", 1, 32, 16, 16, device=cuda)
+    shifted = torch.zeros(w.numel() + 1, device=cuda, dtype=w.dtype)[1:].view(w.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        M.bisect_a(x, shifted, p)
+    ops = M.draw_operands(rng, "two_where", 2, 32, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        M.bisect6(ops[0], ops[1].cpu(), *ops[2:])
+    assert [fn.launches for fn in M.WRAPPERS] == before
+    out = torch.empty(1, 32, 8, 16, device=cuda)
+    args = M.BisectArgs(x=x.data_ptr(), w0=w.data_ptr(), p0=p.data_ptr(), out=out.data_ptr(),
+                        body=M.KA, B=1, H=8, W=16)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        launch("probe_wholenet_bisect", args, x.device)
+    zeros = torch.zeros(32, 9 * 32, device=cuda, dtype=torch.bfloat16)
+    weights = WholeNetWeights((False, False), (zeros, zeros), torch.zeros(2, 3, 32, device=cuda),
+                              torch.zeros(32, 2, device=cuda), torch.zeros(2, device=cuda), True)
+    mems = tuple(torch.zeros(1, 32, 4, 4, device=cuda) for _ in range(2))
+    with pytest.raises(ValueError, match="Cin <= 16"):
+        fused_firenet_step(torch.zeros(1, 4, 4, 32, device=cuda), mems, (), weights)
