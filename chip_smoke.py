@@ -7,7 +7,10 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. ``build``: compile the hand-written CUDA kernels from ``evflow_torch/csrc``
-   (one ``nvcc`` per source, started together) into ``evflow_torch/_build``.
+   (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
+   and print ptxas's registers, stack and spill bytes of the redesigned
+   kernels (the in-kernel dot's ``probe_kernel`` instantiations and k2's
+   ``load_dot_f32_kernel``), failing if any of them has a stack or spills.
 2. ``kernels``: every kernel against its plain PyTorch version on the card at
    full width (B=2, 256x256, C=32): head (Cin=2), feedforward, recurrent and
    subtract reset, in both layouts. mem' within 1e-4 where the spikes agree
@@ -49,7 +52,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ms, TF/s, the CTA count, the bound (operations over 989 TFLOP/s bf16 or
    1979 TOP/s int8) and cuBLAS's time for the same products, one product of
    the L stacked weight matrices per step (``torch.matmul`` bf16,
-   ``torch._int_mm`` int8), as the yardstick.
+   ``torch._int_mm`` int8), as the yardstick, and the kernel's time over
+   each (``x_bound``, ``x_library``).
 8. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
    K8d row windows staged by TMA bulk copies, K8e's layer loop, and K8c at
    H=2048) through ``run_all`` (launch counters 0 just before, read just
@@ -93,7 +97,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1, 2, 0]
    with x, one ``torch.matmul`` of the stacked ``[C, L 3C] @ [L 3C, E W]``
    operands; k6 ``p[:, :, 1].sum(0)`` broadcast, k7 one ``F.conv2d`` of
-   ``[1, L C, E, W]`` (f32, TF32 off), k8 ``torch.mul(x[:, :, 8:16], 2)``.
+   ``[1, L C, E, W]`` (f32, TF32 off), k8 ``torch.mul(x[:, :, 8:16], 2)``;
+   and the kernel's time over the bound and over the yardstick.
 11. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
    K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
    in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
@@ -103,7 +108,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    with device ms, the bound, and the yardstick: ``(torch.roll(v, 1, 2) +
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
-   (``out_dtype``).
+   (``out_dtype``), and the kernel's time over the bound and the yardstick.
 12. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
    K8k's kA and kB, K8l's two, K8m's four and K8n's three chain variants, on
    ``csrc/probe_wholenet_bisect.cu``) at the JAX files' shapes (C=32, H=64,
@@ -346,6 +351,30 @@ def phase_build(state):
                            if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": per_source, "ptxas": ptxas})
+    redesigned = {}
+    for source, kernel in REDESIGNED:
+        log = cuda_build.BUILD_DIR / f"{source}.ptxas.txt"
+        if log.exists():
+            redesigned.update({short_name(fn, kernel): r for fn, r in
+                               cuda_build.ptxas_functions(log.read_text()).items() if kernel in fn})
+    spill_free = all(r["stack"] == 0 and r["spill_stores"] == 0 and r["spill_loads"] == 0
+                     for r in redesigned.values())
+    emit({"phase": "build", "redesigned": redesigned, "spill_free": spill_free})
+    if not spill_free:
+        raise SystemExit(f"a redesigned kernel has a stack frame or spills: {redesigned}")
+
+
+# the kernels redesigned for the card's speed: (source, kernel function)
+REDESIGNED = (("probe_inkernel_dot", "probe_kernel"), ("probe_loop_dyn", "load_dot_f32_kernel"))
+
+
+def short_name(mangled, kernel):
+    """``kernel``, with its template arguments for an in-kernel dot
+    instantiation: ``probe_kernel<MT,MODE,PIXM,SPLITK>``."""
+    import re
+
+    m = re.search(r"probe_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
+    return kernel if m is None else "probe_kernel<{},{},{},{}>".format(*m.groups())
 
 
 def phase_kernels(state):
@@ -885,6 +914,13 @@ def library_call(case):
     return (lambda: torch.matmul(ws, xs)), steps
 
 
+def factors(ms, bound_ms, library_ms):
+    """The kernel's time over its bound and over its yardstick's, measured
+    in the same run (None where the yardstick could not run)."""
+    return {"x_bound": ms / bound_ms,
+            "x_library": None if library_ms is None else ms / library_ms}
+
+
 def counted_run_all(module, phase, name, repeats=3):
     """``module.run_all`` (a probe module's entry point) with the launch
     counters set to 0 just before and read just after; fails unless every
@@ -950,7 +986,8 @@ def phase_probes(state):
               "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
               "library_ms": lib_ms, "library_tflops": None if lib_ms is None
-              else case.flops / lib_ms / 1e9, "library_error": lib_err, "card": name})
+              else case.flops / lib_ms / 1e9, "library_error": lib_err,
+              **factors(ms, 1e3 * max(t_ops, t_bytes), lib_ms), "card": name})
         if not res["ok"]:
             raise SystemExit(f"probe {case.name} disagrees with its plain version: {res}")
         times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
@@ -1192,7 +1229,7 @@ def phase_loopdyn(state):
               "gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
               "ctas": launch["grid"], "threads": launch["threads"], "smem": launch["smem"],
               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-              "card": name})
+              **factors(ms, bms, lib_ms), "card": name})
         if not res["ok"]:
             raise SystemExit(f"loop probe {case.name} disagrees with its plain version: {res}")
         times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
@@ -1268,7 +1305,8 @@ def phase_mosaicops(state):
         emit({"phase": "mosaicops", "case": case.name, "kernel": row, **res, "ms": ms,
               "gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
               "ctas": launch["grid"], "smem": launch["smem"], "plain_ms": plain_ms,
-              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "card": name})
+              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+              **factors(ms, bms, lib_ms), "card": name})
         if not res["ok"]:
             raise SystemExit(f"Mosaic-ops probe {case.name} disagrees with its plain version: "
                              f"{res}")

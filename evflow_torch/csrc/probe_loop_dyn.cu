@@ -64,12 +64,26 @@
 // the TPU's start()/wait() per layer. At k8's TH W = TILE each run is one
 // channel's window: one bulk store per (l, c). The output [L, 1, C, TH, W]
 // of k8 is a view of [L, C, TH, W].
-//   Dot: w[l] ([C, 3C], 12 KB in f32) is staged into shared memory at the
-// runtime l each layer; the concat is not built, K index k reads channel k
-// mod C of the slab. f32 products must stay exact (TF32 would round the
-// operands), so k2 runs on the CUDA cores: per thread 96 x 8 fused
-// multiply-adds per layer, the weight rows padded to 3C + 1 words so that
-// the four channels of a warp read four banks. k12 runs mma.sync m16n8k16
+//   Dot: the concat is not built, K index k reads channel k mod C of the
+// slab. f32 products must stay exact (TF32 would round the operands), so k2
+// runs on the CUDA cores. A k2 CTA owns DOT_TP = 32 pixels (192 CTAs at E W
+// = 6144, at least one on every SM; 64 pixels gave 96 and left 36 SMs
+// idle). Before its layer loop it issues 16-byte cp.async copies of every
+// layer's slab rows and w[l] rows ([C, 3C] as they lie, padded to 3C + 4
+// words), in layer order, each layer's copies arriving on that layer's
+// mbarrier: layer l waits on its barrier alone (one wait a layer, no CTA
+// barrier) while the later layers' copies are still in flight. Each thread
+// holds a 4 x 4 register tile, output channels g + 8j (j < 4) by 4
+// consecutive pixels, over a quarter of the input channels (the 8 warps are
+// 4 channel quarters x 2 pixel halves): per 4 input channels one 16-byte
+// load of w[co][4 k] for each of its 4 channels (8 rows 100 words apart: 8
+// bank quads) and one of x[c][4 pixels] for each of the 4 channels
+// (broadcast across the channel lanes) feed 64 FFMA, against 8 before. The
+// four quarters' partial sums are added in shared memory in a fixed order
+// and each output element is written once, 16 bytes a thread along pixels.
+// Every output keeps all L 3C products: pre-summing the three weight
+// blocks would round the weights before the product and would no longer do
+// the work of the stacked-matmul yardstick. k12 runs mma.sync m16n8k16
 // bf16 -> f32 (conv_lif_common.cuh's mma_bf16_16816): output channels on
 // M (two m16 fragments, A = w[l] from shared memory, rows padded by 8), the
 // warp's 8 pixels on N, 3C / 16 = 6 k16 steps, B packed from the slab's
@@ -104,10 +118,11 @@
 //   f32 -> 6.76 us (4.08 MB: 1.22 us).
 // The design reads each input byte once and writes each output byte once
 // (k3 and k11 also read x[1..L-1], k5 also x[3], as the TPU bodies do; k7
-// reads its halo rows again from L2), on 96 CTAs (k8 on 32), one pass and no
-// pipelining: at a few MB per launch the time is set by the launch and the
-// latency of one synchronous pass, not the bytes; k7's time by its FFMA
-// and shared-memory load issue.
+// reads its halo rows again from L2), on 96 CTAs (k8 on 32, k2 on 192), one
+// pass and no pipelining but k2's: at a few MB per launch the time is set by
+// the launch and the latency of one synchronous pass, not the bytes; k7's
+// and k2's time by their FFMA and shared-memory load issue (k2 issues the
+// 151 MFLOP of its three weight blocks, 2.25 us at 67 TFLOP/s).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libprobe_loop_dyn.so probe_loop_dyn.cu
@@ -124,12 +139,25 @@ constexpr int GROUPS = TP / PPT;
 constexpr int THREADS = C * GROUPS;  // 256
 constexpr int TILE = C * TP;   // elements of the flattened layer per bulk-store CTA
 constexpr int K = 3 * C;       // the dot's depth: concat(h, h, h)
-constexpr int WPITCH_F32 = K + 1;
 constexpr int WPITCH_BF16 = K + 8;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
 constexpr int CONV_TW = 64;    // output columns of one row per conv CTA
 constexpr int CONV_XP = CONV_TW + 2;  // staged columns: the tile and its halo
 constexpr int CONV_SMEM = (9 * C * C + C * 3 * CONV_XP) * 4;
+constexpr int DOT_TP = 32;     // pixels of every channel per k2 CTA
+constexpr int DOT_WP = K + 4;  // k2's weight row: 100 words, 8 rows on 8 bank quads
+constexpr int DOT_PP = DOT_TP + 4;  // k2's partial-sum row
+constexpr int DOT_SPLIT = 4;   // k2's input-channel quarters
+constexpr int DOT_BARS = 128;  // bytes for k2's layer barriers (L <= 16)
+
+// k2's dynamic shared memory (mirrored by loop_dyn.load_dot_smem): the
+// layer barriers, then every layer's slab and weight rows, or the four
+// quarters' partial sums where larger.
+inline int dot_f32_smem(int L) {
+  const int layers = L * C * (DOT_TP + DOT_WP) * 4;
+  const int partials = DOT_SPLIT * C * DOT_PP * 4;
+  return DOT_BARS + (layers > partials ? layers : partials);
+}
 
 enum Op { LOAD_SUM = 0, STORE = 1, STORE_BULK = 2, LOAD_DOT = 3, NARROW_SUM = 4, CONV = 5 };
 
@@ -441,43 +469,115 @@ __global__ void __launch_bounds__(THREADS) conv_sum_kernel(const float* __restri
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// The barrier's arrival once this thread's earlier cp.async copies land.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 __global__ void __launch_bounds__(THREADS) load_dot_f32_kernel(const float* __restrict__ x,
                                                                const float* __restrict__ w,
                                                                float* __restrict__ out, int L,
                                                                int P) {
+  constexpr int XV = DOT_TP / 4, WV = K / 4;  // 16-byte pieces of a slab row, a weight row
+  constexpr int CQ = C / DOT_SPLIT;           // input channels of a quarter
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* scr = reinterpret_cast<float*>(smem_raw);  // [L][C][TP]
-  float* wsm = scr + L * C * TP;                    // [C][WPITCH_F32]
-  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
-  fill_slab(x, scr, L, P, p0, n);
-  const int co = threadIdx.x / GROUPS, px = (threadIdx.x % GROUPS) * PPT;
-  float acc[PPT];
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) acc[i] = 0.f;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);          // [L]
+  float* scr = reinterpret_cast<float*>(smem_raw + DOT_BARS);      // [L][C][DOT_TP]
+  float* wsm = scr + L * C * DOT_TP;                               // [L][C][DOT_WP]
+  const int p0 = blockIdx.x * DOT_TP, n = min(DOT_TP, P - p0);
+  if (threadIdx.x == 0) {
+    for (int l = 0; l < L; ++l) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(&bars[l])),
+                   "r"(THREADS)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised before anyone arrives
+  // every layer's copies, in layer order: x[l]'s slab rows (zeros past n)
+  // and w[l]'s rows, then this thread's arrival on layer l's barrier
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
-    __syncthreads();  // the slab is filled; the last layer's weights are read
-    const float* wl = w + static_cast<size_t>(l) * C * K;  // w[l]: the runtime layer index
-    for (int i = threadIdx.x; i < C * K; i += THREADS) {
-      const int r = i / K;
-      wsm[r * WPITCH_F32 + i - r * K] = wl[i];
+    for (int i = threadIdx.x; i < C * XV; i += THREADS) {
+      const int c = i / XV, v = i - c * XV;
+      const bool in = v * 4 < n;
+      cp_async16(scr + (l * C + c) * DOT_TP + v * 4,
+                 x + (static_cast<size_t>(l) * C + c) * P + p0 + (in ? v * 4 : 0), in ? 16 : 0);
     }
-    __syncthreads();
-    const float* h = scr + l * C * TP + px;  // scr[l]: the runtime layer index
-    const float* wr = wsm + co * WPITCH_F32;
-#pragma unroll 1
-    for (int b = 0; b < 3; ++b) {  // the three concatenated copies of scr[l]
-#pragma unroll 4
-      for (int c = 0; c < C; ++c) {
-        const float wk = wr[b * C + c];
-        float v[PPT];
-        load8(h + c * TP, v);
+    for (int i = threadIdx.x; i < C * WV; i += THREADS) {
+      const int co = i / WV, v = i - co * WV;
+      cp_async16(wsm + (l * C + co) * DOT_WP + v * 4,
+                 w + (static_cast<size_t>(l) * C + co) * K + v * 4, 16);
+    }
+    cp_async_arrive(&bars[l]);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int quarter = warp >> 1, g = lane & 7;
+  const int px = (warp & 1) * (DOT_TP / 2) + (lane >> 3) * 4;  // the thread's 4 pixels
+  float acc[4][4];  // [channel g + 8 j][pixel px + i]
 #pragma unroll
-        for (int i = 0; i < PPT; ++i) acc[i] = fmaf(wk, v[i], acc[i]);
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    mbar_wait(&bars[l], 0);  // x[l] and w[l] have landed
+    const float* h = scr + (l * C + quarter * CQ) * DOT_TP + px;  // scr[l]: the runtime index
+    const float* wl = wsm + (l * C + g) * DOT_WP + quarter * CQ;   // w[l]: the runtime index
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {  // the three concatenated copies of scr[l]
+#pragma unroll
+      for (int c4 = 0; c4 < CQ; c4 += 4) {
+        float4 wk[4], xv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wk[j] = *reinterpret_cast<const float4*>(wl + 8 * j * DOT_WP + b * C + c4);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          xv[t] = *reinterpret_cast<const float4*>(h + (c4 + t) * DOT_TP);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float wt = t == 0 ? wk[j].x : t == 1 ? wk[j].y : t == 2 ? wk[j].z : wk[j].w;
+            acc[j][0] = fmaf(wt, xv[t].x, acc[j][0]);
+            acc[j][1] = fmaf(wt, xv[t].y, acc[j][1]);
+            acc[j][2] = fmaf(wt, xv[t].z, acc[j][2]);
+            acc[j][3] = fmaf(wt, xv[t].w, acc[j][3]);
+          }
+        }
       }
     }
   }
-  if (px < n) store8(out + static_cast<size_t>(co) * P + p0 + px, acc);
+  // the quarters' partial sums -> shared memory [quarter][C][DOT_PP], then
+  // each output element once: ((q0 + q1) + q2) + q3
+  __syncthreads();  // every layer is read (every copy landed before its barrier)
+  float* part = reinterpret_cast<float*>(smem_raw + DOT_BARS);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    *reinterpret_cast<float4*>(part + (quarter * C + g + 8 * j) * DOT_PP + px) =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+  const int co = threadIdx.x / (DOT_TP / 4), p4 = (threadIdx.x % (DOT_TP / 4)) * 4;
+  if (p4 >= n) return;
+  float4 v = *reinterpret_cast<const float4*>(part + co * DOT_PP + p4);
+#pragma unroll
+  for (int qi = 1; qi < DOT_SPLIT; ++qi) {
+    const float4 u = *reinterpret_cast<const float4*>(part + (qi * C + co) * DOT_PP + p4);
+    v.x = __fadd_rn(v.x, u.x);
+    v.y = __fadd_rn(v.y, u.y);
+    v.z = __fadd_rn(v.z, u.z);
+    v.w = __fadd_rn(v.w, u.w);
+  }
+  *reinterpret_cast<float4*>(out + static_cast<size_t>(co) * P + p0 + p4) = v;
 }
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -584,7 +684,7 @@ int launch(LoopDynArgs& a, cudaStream_t s) {
         return run(a, load_dot_bf16_kernel, tiles, slab + C * WPITCH_BF16 * 2, s,
                    static_cast<const bf*>(a.x), static_cast<const bf*>(a.w), out, a.L, a.P);
       }
-      return run(a, load_dot_f32_kernel, tiles, slab + C * WPITCH_F32 * 4, s,
+      return run(a, load_dot_f32_kernel, (a.P + DOT_TP - 1) / DOT_TP, dot_f32_smem(a.L), s,
                  static_cast<const float*>(a.x), static_cast<const float*>(a.w), out, a.L, a.P);
   }
 }
@@ -602,7 +702,8 @@ bool args_valid(const LoopDynArgs& a) {
          (!a.slot || (a.op == LOAD_SUM && a.L >= 3)) && dot == (a.w != nullptr) &&
          (a.op == STORE || a.scratch == nullptr) &&
          (a.op == LOAD_SUM || a.op == STORE || a.op == LOAD_DOT || !a.bf16) &&
-         (a.op != STORE_BULK || window) && (a.op != CONV || (a.W >= 1 && a.P % a.W == 0));
+         (a.op != STORE_BULK || window) && (a.op != CONV || (a.W >= 1 && a.P % a.W == 0)) &&
+         (a.op != LOAD_DOT || a.bf16 || a.L * 8 <= DOT_BARS);
 }
 
 }  // namespace loopdyn

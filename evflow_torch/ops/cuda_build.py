@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +25,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 __all__ = ["SOURCES", "SIGNATURES", "ENTRY_SOURCES", "build", "entry_point", "nvcc_path",
-           "BUILD_DIR"]
+           "BUILD_DIR", "ptxas_functions"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -98,6 +99,35 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return seconds
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_functions(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (its mangled name) in an ``nvcc -Xptxas -v`` log: the
+    registers it uses and its stack frame, spill store and spill load
+    bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "stack": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = _FRAME.search(line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 _CONV_LIF_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

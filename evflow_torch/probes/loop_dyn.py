@@ -64,6 +64,7 @@ __all__ = [
     "dyn_store_bulk_plain", "dyn_load_dot", "dyn_load_dot_plain", "dyn_narrow_sum",
     "dyn_narrow_sum_plain", "dyn_conv_sum", "dyn_conv_sum_plain", "dyn_store_window",
     "dyn_store_window_plain", "conv_weights", "slot_of", "loop_dyn_bytes", "draw_operands",
+    "load_dot_smem", "load_dot_grid",
     "probe_cases", "body_of", "bound", "tolerance", "f32_tolerance", "run_all", "WRAPPERS",
     "BODIES", "last_launch",
 ]
@@ -73,6 +74,7 @@ __all__ = [
 L, C, E, W, TH = 4, 32, 24, 256, 8
 ROW0 = 8                # k8's first stored row (probe_loop_dyn2.py:72)
 TP = 64                 # pixels of every channel per CTA (csrc/probe_loop_dyn.cu)
+DOT_TP = 32             # pixels of every channel per k2 CTA
 SMEM_LIMIT = 232448     # dynamic shared memory of one CTA
 LOAD_SUM, STORE, STORE_BULK, LOAD_DOT, NARROW_SUM, CONV = range(6)
 
@@ -215,6 +217,23 @@ def _slab(layers, esize):
     return layers * C * TP * esize
 
 
+def load_dot_smem(layers: int, esize: int) -> int:
+    """Dynamic shared memory of a ``dyn_load_dot`` CTA: f32 (k2) 128 bytes
+    of layer barriers, then every layer's ``[C, 32]`` slab and ``[C, 3C]``
+    weight rows padded to 3C + 4 words, or the four channel quarters'
+    ``[C, 32 + 4]`` partial sums where larger; bf16 (k12) the ``[L, C, 64]``
+    slab and one layer's weight rows padded to 3C + 8."""
+    if esize == 2:
+        return _slab(layers, 2) + C * (3 * C + 8) * 2
+    return 128 + max(layers * C * (DOT_TP + 3 * C + 4) * 4, 4 * C * (DOT_TP + 4) * 4)
+
+
+def load_dot_grid(p: int, esize: int) -> int:
+    """CTAs of a ``dyn_load_dot`` launch over ``p = E W`` pixels: 32 pixels
+    a CTA in f32 (k2), 64 in bf16 (k12)."""
+    return -(-p // (DOT_TP if esize == 4 else TP))
+
+
 def dyn_load_sum(x: torch.Tensor, slot: bool = False) -> torch.Tensor:
     """k1 / k10 (k5 with ``slot``): x ``[L, C, E, W]`` f32 or bf16 copied
     into scratch, its layers (or slots) summed at the runtime index ->
@@ -329,8 +348,7 @@ def dyn_load_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if not cuda:
         return dyn_load_dot_plain(x, w)
     esize = x.element_size()
-    wpitch = 3 * C + (8 if esize == 2 else 1)
-    _check_card("dyn_load_dot", tuple(x.shape), _slab(x.shape[0], esize) + C * wpitch * esize)
+    _check_card("dyn_load_dot", tuple(x.shape), load_dot_smem(x.shape[0], esize))
     out = torch.empty(x.shape[1:], device=x.device, dtype=torch.float32)
     _launch(LOAD_DOT, x, out, w=w, bf16=esize == 2)
     dyn_load_dot.launches += 1
@@ -413,17 +431,19 @@ def loop_dyn_bytes(body: str, layers: int, c: int, e: int, w: int, rows: int = T
 
 
 def draw_operands(rng, kind: str, layers: int, c: int, e: int, w: int, device="cpu",
-                  normals: bool = False):
+                  normals: bool = False, base: int = 16):
     """The operands of body ``kind`` (``k1`` .. ``k12``), with numpy from
-    ``rng``: x[l] (k6: p[l]) integers in [-4, 4] times 16^l, w integers in
-    [-2, 2], and for k11 standard normals in f32 (most of them not
-    bf16-exact, so the rounding shows). Every value is exact in bf16, and
-    for L <= 4 and C <= 32 every sum is an exact integer below 2^24 (a dot's
-    3C terms, and k7's 9C, at most 2 4 16^3 each), so any summation order
-    gives the same f32 result. The 16^l scale makes every layer differ: a
-    kernel reading the wrong layer moves the output; p's other two columns
-    are drawn alike, so reading another column moves it too. Returns the
-    body's positional arguments (k6: p and the output's E and W).
+    ``rng``: x[l] (k6: p[l]) integers in [-4, 4] times ``base``^l, w
+    integers in [-2, 2], and for k11 standard normals in f32 (most of them
+    not bf16-exact, so the rounding shows). Every value is exact in bf16,
+    and for L <= 4 and C <= 32 every sum is an exact integer below 2^24 (a
+    dot's 3C terms, and k7's 9C, at most 2 4 16^3 each), so any summation
+    order gives the same f32 result; ``base`` 8 keeps a dot's sums below
+    2^24 up to L = 5 (3C 2 4 (8^5 - 1) / 7 < 2^22). The ``base``^l scale
+    makes every layer differ: a kernel reading the wrong layer moves the
+    output; p's other two columns are drawn alike, so reading another column
+    moves it too. Returns the body's positional arguments (k6: p and the
+    output's E and W).
 
     With ``normals`` (the f32 dots k2 and k7 only) x and w are f32 standard
     normals instead, most of them not exact in TF32 or bf16: a dot that
@@ -444,7 +464,7 @@ def draw_operands(rng, kind: str, layers: int, c: int, e: int, w: int, device="c
     shape = (layers, c, e, w)
     if kind == "k11":
         return (tensor(rng.standard_normal(shape, dtype=np.float32)),)
-    scale = 16.0 ** np.arange(layers)[:, None, None, None]
+    scale = float(base) ** np.arange(layers)[:, None, None, None]
     if kind == "k6":
         return tensor(rng.integers(-4, 5, (layers, c, 3)) * scale[..., 0]), e, w
     x = tensor(rng.integers(-4, 5, shape) * scale)

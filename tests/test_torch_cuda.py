@@ -251,6 +251,137 @@ def test_probe_matches_plain_on_ragged_tiles(cuda, index):
         assert not compare(control, ref, P.tolerance(case, ref))["ok"]
 
 
+def nan_block(shape, dtype, device):
+    """The address of a freed block of ``shape`` filled with NaN (int32: its
+    most negative value). With no allocation in between, the caching
+    allocator hands the same block to the next tensor of that size: a
+    kernel that leaves an output element unwritten shows it."""
+    fill = float("nan") if dtype.is_floating_point else -2 ** 31
+    buf = torch.full(shape, fill, dtype=dtype, device=device)
+    ptr = buf.data_ptr()
+    del buf
+    return ptr
+
+
+def probe_mode(P, case):
+    if case.int8:
+        return P.S8
+    return P.BF16_ACC if case.kwargs.get("acc_dtype") == torch.bfloat16 else P.F32_ACC
+
+
+@pytest.mark.parametrize("steps", [1, 2, 7, 8, 9])
+@pytest.mark.parametrize("np_pixels", [208, 203], ids=["np208", "np203"])
+@pytest.mark.parametrize("index", range(PROBES))
+def test_probe_matches_plain_at_few_steps(cuda, index, np_pixels, steps):
+    """Each probe kernel on both sides of the 8 step groups (S = 1, 2, 7:
+    the split-K path for f32 and int8 accumulation; S = 8, 9 and bf16
+    accumulation: the resident path), at Np = 208 (no multiple of the
+    64-pixel tile: 16-byte copies, the tail zero-filled; dot2's 32768 case
+    at 832) and Np = 203 (no multiple of 8: the scalar copies; 812), K=288
+    and dot2's K=384 on 16-row tiles, into output memory filled with NaN:
+    within ``inkernel_dot.tolerance`` (int8 and bf16 accumulation equal),
+    every element written, one launch."""
+    from evflow_torch.probes import inkernel_dot as P
+    from evflow_torch.probes._harness import compare
+
+    case = P.probe_cases(cuda, seed=index, np_pixels=np_pixels, steps=steps)[index]
+    ref = case.plain(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    ptr = nan_block(ref.shape, ref.dtype, cuda)
+    before = case.fn.launches
+    out = case.fn(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    assert case.fn.launches == before + 1 and out.data_ptr() == ptr
+    assert P.last_launch["split_k"] == P.split_k(steps, probe_mode(P, case))
+    assert P.last_launch["vec"] == int(case.fn is P.dot_pixel_major or np_pixels % 8 == 0)
+    k = case.args[1].shape[-1]
+    assert P.last_launch["tile_m"] == (16 if k == 384 else 32)
+    res = compare(out, ref, P.tolerance(case, ref))
+    assert res["ok"], res
+    if res["tolerance"] == 0.0:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("steps", [1, 8])
+@pytest.mark.parametrize("index", range(PROBES))
+def test_probe_writes_every_output_at_full_size(cuda, index, steps):
+    """Each probe kernel at the JAX files' shapes (128 to 1024 CTAs, one or
+    several row tiles), at one step (split K where the accumulation allows)
+    and at 8 (every step group one step), into output memory filled with
+    NaN: within ``inkernel_dot.tolerance``, every element written."""
+    from evflow_torch.probes import inkernel_dot as P
+    from evflow_torch.probes._harness import compare
+
+    case = P.probe_cases(cuda, seed=index, steps=steps)[index]
+    ref = case.plain(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    ptr = nan_block(ref.shape, ref.dtype, cuda)
+    out = case.fn(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == ptr and P.last_launch["vec"] == 1
+    res = compare(out, ref, P.tolerance(case, ref))
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("shape", [(32, 288, 32, 256), (32, 288, 3, 25), (16, 384, 2, 40)],
+                         ids=["full", "np75", "k384"])
+def test_dot3_writes_every_output(cuda, shape):
+    """k_dot3 (one step, split K over all 16 warps) at the JAX probe's
+    shape, at 75 pixels (no multiple of 8: scalar copies) and at K=384,
+    into output memory filled with NaN: within ``mosaic_ops.tolerance``,
+    every element written, one launch of its own count."""
+    from evflow_torch.probes import mosaic_ops as M
+    from evflow_torch.probes._harness import compare
+
+    case = next(c for c in M.probe_cases(cuda, seed=3, shape=shape) if M.body_of(c) == "k_dot3")
+    ref = case.plain(*case.args)
+    torch.cuda.synchronize()
+    ptr = nan_block(ref.shape, ref.dtype, cuda)
+    before = M.dot3.launches
+    out = case.fn(*case.args)
+    torch.cuda.synchronize()
+    assert M.dot3.launches == before + 1 and out.data_ptr() == ptr
+    _, _, e, w = shape
+    assert (M.last_launch["split_k"], M.last_launch["vec"]) == (1, int(e * w % 8 == 0))
+    res = compare(out, ref, M.tolerance(case, ref))
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("draw", ["integers", "normals"])
+@pytest.mark.parametrize("image", [(24, 256), (5, 24)], ids=["full", "ragged"])
+@pytest.mark.parametrize("layers", [1, 2, 3, 4, 5])
+def test_load_dot_f32_across_layer_counts(cuda, layers, image, draw):
+    """k2 at L = 1..5 over the JAX probe's E W = 6144 pixels (192 CTAs) and
+    a ragged 120 (three 32-pixel tiles and one of 24), into output memory
+    filled with NaN: equal on integers scaled base^l (16, and 8 at L=5,
+    where 16^4 terms would leave f32's exact integers), and on f32 normals
+    within ``loop_dyn.f32_tolerance``, which the plain dot of the same
+    operands rounded to TF32 misses."""
+    from evflow_torch.probes import loop_dyn as D
+    from evflow_torch.probes._harness import compare
+
+    e, w = image
+    args = D.draw_operands(np.random.default_rng(layers), "k2", layers, 32, e, w, device=cuda,
+                           normals=draw == "normals", base=16 if layers <= 4 else 8)
+    ref = D.dyn_load_dot_plain(*args)
+    torch.cuda.synchronize()
+    ptr = nan_block(ref.shape, ref.dtype, cuda)
+    before = D.dyn_load_dot.launches
+    out = D.dyn_load_dot(*args)
+    torch.cuda.synchronize()
+    assert D.dyn_load_dot.launches == before + 1 and out.data_ptr() == ptr
+    assert D.last_launch["grid"] == D.load_dot_grid(e * w, 4)
+    if draw == "integers":
+        assert torch.equal(out, ref)
+        assert float((ref != 0).float().mean()) > 0.5
+    else:
+        tol = D.f32_tolerance(*args, ref)
+        res = compare(out, ref, tol)
+        assert res["ok"], res
+        tf32 = [((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32) for t in args]
+        assert not compare(D.dyn_load_dot_plain(*tf32), ref, tol)["ok"]
+
+
 def test_probe_refuses_what_it_cannot_take(cuda):
     from evflow_torch.probes import inkernel_dot as P
 
@@ -408,7 +539,9 @@ def test_loop_dyn_matches_plain(cuda, shape, body):
     before = case.fn.launches
     out = case.fn(*case.args, **case.kwargs)
     assert case.fn.launches == before + 1
-    assert D.last_launch["grid"] == -(-shape[2] * shape[3] // 64)
+    pixels = shape[2] * shape[3]
+    assert D.last_launch["grid"] == (D.load_dot_grid(pixels, 4) if body == "k2"
+                                     else -(-pixels // 64))
     ref = case.plain(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
@@ -482,7 +615,7 @@ def test_loop_dyn2_matches_plain(cuda, body, shape, window, normals):
     out = case.fn(*args, **kwargs)
     assert case.fn.launches == before + 1
     _, c, e, w = shape
-    grid = {"k2": -(-e * w // 64), "k6": -(-e * w // 64), "k7": e * -(-w // 64),
+    grid = {"k2": -(-e * w // 32), "k6": -(-e * w // 64), "k7": e * -(-w // 64),
             "k8": -(-c * kwargs.get("rows", 0) * w // 2048)}[body]
     assert D.last_launch["grid"] == grid
     ref = case.plain(*args, **kwargs)

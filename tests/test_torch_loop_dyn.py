@@ -324,6 +324,32 @@ def test_full_size_draw_is_exact_and_shows_the_layer():
     assert (D.dyn_load_sum_plain(shifted) != D.dyn_load_sum_plain(x1)).float().mean() > 0.9
 
 
+def test_load_dot_smem_and_grid():
+    """k2's CTA: 32 pixels (192 CTAs at the files' E W = 6144, 4 at a
+    ragged 120), 128 bytes of layer barriers and every layer's slab and
+    weight rows (3C + 4 words), or the quarters' partial sums at L=1; up to
+    13 layers fit a CTA. k12's CTA is unchanged: 64 pixels, its slab and one
+    layer's weights (23,040 bytes at L=4)."""
+    assert D.load_dot_smem(4, 4) == 128 + 4 * 32 * (32 + 100) * 4
+    assert D.load_dot_smem(1, 4) == 128 + 4 * 32 * 36 * 4
+    assert D.load_dot_smem(13, 4) <= D.SMEM_LIMIT < D.load_dot_smem(14, 4)
+    assert D.load_dot_smem(4, 2) == 23_040
+    assert (D.load_dot_grid(6144, 4), D.load_dot_grid(6144, 2), D.load_dot_grid(120, 4)) == (
+        192, 96, 4)
+
+
+def test_base_8_draw_is_exact_at_five_layers():
+    """At L=5 a 16^l draw can leave f32's exact integers; 8^l keeps every
+    dot's sum of |terms| below 2^24 and still moves the output when a layer
+    is misread."""
+    rng = np.random.default_rng(0)
+    x, w = D.draw_operands(rng, "k2", 5, 32, 24, 256, base=8)
+    assert float(D.dyn_load_dot_plain(x.abs(), w.abs()).max()) < 2 ** 24
+    assert float(x[4].abs().max()) == 4 * 8 ** 4
+    out = D.dyn_load_dot_plain(x, w)
+    assert (D.dyn_load_dot_plain(x[[1, 2, 3, 4, 0]], w) != out).float().mean() > 0.9
+
+
 X = torch.zeros(4, 8, 8, 16)
 
 

@@ -117,6 +117,50 @@ def test_tile_fits_shared_memory():
         P.tile_m(32, 1024, 9, 2, False)
 
 
+@pytest.mark.parametrize("k,dots,esize,pixel_major,mt,expected", [
+    (288, 9, 2, False, 32, 9 * 32 * 592 + 288 * 128),   # B, C, dot2 f32 and bf16
+    (288, 1, 2, False, 32, 8 * 32 * 72 * 4),            # k_dot3: the partial sums
+    (288, 9, 2, True, 32, 64 * 592 + 9 * 288 * 64),     # A: W as [L K][32]
+    (288, 9, 1, False, 32, 9 * 32 * 304 + 64 * 304 + 288 * 80),  # Bi: X landed, turned
+    (384, 9, 2, False, 16, 9 * 16 * 784 + 384 * 128),   # dot2 K=384
+], ids=["B", "k_dot3", "A", "Bi", "K384"])
+def test_smem_bytes_follows_the_layout(k, dots, esize, pixel_major, mt, expected):
+    """The shared memory a launch asks for, region by region as the
+    source's ``layout`` lays it out: the A rows padded by 16 bytes, the B
+    rows unpadded (swizzled), int8's landing rows, or the 8 step groups'
+    partial sums where larger; every probe case fits a CTA."""
+    assert P.smem_bytes(k, dots, esize, pixel_major, mt) == expected
+    assert expected <= P.SMEM_LIMIT
+
+
+def test_split_k_below_the_step_groups():
+    """The small-S path: f32 and int8 accumulation split K below 8 steps,
+    bf16 accumulation (each dot rounded whole) never does."""
+    assert [P.split_k(s, P.F32_ACC) for s in (1, 2, 7, 8, 9, 64)] == [True] * 3 + [False] * 3
+    assert [P.split_k(s, P.S8) for s in (1, 7, 8)] == [True, True, False]
+    assert not any(P.split_k(s, P.BF16_ACC) for s in (1, 2, 7, 8))
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    """``cuda_build.ptxas_functions`` reads registers, stack and spill
+    bytes per kernel from an ``nvcc -Xptxas -v`` log."""
+    from evflow_torch.ops.cuda_build import ptxas_functions
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1aPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 512 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'
+ptxas info    : Function properties for _Z1bPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
+"""
+    assert ptxas_functions(log) == {
+        "_Z1aPf": {"registers": 90, "stack": 0, "spill_stores": 0, "spill_loads": 0},
+        "_Z1bPf": {"registers": 255, "stack": 8, "spill_stores": 4, "spill_loads": 12}}
+
+
 @pytest.mark.parametrize("fn", P.WRAPPERS, ids=lambda f: f.__name__)
 def test_probes_refuse_other_devices_and_dtypes(fn):
     x = torch.zeros(288, 64, dtype=torch.int8 if fn is P.dot_channel_major_s8 else torch.bfloat16)
