@@ -9,8 +9,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. ``build``: compile the hand-written CUDA kernels from ``evflow_torch/csrc``
    (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
    and print ptxas's registers, stack and spill bytes of the redesigned
-   kernels (the in-kernel dot's ``probe_kernel`` instantiations and k2's
-   ``load_dot_f32_kernel``), failing if any of them has a stack or spills.
+   kernels (the in-kernel dot's 12 ``probe_kernel`` instantiations and k2's
+   ``load_dot_f32_kernel``), failing if ptxas reports any of them not at
+   all, or with a stack or spills.
 2. ``kernels``: every kernel against its plain PyTorch version on the card at
    full width (B=2, 256x256, C=32): head (Cin=2), feedforward, recurrent and
    subtract reset, in both layouts. mem' within 1e-4 where the spikes agree
@@ -351,30 +352,29 @@ def phase_build(state):
                            if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": per_source, "ptxas": ptxas})
-    redesigned = {}
-    for source, kernel in REDESIGNED:
-        log = cuda_build.BUILD_DIR / f"{source}.ptxas.txt"
-        if log.exists():
-            redesigned.update({short_name(fn, kernel): r for fn, r in
-                               cuda_build.ptxas_functions(log.read_text()).items() if kernel in fn})
-    spill_free = all(r["stack"] == 0 and r["spill_stores"] == 0 and r["spill_loads"] == 0
-                     for r in redesigned.values())
-    emit({"phase": "build", "redesigned": redesigned, "spill_free": spill_free})
+    redesigned, missing = cuda_build.ptxas_kernels(REDESIGNED)
+    spill_free = not missing and all(
+        r["stack"] == 0 and r["spill_stores"] == 0 and r["spill_loads"] == 0
+        for r in redesigned.values())
+    emit({"phase": "build", "redesigned": redesigned, "missing": missing,
+          "spill_free": spill_free})
+    if missing:
+        raise SystemExit(f"ptxas reports no registers for the redesigned kernels {missing}")
     if not spill_free:
         raise SystemExit(f"a redesigned kernel has a stack frame or spills: {redesigned}")
 
 
-# the kernels redesigned for the card's speed: (source, kernel function)
-REDESIGNED = (("probe_inkernel_dot", "probe_kernel"), ("probe_loop_dyn", "load_dot_f32_kernel"))
-
-
-def short_name(mangled, kernel):
-    """``kernel``, with its template arguments for an in-kernel dot
-    instantiation: ``probe_kernel<MT,MODE,PIXM,SPLITK>``."""
-    import re
-
-    m = re.search(r"probe_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", mangled)
-    return kernel if m is None else "probe_kernel<{},{},{},{}>".format(*m.groups())
+# the kernels redesigned for the card's speed, per source: every instantiation
+# probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, and k2
+REDESIGNED = {
+    "probe_inkernel_dot": tuple(f"probe_kernel<{a}>" for a in (
+        "32,0,1,0", "32,0,1,1",                          # f32 accumulation, pixel-major
+        "32,0,0,0", "32,0,0,1", "16,0,0,0", "16,0,0,1",  # f32, channel-major
+        "32,1,0,0", "16,1,0,0",                          # bf16 accumulation (no split K)
+        "32,2,0,0", "32,2,0,1", "16,2,0,0", "16,2,0,1",  # int8
+    )),
+    "probe_loop_dyn": ("load_dot_f32_kernel",),
+}
 
 
 def phase_kernels(state):

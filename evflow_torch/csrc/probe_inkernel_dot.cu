@@ -20,8 +20,8 @@
 //
 // Staging. Each operand is copied as it lies in device memory with 16-byte
 // cp.async copies, all of them issued before the first wait, in chunks of
-// KC = 32 k values, each chunk a commit group; every index of a copy is
-// split by compile-time constants. The mma's A operand (the weight rows
+// KC = 32 k values; every index of a copy is split by compile-time
+// constants. The mma's A operand (the weight rows
 // channel-major, the pixel rows pixel-major) lands as [row][k] rows padded
 // by 16 bytes; its B operand (X channel-major, W pixel-major) lands as
 // [k][n] rows of 128 or 64 bytes, unpadded, their 16-byte chunks
@@ -47,13 +47,12 @@
 //    pixel groups x 4 K groups, group sg taking chunks c = sg, sg + 4, ...
 //    of K and running all S steps over them, so every warp computes at
 //    S = 1 (k_dot3: 2 of 16 warps did before). At few steps the time is
-//    one CTA's latency, not the grid's bandwidth, so where X
-//    is channel-major bf16 and W one segment, a group's two warps copy
-//    their own chunks, commit one group per chunk, and wait for chunk j
-//    (cp.async.wait_group, then a named barrier of the pair) while chunk
-//    j + 4 is in flight: no CTA-wide barrier before the epilogue. The other
-//    split launches (int8, which transposes first, pixel-major, K-split W)
-//    copy everything first, as the resident path does.
+//    one CTA's latency, not the grid's bandwidth, so in bf16 a group's two
+//    warps copy their own chunks, commit one group per chunk, and wait for
+//    chunk j (cp.async.wait_group, then a named barrier of the pair) while
+//    chunk j + 4 is in flight: no CTA-wide barrier before the epilogue.
+//    int8, which transposes X whole first, copies everything first, as the
+//    resident path does.
 //    K is split across warps rather than the CTA shrunk: the grid stays one
 //    wave of 128 CTAs at Np = 8192, W is staged once per 64 pixels (a
 //    32-pixel CTA would read it from L2 twice as often), and the 32 x 32
@@ -114,14 +113,13 @@ struct ProbeArgs {
   int Np, K, M, L, S, kseg;
   int pixel_major;                   // pixels on the mma's M side
   int mode;
-  int tile_m;                        // MT: 32 or 16
-  int split_k;                       // the split-K path (S below NSG)
-  int grid, smem, vec;               // set by the launch
+  // set by the launch: MT (32, or 16 where 32 rows do not fit), the
+  // split-K path (S below NSG), CTAs, shared bytes, 16-byte copies
+  int tile_m, split_k, grid, smem, vec;
 };
 
-// Byte offsets of the shared-memory regions (mirrored by
-// inkernel_dot.smem_bytes): the A rows, the B rows, int8's [k][p] landing
-// rows, and the partial sums over them all.
+// Byte offsets of the shared-memory regions: the A rows, the B rows, int8's
+// [k][p] landing rows, and the partial sums over them all.
 struct Layout {
   int es, nch, apitch, brow, spitch;
   int a_off, b_off, s_off, part_off, bytes;
@@ -163,18 +161,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async16_if(bool copy, uint32_t dst, const void* src,
-                                              int src_bytes) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %0, 0;\n"
-      "@p cp.async.cg.shared.global [%1], [%2], 16, %3;\n"
-      "}\n" ::"r"(static_cast<int>(copy)),
-      "r"(dst), "l"(src), "r"(src_bytes)
-      : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -296,42 +282,6 @@ __device__ __forceinline__ void stage_chunk(const ProbeArgs& a, const Layout& o,
   }
 }
 
-// Split K channel-major bf16 with one weight segment: the group's chunks c
-// = sg, sg + 4, ..., each a commit group, copied by the group's two warps
-// (team index `tid` < 64). A thread's copies keep one shape in every chunk
-// (X rows tid / 8 + 8 j, pixel piece tid % 8; weight rows tid / 4 + 16 j,
-// k piece tid % 4), so their addresses are bases computed once plus fixed
-// strides, with no branch between the copies: per-copy index arithmetic
-// and guards in a loop serialise the copies of a few-step launch.
-template <int MT>
-__device__ __forceinline__ void stage_group_chunks(const ProbeArgs& a, const Layout& o,
-                                                   unsigned char* smem, int sg, int p0, int m0,
-                                                   int tid) {
-  constexpr int WJ = MT * (KC / 8) / 64;  // weight copies a slice and chunk
-  const uint16_t* x = static_cast<const uint16_t*>(a.x);
-  const uint16_t* w = static_cast<const uint16_t*>(a.w);
-  const int xr = tid >> 3, xv = tid & 7, wr = tid >> 2, wk = (tid & 3) * 8;
-  const bool xin = p0 + xv * 8 < a.Np;
-  const uint16_t* xsrc = x + xr * a.x_sk + (xin ? p0 + xv * 8 : 0);
-  const uint32_t xdst = smem_u32(smem + o.b_off) + xr * (TP * 2) + ((xv ^ (xr & 7)) << 4);
-  const uint16_t* wsrc = w + (m0 + wr) * a.w_sm + wk;
-  const uint32_t wdst = smem_u32(smem + o.a_off) + wr * o.apitch + wk * 2;
-  for (int c = sg; c < o.nch; c += NKG) {
-    const int k0 = c * KC, kn = min(KC, a.K - k0);
-    for (int i = 0; i < a.L; ++i) {
-#pragma unroll
-      for (int j = 0; j < WJ; ++j)
-        cp_async16_if(wk < kn, wdst + (i * MT + 16 * j) * o.apitch + k0 * 2,
-                      wsrc + i * a.w_si + 16 * j * a.w_sm + k0, 16);
-    }
-#pragma unroll
-    for (int j = 0; j < KC / 8; ++j)
-      cp_async16_if(xr + 8 * j < kn, xdst + (k0 + 8 * j) * (TP * 2),
-                    xsrc + (k0 + 8 * j) * a.x_sk, xin ? 16 : 0);
-    cp_async_commit();
-  }
-}
-
 // Both operands whole, an element at a time, in the layout of stage_chunk:
 // for operands whose rows are not 16-byte aligned.
 template <int MT, int MODE, bool PIXM, int NT>
@@ -403,12 +353,15 @@ __global__ void __launch_bounds__(SPLITK ? THREADS_SPLIT : THREADS, 1) probe_ker
   const int p0 = blockIdx.x * TP, m0 = blockIdx.y * MT;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pg = warp % NPG, sg = warp / NPG;
-  // split K channel-major bf16 on 16-byte copies of one weight segment
-  // (k_dot3, B, dot2 below 8 steps): the group's two warps copy their own
-  // chunks; every other launch copies everything before any mma
-  const bool own = SPLITK && MODE != S8 && !PIXM && a.vec && a.kseg == a.K;
+  // split K on 16-byte copies, bf16 (int8 turns X whole first): the group's
+  // two warps copy their own chunks, a commit group each; every other
+  // launch copies everything before any mma
+  const bool own = SPLITK && MODE != S8 && a.vec;
   if (own) {
-    stage_group_chunks<MT>(a, o, smem, sg, p0, m0, pg * 32 + lane);
+    for (int c = sg; c < o.nch; c += NKG) {
+      stage_chunk<MT, MODE, PIXM, NPG * 32>(a, o, smem, c, p0, m0, pg * 32 + lane);
+      cp_async_commit();
+    }
   } else {
     if (a.vec) {
       for (int c = 0; c < o.nch; ++c)
@@ -663,15 +616,24 @@ extern "C" int probe_inkernel_dot(evflow::probe::ProbeArgs* a, void* stream) {
   const int kstep = a->mode == S8 ? 32 : 16;
   if (a->x == nullptr || a->w == nullptr || a->out == nullptr || a->Np < 1 || a->L < 1 ||
       a->S < 1 || a->K < kstep || a->K % kstep != 0 || a->kseg < 1 || a->K % a->kseg != 0 ||
-      (a->tile_m != 32 && a->tile_m != 16) || a->M % a->tile_m != 0 ||
-      (a->pixel_major && (a->tile_m != 32 || a->mode != F32_ACC)) || a->mode < F32_ACC ||
-      a->mode > S8 || (a->split_k && a->mode == BF16_ACC) ||
+      (a->pixel_major && a->mode != F32_ACC) || a->mode < F32_ACC || a->mode > S8 ||
       (a->pixel_major ? a->o_sm != 1 : a->o_sp != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  a->smem = layout(a->K, a->L, a->tile_m, a->pixel_major != 0, a->mode == S8, a->split_k != 0)
-                .bytes;
-  if (a->smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  // bf16 accumulation rounds each whole dot: it never splits K
+  a->split_k = a->S < NSG && a->mode != BF16_ACC ? 1 : 0;
+  a->tile_m = 0;
+  // 32 rows where they fit, else 16 (pixel-major: 32 only)
+  for (int mt = 32; mt >= (a->pixel_major ? 32 : 16); mt /= 2) {
+    const int bytes = layout(a->K, a->L, mt, a->pixel_major != 0, a->mode == S8,
+                             a->split_k != 0).bytes;
+    if (a->M % mt == 0 && bytes <= SMEM_LIMIT) {
+      a->tile_m = mt;
+      a->smem = bytes;
+      break;
+    }
+  }
+  if (a->tile_m == 0) return static_cast<int>(cudaErrorInvalidValue);
   a->vec = vector_copies(*a) ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->mode) {

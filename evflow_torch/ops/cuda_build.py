@@ -22,10 +22,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 __all__ = ["SOURCES", "SIGNATURES", "ENTRY_SOURCES", "build", "entry_point", "nvcc_path",
-           "BUILD_DIR", "ptxas_functions"]
+           "BUILD_DIR", "ptxas_functions", "kernel_name", "ptxas_kernels"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -128,6 +128,46 @@ def ptxas_functions(log: str) -> Dict[str, Dict[str, int]]:
         if m:
             out[name]["registers"] = int(m.group(1))
     return out
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name without its namespaces and parameter types, with its
+    integer and bool template arguments:
+    ``_ZN6evflow5probe12probe_kernelILi32ELi0ELb1ELb0EEEvNS0_9ProbeArgsE``
+    -> ``probe_kernel<32,0,1,0>``. A name that is not mangled stays as it is."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while pos < len(mangled) and mangled[pos].isdigit():  # <length><identifier> ...
+        m = re.match(r"\d+", mangled[pos:])
+        n, pos = int(m.group()), pos + m.end()
+        name, pos = mangled[pos:pos + n], pos + n
+    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", mangled[pos:])
+    if args is None:
+        return name
+    values = re.findall(r"L[a-z](n?\d+)E", args.group(1))
+    return f"{name}<{','.join(v.replace('n', '-') for v in values)}>"
+
+
+def ptxas_kernels(expected: Dict[str, Sequence[str]],
+                  build_dir: Path = BUILD_DIR) -> Tuple[Dict[str, Dict[str, int]], list]:
+    """The ptxas rows (``ptxas_functions``) of the kernels ``expected``
+    names per source, as ``kernel_name`` writes them, read from the sources'
+    ``<source>.ptxas.txt`` logs; and the expected names that no log reports
+    (a missing log, a renamed kernel, an instantiation gone)."""
+    rows: Dict[str, Dict[str, int]] = {}
+    missing = []
+    for source, names in expected.items():
+        log = build_dir / f"{source}.ptxas.txt"
+        found = ({kernel_name(fn): r for fn, r in ptxas_functions(log.read_text()).items()}
+                 if log.exists() else {})
+        for name in names:
+            if name in found:
+                rows[name] = found[name]
+            else:
+                missing.append(name)
+    return rows, missing
 
 
 _CONV_LIF_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

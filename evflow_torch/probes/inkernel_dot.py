@@ -10,9 +10,10 @@ step of ``S`` ran ``L`` dots and added their sum to the output block, so
 Here each probe is one launch of ``evflow_torch/csrc/probe_inkernel_dot.cu``,
 whose CTAs stage their X tile and weight rows into shared memory with
 16-byte copies and run the whole-network kernels' mma.sync mainloop over
-the S steps; below 8 steps (``split_k``) the warps that would have no step
-split K instead (see the source's note). One function per JAX
-``pallas_call``:
+the S steps; below 8 steps the warps that would have no step split K
+instead (see the source's note). The launch chooses the CTA's output rows
+(32, or 16 where 32 do not fit in shared memory), the path and the copies,
+and reports them in ``last_launch``. One function per JAX ``pallas_call``:
 
 * ``dot_pixel_major`` (A): ``out[Np, C] = S sum_i X[Np, K] @ W_i[K, C]``;
 * ``dot_channel_major`` (B): ``out[C, Np] = S sum_i W_i[C, K] @ X[K, Np]``;
@@ -52,7 +53,7 @@ __all__ = [
     "dot_pixel_major", "dot_channel_major", "dot_channel_major_s8", "dot_ksplit",
     "dot_variant", "dot_pixel_major_plain", "dot_channel_major_plain",
     "dot_channel_major_s8_plain", "dot_ksplit_plain", "dot_variant_plain",
-    "probe_cases", "run_all", "smem_bytes", "split_k", "tile_m", "VARIANTS", "WRAPPERS",
+    "probe_cases", "run_all", "last_launch", "VARIANTS", "WRAPPERS",
 ]
 
 # the probes' shapes (probe_inkernel_dot.py): pixels, channels, K = 9 taps x
@@ -69,9 +70,7 @@ VARIANTS = (
     ("acc=f32  [256,256]@[256,8192] x9", 256, 256, 8192, 9, torch.float32),
 )
 
-# csrc/probe_inkernel_dot.cu's tile, partial-sum padding and modes
-TILE_PX, STEP_GROUPS, ROW_PAD, SMEM_LIMIT = 64, 8, 16, 232448
-PART_PAD = 8
+# csrc/probe_inkernel_dot.cu's accumulation modes
 F32_ACC, BF16_ACC, S8 = 0, 1, 2
 
 
@@ -86,46 +85,11 @@ class ProbeArgs(ctypes.Structure):
         ("o_sp", ctypes.c_longlong), ("o_sm", ctypes.c_longlong),
         ("Np", ctypes.c_int), ("K", ctypes.c_int), ("M", ctypes.c_int), ("L", ctypes.c_int),
         ("S", ctypes.c_int), ("kseg", ctypes.c_int), ("pixel_major", ctypes.c_int),
-        ("mode", ctypes.c_int), ("tile_m", ctypes.c_int), ("split_k", ctypes.c_int),
-        ("grid", ctypes.c_int), ("smem", ctypes.c_int), ("vec", ctypes.c_int),
+        ("mode", ctypes.c_int),
+        # set by the launch
+        ("tile_m", ctypes.c_int), ("split_k", ctypes.c_int), ("grid", ctypes.c_int),
+        ("smem", ctypes.c_int), ("vec", ctypes.c_int),
     ]
-
-
-def smem_bytes(k: int, dots: int, esize: int, pixel_major: bool, mt: int) -> int:
-    """Dynamic shared memory of one CTA (``layout`` in the source): the
-    mma's A rows (the ``dots mt`` weight rows channel-major, the 64 pixel
-    rows pixel-major) of ``k esize`` bytes padded by 16, its B rows unpadded
-    (bf16: X as ``k`` rows of 64 pixels, or W as ``dots k`` rows of ``mt``
-    channels; int8: X as 64 rows of ``k`` bytes padded by 16, and the ``k``
-    rows of 64 + 16 bytes it lands in), or, where larger, the f32 partial
-    sums of the ``64 x mt`` tile of the 8 step groups in rows padded by 8
-    words (the split-K path's 4 K groups need half: this is its upper
-    bound)."""
-    a_rows = TILE_PX if pixel_major else dots * mt
-    a = a_rows * (k * esize + ROW_PAD)
-    if esize == 1:
-        b = TILE_PX * (k + ROW_PAD) + k * (TILE_PX + ROW_PAD)
-    else:
-        b = (dots * k * mt * 2) if pixel_major else k * TILE_PX * 2
-    cols = mt if pixel_major else TILE_PX
-    rows = TILE_PX if pixel_major else mt
-    return max(a + b, STEP_GROUPS * rows * (cols + PART_PAD) * 4)
-
-
-def tile_m(M: int, k: int, dots: int, esize: int, pixel_major: bool) -> int:
-    """Output rows per CTA: 32 where the CTA's X tile and its 32 rows of
-    all ``dots`` weight matrices fit in shared memory, else 16."""
-    for mt in ((32,) if pixel_major else (32, 16)):
-        if M % mt == 0 and smem_bytes(k, dots, esize, pixel_major, mt) <= SMEM_LIMIT:
-            return mt
-    raise ValueError(f"no tile of a [{M}, {k}] x {dots} probe fits in shared memory")
-
-
-def split_k(steps: int, mode: int) -> bool:
-    """The kernel's small-S path: below ``STEP_GROUPS`` steps the step
-    groups that would have none split K instead, so every warp computes.
-    Not for bf16 accumulation, which rounds each whole dot."""
-    return steps < STEP_GROUPS and mode != BF16_ACC
 
 
 last_launch = {"grid": 0, "tile_m": 0, "smem": 0, "split_k": 0, "vec": 0}
@@ -137,9 +101,7 @@ def _launch(fn, x, w, out, *, x_st, w_st, o_st, Np, k, M, dots, steps, kseg, pix
         x=x.data_ptr(), w=w.data_ptr(), out=out.data_ptr(),
         x_sp=x_st[0], x_sk=x_st[1], w_si=w_st[0], w_sm=w_st[1], w_sj=w_st[2], w_sk=w_st[3],
         o_sp=o_st[0], o_sm=o_st[1], Np=Np, K=k, M=M, L=dots, S=steps, kseg=kseg,
-        pixel_major=int(pixel_major), mode=mode,
-        tile_m=tile_m(M, k, dots, x.element_size(), pixel_major),
-        split_k=int(split_k(steps, mode)))
+        pixel_major=int(pixel_major), mode=mode)
     launch("probe_inkernel_dot", args, x.device)
     fn.launches += 1
     last_launch.update(grid=args.grid, tile_m=args.tile_m, smem=args.smem,

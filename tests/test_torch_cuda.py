@@ -292,7 +292,8 @@ def test_probe_matches_plain_at_few_steps(cuda, index, np_pixels, steps):
     out = case.fn(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     assert case.fn.launches == before + 1 and out.data_ptr() == ptr
-    assert P.last_launch["split_k"] == P.split_k(steps, probe_mode(P, case))
+    # split K below the 8 step groups, never for bf16 accumulation (it rounds each whole dot)
+    assert P.last_launch["split_k"] == int(steps < 8 and probe_mode(P, case) != P.BF16_ACC)
     assert P.last_launch["vec"] == int(case.fn is P.dot_pixel_major or np_pixels % 8 == 0)
     k = case.args[1].shape[-1]
     assert P.last_launch["tile_m"] == (16 if k == 384 else 32)
@@ -393,9 +394,15 @@ def test_probe_refuses_what_it_cannot_take(cuda):
         P.dot_channel_major(x, w.cpu())
     with pytest.raises(ValueError):  # K not a multiple of 16
         P.dot_channel_major(x[:280].contiguous(), w[..., :280].contiguous())
-    with pytest.raises(ValueError):  # no tile fits shared memory
-        P.dot_variant(torch.zeros(1024, 200, device=cuda, dtype=torch.bfloat16),
-                      torch.zeros(9, 32, 1024, device=cuda, dtype=torch.bfloat16))
+    # no tile fits shared memory: nine [32, 1024] weight slices fit on neither
+    # 32 nor 16 rows; the launch, which chooses the tile, refuses on either path
+    before = P.dot_variant.launches
+    for steps in (1, 64):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            P.dot_variant(torch.zeros(1024, 200, device=cuda, dtype=torch.bfloat16),
+                          torch.zeros(9, 32, 1024, device=cuda, dtype=torch.bfloat16),
+                          steps=steps)
+    assert P.dot_variant.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

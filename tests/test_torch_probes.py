@@ -107,40 +107,6 @@ def test_probe_cases_follow_the_files():
     assert all(c.fn.launches == 0 for c in full)  # building cases launches nothing
 
 
-def test_tile_fits_shared_memory():
-    """32 output rows per CTA where the operands fit, 16 for dot2's K=384,
-    refused where not even 16 fit."""
-    assert P.tile_m(32, 288, 9, 2, False) == 32
-    assert P.tile_m(32, 384, 9, 2, False) == 16
-    assert P.tile_m(256, 256, 9, 2, False) == 32
-    with pytest.raises(ValueError):
-        P.tile_m(32, 1024, 9, 2, False)
-
-
-@pytest.mark.parametrize("k,dots,esize,pixel_major,mt,expected", [
-    (288, 9, 2, False, 32, 9 * 32 * 592 + 288 * 128),   # B, C, dot2 f32 and bf16
-    (288, 1, 2, False, 32, 8 * 32 * 72 * 4),            # k_dot3: the partial sums
-    (288, 9, 2, True, 32, 64 * 592 + 9 * 288 * 64),     # A: W as [L K][32]
-    (288, 9, 1, False, 32, 9 * 32 * 304 + 64 * 304 + 288 * 80),  # Bi: X landed, turned
-    (384, 9, 2, False, 16, 9 * 16 * 784 + 384 * 128),   # dot2 K=384
-], ids=["B", "k_dot3", "A", "Bi", "K384"])
-def test_smem_bytes_follows_the_layout(k, dots, esize, pixel_major, mt, expected):
-    """The shared memory a launch asks for, region by region as the
-    source's ``layout`` lays it out: the A rows padded by 16 bytes, the B
-    rows unpadded (swizzled), int8's landing rows, or the 8 step groups'
-    partial sums where larger; every probe case fits a CTA."""
-    assert P.smem_bytes(k, dots, esize, pixel_major, mt) == expected
-    assert expected <= P.SMEM_LIMIT
-
-
-def test_split_k_below_the_step_groups():
-    """The small-S path: f32 and int8 accumulation split K below 8 steps,
-    bf16 accumulation (each dot rounded whole) never does."""
-    assert [P.split_k(s, P.F32_ACC) for s in (1, 2, 7, 8, 9, 64)] == [True] * 3 + [False] * 3
-    assert [P.split_k(s, P.S8) for s in (1, 7, 8)] == [True, True, False]
-    assert not any(P.split_k(s, P.BF16_ACC) for s in (1, 2, 7, 8))
-
-
 def test_ptxas_report_is_parsed_per_kernel():
     """``cuda_build.ptxas_functions`` reads registers, stack and spill
     bytes per kernel from an ``nvcc -Xptxas -v`` log."""
@@ -159,6 +125,49 @@ ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
     assert ptxas_functions(log) == {
         "_Z1aPf": {"registers": 90, "stack": 0, "spill_stores": 0, "spill_loads": 0},
         "_Z1bPf": {"registers": 255, "stack": 8, "spill_stores": 4, "spill_loads": 12}}
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN6evflow5probe12probe_kernelILi32ELi0ELb1ELb0EEEvNS0_9ProbeArgsE",
+     "probe_kernel<32,0,1,0>"),
+    ("_ZN6evflow5probe12probe_kernelILi16ELi2ELb0ELb1EEEvNS0_9ProbeArgsE",
+     "probe_kernel<16,2,0,1>"),
+    ("_ZN6evflow7loopdyn19load_dot_f32_kernelEPKfS2_Pfiii", "load_dot_f32_kernel"),
+    ("_Z1aPf", "a"),
+    ("_ZN1a1bILin3EEEvv", "b<-3>"),
+    ("plain_c_name", "plain_c_name"),
+], ids=["pixel-major", "int8-split", "k2", "global", "negative", "unmangled"])
+def test_kernel_name_reads_template_arguments(mangled, name):
+    """``cuda_build.kernel_name`` drops namespaces and parameter types and
+    keeps integer and bool template arguments, as the build phase names the
+    redesigned kernels."""
+    from evflow_torch.ops.cuda_build import kernel_name
+
+    assert kernel_name(mangled) == name
+
+
+def test_ptxas_kernels_names_what_no_log_reports(tmp_path):
+    """``cuda_build.ptxas_kernels`` returns the rows of the expected
+    kernels and names every one that no log reports: an instantiation
+    missing from its source's log, and every kernel of a source with no log,
+    so a build gate cannot pass on an empty report."""
+    from evflow_torch.ops.cuda_build import ptxas_kernels
+
+    entry = "_ZN6evflow5probe12probe_kernelILi{}ELi0ELb0ELb{}EEEvNS0_9ProbeArgsE"
+    (tmp_path / "dot.ptxas.txt").write_text("".join(
+        f"ptxas info    : Compiling entry function '{entry.format(mt, s)}' for 'sm_90a'\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {r} registers, used 1 barriers\n"
+        for mt, s, r in ((32, 0, 90), (32, 1, 64))))
+    rows, missing = ptxas_kernels(
+        {"dot": ("probe_kernel<32,0,0,0>", "probe_kernel<32,0,0,1>", "probe_kernel<16,0,0,0>"),
+         "k2": ("load_dot_f32_kernel",)}, tmp_path)
+    assert rows == {
+        "probe_kernel<32,0,0,0>": {"registers": 90, "stack": 0, "spill_stores": 0,
+                                   "spill_loads": 0},
+        "probe_kernel<32,0,0,1>": {"registers": 64, "stack": 0, "spill_stores": 0,
+                                   "spill_loads": 0}}
+    assert missing == ["probe_kernel<16,0,0,0>", "load_dot_f32_kernel"]
 
 
 @pytest.mark.parametrize("fn", P.WRAPPERS, ids=lambda f: f.__name__)
