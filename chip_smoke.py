@@ -9,9 +9,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. ``build``: compile the hand-written CUDA kernels from ``evflow_torch/csrc``
    (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
    and print ptxas's registers, stack and spill bytes of the redesigned
-   kernels (the in-kernel dot's 12 ``probe_kernel`` instantiations and k2's
-   ``load_dot_f32_kernel``), failing if ptxas reports any of them not at
-   all, or with a stack or spills.
+   kernels (the in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
+   ``load_dot_f32_kernel``, K8e's 4 ``layer_grid_kernel`` instantiations
+   and the ``store_kernel`` of k3 and k11), failing if ptxas reports any of
+   them not at all, or with a stack or spills.
 2. ``kernels``: every kernel against its plain PyTorch version on the card at
    full width (B=2, 256x256, C=32): head (Cin=2), feedforward, recurrent and
    subtract reset, in both layouts. mem' within 1e-4 where the spikes agree
@@ -67,7 +68,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    yardstick the port never calls: ``torch.mul(x[0, :, halo:halo+H], 2.0,
    out=...)`` for a row window (no halo staged), one ``torch.matmul`` of
    the stacked ``[C, L 9C]`` weights against prebuilt ``[L 9C, P]`` patches
-   for the layer grid.
+   for the layer grid. Then K8e at L = 1, 3, 5 and 7 layers
+   (``probes/staging_slope.py``) and the slope of its time over L: what
+   staging one more layer costs.
 9. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
    three cases, one conv+LIF unit in a runtime layer loop with and without
    the LIF and the per-layer output, and K8j, the same body behind staged
@@ -92,7 +95,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k11's whole scratch (``scratch=True``) equal to the plain one, and k4
    launched into a NaN-filled output, every element written; with device
    ms, the bound (the function's bytes over 3.35 TB/s, or its operations
-   over 67 TFLOP/s f32 or 989 bf16), GB/s and TFLOP/s of what it needs,
+   over 67 TFLOP/s f32 or 989 bf16; for k3 and k11 also the bound of what
+   the kernel moves, every layer of x and the output, and the launch floor:
+   the same kernel at P = 8, one CTA), GB/s and TFLOP/s of what it needs,
    the CTAs, threads and shared bytes, and one PyTorch call for the same
    function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0], 2)``,
    ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1, 2, 0]
@@ -365,7 +370,8 @@ def phase_build(state):
 
 
 # the kernels redesigned for the card's speed, per source: every instantiation
-# probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, and k2
+# probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, every
+# layer_grid_kernel<MF> (K8e, C <= 16 MF) and the store kernel of k3 and k11
 REDESIGNED = {
     "probe_inkernel_dot": tuple(f"probe_kernel<{a}>" for a in (
         "32,0,1,0", "32,0,1,1",                          # f32 accumulation, pixel-major
@@ -373,7 +379,9 @@ REDESIGNED = {
         "32,1,0,0", "16,1,0,0",                          # bf16 accumulation (no split K)
         "32,2,0,0", "32,2,0,1", "16,2,0,0", "16,2,0,1",  # int8
     )),
-    "probe_loop_dyn": ("load_dot_f32_kernel",),
+    "probe_loop_dyn": ("load_dot_f32_kernel", "store_kernel<float>",
+                       "store_kernel<__nv_bfloat16>"),
+    "probe_staging": tuple(f"layer_grid_kernel<{mf}>" for mf in (1, 2, 3, 4)),
 }
 
 
@@ -1070,6 +1078,11 @@ def phase_staging(state):
         errs[row] = res["max_abs_err"]
         launches[row] = per_case[case.name]
         state.setdefault("probe_rows", []).append((row, STAGING_SOURCE, case.replaces))
+    # K8e over L = 1, 3, 5, 7: the slope is what staging one more layer costs
+    from evflow_torch.probes.staging_slope import layer_times
+
+    rows, line = layer_times(S.layer_grid)
+    emit({"phase": "staging", "layer_slope": rows, **line, "card": name})
     state.setdefault("times", {}).update(times)
     state.setdefault("max_abs_err", {}).update(errs)
     state.setdefault("launches", {}).update(launches)
@@ -1195,6 +1208,7 @@ def phase_loopdyn(state):
     import numpy as np
     import torch
 
+    from evflow_torch.device import HBM_BYTES_PER_S
     from evflow_torch.probes import loop_dyn as D
     from evflow_torch.probes._harness import compare
 
@@ -1225,6 +1239,13 @@ def phase_loopdyn(state):
         lib_ms = device_ms(loopdyn_yardstick(case), iters=20)
         bms, by = D.bound(case)
         row = f"{case.fn.__name__}[{body}]"
+        if body in ("k3", "k11"):
+            # the bound of what the kernel moves (every layer of x, the output)
+            # beside the function's (x[0]); the launch floor: one CTA at P = 8
+            res["kernel_bound_ms"] = 1e3 * D.store_kernel_bytes(*case.args[0].shape) / (
+                HBM_BYTES_PER_S)
+            small = case.args[0][:1, :, :1, :8].contiguous()
+            res["floor_ms"] = device_ms(lambda: case.fn(small, **case.kwargs), iters=20)
         emit({"phase": "loopdyn", "case": case.name, "kernel": row, **res, "ms": ms,
               "gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
               "ctas": launch["grid"], "threads": launch["threads"], "smem": launch["smem"],

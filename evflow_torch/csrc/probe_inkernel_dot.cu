@@ -84,7 +84,7 @@
 #include <type_traits>
 
 #include "conv_lif_common.cuh"
-#include "tma.cuh"  // smem_u32
+#include "tma.cuh"  // smem_u32, ldsm_x4, ldsm_x4_t, bar_sync
 
 namespace evflow {
 namespace probe {
@@ -181,23 +181,6 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
     case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
   }
-}
-
-// A barrier of the `count` threads that use named barrier `id` (1..15).
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,

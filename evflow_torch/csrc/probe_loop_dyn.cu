@@ -37,8 +37,9 @@
 //
 // Design. The TPU keeps the whole [L, C, E, W] scratch (3.1 MB in f32) in
 // VMEM under grid=(1,); a CTA has 227 KB. So each CTA owns TP = 64 pixels
-// of every channel and keeps its own [L, C, TP] slab of the scratch in
-// shared memory (32 KB in f32 at L=4; 96 CTAs at E W = 6144). The layer
+// of every channel (32 for k2, k3 and k11) and keeps its own [L, C, TP]
+// slab of the scratch in shared memory (32 KB in f32 at L=4; 96 CTAs at
+// E W = 6144). The layer
 // count L is a kernel argument and every layer loop carries `#pragma unroll
 // 1`, so the scratch index l (or s(l)) stays a runtime offset into shared
 // memory, as fori_loop's is into VMEM. Each thread owns 8 consecutive
@@ -48,12 +49,19 @@
 //   Load-sum: the slab is filled from x with 16-byte loads (the `scr[:] =
 // x[:]` copy, every layer), then after a barrier each layer's row is read
 // at the runtime index and added in f32.
-//   Store: each layer's 2 x[l] is rounded to the scratch type (bf16: round
-// first, then x2 in bf16, as k11 does; the doubling is exact) and written
-// at the runtime index; after a barrier scr[0] is read back by other threads
-// (channels across lanes) and written out widened to f32. Only scr[0] shows
-// in the output, so where `scratch` is given the whole slab is written out
-// as well, on a branch that the timed launches skip.
+//   Store: a store CTA owns ST_TP = 32 pixels of every channel (192 CTAs
+// at E W = 6144, at least one on every SM) and its [L, C, 32] slab; each
+// thread 4 pixels of one channel (a warp 4 channel rows, 128 bytes each).
+// The loads of up to 8 layers are issued together, one 16-byte load per
+// layer, before the first store (a loop that loads and stores one layer at
+// a time sends its L DRAM round trips out in series); then each layer's 2 x[l],
+// rounded to the scratch type (bf16: round first, then x2 in bf16, as k11
+// does; the doubling is exact), is stored at the runtime index. As soon as
+// scr[0] is final (after the first batch and a barrier) it is read back by
+// another warp (channel c + 4) and written out widened to f32, 128 bytes per
+// 8 lanes. Only scr[0] shows in the output, so where `scratch` is given the
+// whole slab is written out as well, on a branch that the timed launches
+// skip.
 //   Bulk store: a CTA owns one contiguous, 16-byte aligned run of TILE
 // elements of the flattened output layer [C, rows W]. For each l its
 // threads write scale x[l] (from each channel's rows row0 .. row0 + rows)
@@ -117,12 +125,14 @@
 //   0.24 us, k8 2.10 MB (the windows and out) -> 0.63 us, k7 453.0 MFLOP
 //   f32 -> 6.76 us (4.08 MB: 1.22 us).
 // The design reads each input byte once and writes each output byte once
-// (k3 and k11 also read x[1..L-1], k5 also x[3], as the TPU bodies do; k7
-// reads its halo rows again from L2), on 96 CTAs (k8 on 32, k2 on 192), one
-// pass and no pipelining but k2's: at a few MB per launch the time is set by
-// the launch and the latency of one synchronous pass, not the bytes; k7's
-// and k2's time by their FFMA and shared-memory load issue (k2 issues the
-// 151 MFLOP of its three weight blocks, 2.25 us at 67 TFLOP/s).
+// (k3 and k11 also read x[1..L-1], k5 also x[3], as the TPU bodies do: what
+// k3 and k11 read and write, every layer of x and out, is 3.93 MB -> 1.17 us;
+// k7 reads its halo rows again from L2), on 96 CTAs (k8 on 32, k2, k3 and
+// k11 on 192), one pass and no pipelining but k2's and the stores' batched
+// loads: at a few MB per launch the time is set by the launch and the
+// latency of one synchronous pass, not the bytes; k7's and k2's time by
+// their FFMA and shared-memory load issue (k2 issues the 151 MFLOP of its
+// three weight blocks, 2.25 us at 67 TFLOP/s).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libprobe_loop_dyn.so probe_loop_dyn.cu
@@ -149,6 +159,11 @@ constexpr int DOT_WP = K + 4;  // k2's weight row: 100 words, 8 rows on 8 bank q
 constexpr int DOT_PP = DOT_TP + 4;  // k2's partial-sum row
 constexpr int DOT_SPLIT = 4;   // k2's input-channel quarters
 constexpr int DOT_BARS = 128;  // bytes for k2's layer barriers (L <= 16)
+constexpr int ST_TP = 32;      // pixels of every channel per store CTA (k3, k11)
+constexpr int ST_PPT = 4;      // consecutive pixels per store thread: one 16-byte load a layer
+constexpr int ST_GROUPS = ST_TP / ST_PPT;
+constexpr int ST_BATCH = 8;    // layers whose loads a store thread has in flight together
+static_assert(C * ST_GROUPS == THREADS, "a store thread per 4 pixels of a channel");
 
 // k2's dynamic shared memory (mirrored by loop_dyn.load_dot_smem): the
 // layer barriers, then every layer's slab and weight rows, or the four
@@ -203,34 +218,6 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[PPT]) {
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// 2 v rounded to the scratch type: f32 directly; bf16 rounded first, then
-// doubled in bf16.
-__device__ __forceinline__ void store_doubled(float* p, const float (&v)[PPT]) {
-  float d[PPT];
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) d[i] = __fmul_rn(v[i], 2.f);
-  store8(p, d);
-}
-
-__device__ __forceinline__ void store_doubled(__nv_bfloat16* p, const float (&v)[PPT]) {
-  uint4 u;
-  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&u);
-  const __nv_bfloat16 two = __float2bfloat16_rn(2.f);
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) h[i] = __hmul(__float2bfloat16_rn(v[i]), two);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-__device__ __forceinline__ void copy8(float* dst, const float* src) {
-  float v[PPT];
-  load8(src, v);
-  store8(dst, v);
-}
-
-__device__ __forceinline__ void copy8(__nv_bfloat16* dst, const __nv_bfloat16* src) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
-
 // x[l, c, p0 : p0 + n] of every layer and channel into scr[l][c][0 : n], 16
 // bytes at a time, zeros past n (n and p0 are multiples of 8).
 template <typename T>
@@ -268,37 +255,84 @@ __global__ void __launch_bounds__(THREADS) load_sum_kernel(const T* __restrict__
   if (px < n) store8(out + static_cast<size_t>(c) * P + p0 + px, acc);
 }
 
+// 2 v rounded to the scratch type, 4 pixels: f32 directly (16 bytes); bf16
+// rounded first, then doubled in bf16 (8 bytes).
+__device__ __forceinline__ void store_doubled4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = make_float4(__fmul_rn(v.x, 2.f), __fmul_rn(v.y, 2.f),
+                                              __fmul_rn(v.z, 2.f), __fmul_rn(v.w, 2.f));
+}
+
+__device__ __forceinline__ void store_doubled4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat16 two = __float2bfloat16_rn(2.f);
+  uint2 u;
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&u);
+  h[0] = __hmul(__float2bfloat16_rn(v.x), two);
+  h[1] = __hmul(__float2bfloat16_rn(v.y), two);
+  h[2] = __hmul(__float2bfloat16_rn(v.z), two);
+  h[3] = __hmul(__float2bfloat16_rn(v.w), two);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+
+__device__ __forceinline__ void copy4(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS) store_kernel(const float* __restrict__ x,
                                                         float* __restrict__ out,
                                                         T* __restrict__ scratch, int L, int P) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* scr = reinterpret_cast<T*>(smem_raw);  // [L][C][TP]
-  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
-  const int c = threadIdx.x / GROUPS, px = (threadIdx.x % GROUPS) * PPT;
+  T* scr = reinterpret_cast<T*>(smem_raw);  // [L][C][ST_TP]
+  const int p0 = blockIdx.x * ST_TP, n = min(ST_TP, P - p0);
+  // the thread's 4 pixels of one channel: a warp covers 4 channel rows
+  const int c = threadIdx.x / ST_GROUPS, px = (threadIdx.x % ST_GROUPS) * ST_PPT;
+  const bool in = px < n;
+  const float* src = x + static_cast<size_t>(c) * P + p0 + px;
+  const size_t layer = static_cast<size_t>(C) * P;
+  // read back by another warp: channel rc = c + 4, written by the next warp
+  const int rc = (c + 4) % C;
+#pragma unroll 1
+  for (int l0 = 0; l0 < L; l0 += ST_BATCH) {
+    // the loads of up to ST_BATCH layers in flight together, then their stores
+    float4 v[ST_BATCH];
+#pragma unroll
+    for (int j = 0; j < ST_BATCH; ++j) {
+      v[j] = in && l0 + j < L ? *reinterpret_cast<const float4*>(src + (l0 + j) * layer)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < ST_BATCH; ++j) {  // scr[l0 + j]: the runtime layer index
+      if (l0 + j < L) store_doubled4(scr + ((l0 + j) * C + c) * ST_TP + px, v[j]);
+    }
+    if (l0 == 0) {  // scr[0] is final: out from it now
+      __syncthreads();
+      if (in) {
+        const float4 r = load4(scr + rc * ST_TP + px);
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(rc) * P + p0 + px) = r;
+      }
+    }
+  }
+  if (scratch == nullptr) return;
+  __syncthreads();  // every layer's stores, which other warps read back
+  if (!in) return;
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
-    float v[PPT];
-    if (px < n) {
-      load8(x + (static_cast<size_t>(l) * C + c) * P + p0 + px, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) v[i] = 0.f;
-    }
-    store_doubled(scr + (l * C + c) * TP + px, v);  // the runtime layer index
-  }
-  __syncthreads();
-  // read back by other threads: channels across lanes
-  const int rc = threadIdx.x % C, rpx = (threadIdx.x / C) * PPT;
-  if (rpx >= n) return;
-  float v[PPT];
-  load8(scr + rc * TP + rpx, v);
-  store8(out + static_cast<size_t>(rc) * P + p0 + rpx, v);
-  if (scratch != nullptr) {
-#pragma unroll 1
-    for (int l = 0; l < L; ++l) {
-      copy8(scratch + (static_cast<size_t>(l) * C + rc) * P + p0 + rpx, scr + (l * C + rc) * TP + rpx);
-    }
+    copy4(scratch + (static_cast<size_t>(l) * C + rc) * P + p0 + px,
+          scr + (l * C + rc) * ST_TP + px);
   }
 }
 
@@ -661,13 +695,15 @@ int launch(LoopDynArgs& a, cudaStream_t s) {
         auto k = a.slot ? load_sum_kernel<float, Slot> : load_sum_kernel<float, Identity>;
         return run(a, k, tiles, slab, s, static_cast<const float*>(a.x), out, a.L, a.P);
       }
-    case STORE:
+    case STORE: {
+      const int grid = (a.P + ST_TP - 1) / ST_TP, smem = a.L * C * ST_TP * (a.bf16 ? 2 : 4);
       if (a.bf16) {
-        return run(a, store_kernel<bf>, tiles, slab, s, static_cast<const float*>(a.x), out,
+        return run(a, store_kernel<bf>, grid, smem, s, static_cast<const float*>(a.x), out,
                    static_cast<bf*>(a.scratch), a.L, a.P);
       }
-      return run(a, store_kernel<float>, tiles, slab, s, static_cast<const float*>(a.x), out,
+      return run(a, store_kernel<float>, grid, smem, s, static_cast<const float*>(a.x), out,
                  static_cast<float*>(a.scratch), a.L, a.P);
+    }
     case STORE_BULK:
       return run(a, store_bulk_kernel, (C * a.rows * a.W + TILE - 1) / TILE, TILE * 4, s,
                  static_cast<const float*>(a.x), out, a.L, a.P, a.rows * a.W, a.row0 * a.W,

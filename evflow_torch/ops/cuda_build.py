@@ -130,24 +130,51 @@ def ptxas_functions(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
+def _source_name(mangled: str, pos: int):
+    """The identifier of ``<length><identifier>`` at ``pos``, and the
+    position after it."""
+    m = re.match(r"\d+", mangled[pos:])
+    n, pos = int(m.group()), pos + m.end()
+    return mangled[pos:pos + n], pos + n
+
+
+def _template_args(mangled: str, pos: int):
+    """The template arguments ``I ... E`` at ``pos``: integer and bool
+    literals, ``float`` and named types; None where one is of another kind."""
+    args, pos = [], pos + 1
+    while pos < len(mangled) and mangled[pos] != "E":
+        literal = re.match(r"L[a-z](n?\d+)E", mangled[pos:])
+        if literal:
+            args.append(literal.group(1).replace("n", "-"))
+            pos += literal.end()
+        elif mangled[pos] == "f":
+            args.append("float")
+            pos += 1
+        elif mangled[pos].isdigit():
+            name, pos = _source_name(mangled, pos)
+            args.append(name)
+        else:
+            return None
+    return args if pos < len(mangled) else None
+
+
 def kernel_name(mangled: str) -> str:
     """A kernel's name without its namespaces and parameter types, with its
-    integer and bool template arguments:
+    template arguments (integer and bool values, ``float`` and named types):
     ``_ZN6evflow5probe12probe_kernelILi32ELi0ELb1ELb0EEEvNS0_9ProbeArgsE``
-    -> ``probe_kernel<32,0,1,0>``. A name that is not mangled stays as it is."""
+    -> ``probe_kernel<32,0,1,0>``, ``..12store_kernelI13__nv_bfloat16EE..``
+    -> ``store_kernel<__nv_bfloat16>``. A name that is not mangled stays as
+    it is."""
     if not mangled.startswith("_Z"):
         return mangled
     pos = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while pos < len(mangled) and mangled[pos].isdigit():  # <length><identifier> ...
-        m = re.match(r"\d+", mangled[pos:])
-        n, pos = int(m.group()), pos + m.end()
-        name, pos = mangled[pos:pos + n], pos + n
-    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", mangled[pos:])
-    if args is None:
+        name, pos = _source_name(mangled, pos)
+    if not mangled.startswith("I", pos):
         return name
-    values = re.findall(r"L[a-z](n?\d+)E", args.group(1))
-    return f"{name}<{','.join(v.replace('n', '-') for v in values)}>"
+    args = _template_args(mangled, pos)
+    return name if args is None else f"{name}<{','.join(args)}>"
 
 
 def ptxas_kernels(expected: Dict[str, Sequence[str]],

@@ -64,7 +64,7 @@ __all__ = [
     "dyn_store_bulk_plain", "dyn_load_dot", "dyn_load_dot_plain", "dyn_narrow_sum",
     "dyn_narrow_sum_plain", "dyn_conv_sum", "dyn_conv_sum_plain", "dyn_store_window",
     "dyn_store_window_plain", "conv_weights", "slot_of", "loop_dyn_bytes", "draw_operands",
-    "load_dot_smem", "load_dot_grid",
+    "load_dot_smem", "load_dot_grid", "store_smem", "store_grid", "store_kernel_bytes",
     "probe_cases", "body_of", "bound", "tolerance", "f32_tolerance", "run_all", "WRAPPERS",
     "BODIES", "last_launch",
 ]
@@ -75,6 +75,7 @@ L, C, E, W, TH = 4, 32, 24, 256, 8
 ROW0 = 8                # k8's first stored row (probe_loop_dyn2.py:72)
 TP = 64                 # pixels of every channel per CTA (csrc/probe_loop_dyn.cu)
 DOT_TP = 32             # pixels of every channel per k2 CTA
+ST_TP = 32              # pixels of every channel per k3 / k11 CTA
 SMEM_LIMIT = 232448     # dynamic shared memory of one CTA
 LOAD_SUM, STORE, STORE_BULK, LOAD_DOT, NARROW_SUM, CONV = range(6)
 
@@ -234,6 +235,26 @@ def load_dot_grid(p: int, esize: int) -> int:
     return -(-p // (DOT_TP if esize == 4 else TP))
 
 
+def store_smem(layers: int, esize: int) -> int:
+    """Dynamic shared memory of a ``dyn_store`` CTA: its ``[L, C, 32]`` slab
+    in the scratch type (``esize`` 4: f32, k3; 2: bf16, k11)."""
+    return layers * C * ST_TP * esize
+
+
+def store_grid(p: int) -> int:
+    """CTAs of a ``dyn_store`` launch over ``p = E W`` pixels: 32 pixels a
+    CTA (192 at the files' 6144)."""
+    return -(-p // ST_TP)
+
+
+def store_kernel_bytes(layers: int, c: int, e: int, w: int) -> int:
+    """Bytes a ``dyn_store`` launch reads and writes without ``scratch``:
+    every layer of x (the TPU body stores each at the runtime index) and the
+    f32 output, each once; the function needs x[0] alone
+    (``loop_dyn_bytes``)."""
+    return (layers + 1) * c * e * w * 4
+
+
 def dyn_load_sum(x: torch.Tensor, slot: bool = False) -> torch.Tensor:
     """k1 / k10 (k5 with ``slot``): x ``[L, C, E, W]`` f32 or bf16 copied
     into scratch, its layers (or slots) summed at the runtime index ->
@@ -261,8 +282,7 @@ def dyn_store(x: torch.Tensor, scratch_dtype: torch.dtype = torch.float32,
     shape = _x_shape("dyn_store", x, (torch.float32,))
     if not cuda:
         return dyn_store_plain(x, scratch_dtype, scratch)
-    esize = torch.finfo(scratch_dtype).bits // 8
-    _check_card("dyn_store", shape, _slab(shape[0], esize))
+    _check_card("dyn_store", shape, store_smem(shape[0], torch.finfo(scratch_dtype).bits // 8))
     out = torch.empty(shape[1:], device=x.device, dtype=torch.float32)
     scr = torch.empty(shape, device=x.device, dtype=scratch_dtype) if scratch else None
     _launch(STORE, x, out, scratch=scr, bf16=scratch_dtype == torch.bfloat16)

@@ -14,12 +14,14 @@ memory itself (``pltpu.make_async_copy`` and a DMA semaphore):
   for even l and 0 for odd l.
 
 Here each probe is one launch of ``evflow_torch/csrc/probe_staging.cu``,
-which stages with the TMA engine's bulk copies completing on an mbarrier
-(see the source's note). Each wrapper has a plain PyTorch version beside it
-(the row window exact; the layer grid in float64 sums, rounded once to f32)
-and a launch counter (``fn.launches``); ``last_launch`` holds the last
-launch's CTAs, channels per CTA and shared bytes. CPU tensors run the plain
-version; CUDA tensors launch the kernel or raise.
+which stages with the TMA engine's bulk copies (the layer grid: tensor
+copies into a ring of stages) completing on mbarriers (see the source's
+note). Each wrapper has a plain PyTorch version beside it (the row window
+exact; the layer grid in float64 sums, rounded once to f32) and a launch
+counter (``fn.launches``); ``last_launch`` holds the last launch's CTAs,
+channels per CTA, shared bytes and the layer grid's ring depth
+(``layer_grid_plan`` mirrors its launch's choices). CPU tensors run the
+plain version; CUDA tensors launch the kernel or raise.
 
 A case's bound counts what its function needs (``nbytes``, ``flops``): the
 row window's interior read once and its f32 output written, the layer
@@ -46,8 +48,8 @@ from evflow_torch.probes._harness import Case, bound, card_device, launch, on_ca
 
 __all__ = [
     "row_window_copy", "row_window_copy_plain", "halo_sums_plain", "layer_grid",
-    "layer_grid_plain", "channels_per_cta", "probe_cases", "run_all", "WRAPPERS",
-    "last_launch",
+    "layer_grid_plain", "layer_grid_plan", "channels_per_cta", "probe_cases", "run_all",
+    "WRAPPERS", "last_launch",
 ]
 
 # the probes' shapes: probe_manual_dma.py (HALO 6), probe_manual_dma2.py
@@ -62,6 +64,10 @@ SMEM_LIMIT = 232448   # dynamic shared memory of one CTA
 HEADER = 16           # the mbarrier, before the staged data
 ROW_BUDGET = 48 * 1024  # staged window bytes of one row-window CTA
 LG_MAX_C = 64         # the layer grid's register tile: 4 m16 fragments
+LG_PX = 64            # the layer grid's pixels per CTA
+LG_BOX = 64           # bf16 columns of a staged box (128-byte rows)
+LG_MAX_DEPTH = 8      # stages of the layer ring
+LG_HEADER = 128 + 1024  # its full and empty barriers, and the ring's alignment
 
 
 class RowWindowArgs(ctypes.Structure):
@@ -80,10 +86,25 @@ class LayerGridArgs(ctypes.Structure):
     _fields_ = [("w", ctypes.c_void_p), ("m", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("L", ctypes.c_int), ("C", ctypes.c_int), ("E", ctypes.c_int),
                 ("Em", ctypes.c_int), ("W", ctypes.c_int), ("grid", ctypes.c_int),
-                ("smem", ctypes.c_int)]
+                ("depth", ctypes.c_int), ("smem", ctypes.c_int)]
 
 
-last_launch = {"grid": 0, "cpc": 0, "smem": 0}
+last_launch = {"grid": 0, "cpc": 0, "smem": 0, "depth": 0}
+
+
+def layer_grid_plan(c: int, layers: int, pixels: int) -> dict:
+    """The layer-grid launch's choices (``launch_layer_grid``), for C <=
+    ``LG_MAX_C`` channels, L layers and ``pixels`` = (E-2) W: a CTA per 64
+    pixels; a ring of ``depth`` stages, each one layer's weights as ``[CP,
+    64]`` bf16 boxes over its 9 CP columns and its channel rows ``[CP, 64]``
+    (CP = C rounded up to 16), as many as L, 8 and the CTA's shared memory
+    allow; and the shared bytes, the barriers and the ring's alignment
+    included."""
+    cp = 16 * -(-c // 16)
+    stage = (-(-9 * cp // LG_BOX) + 1) * cp * LG_BOX * 2
+    depth = max(1, min(layers, LG_MAX_DEPTH, (SMEM_LIMIT - LG_HEADER) // stage))
+    return {"grid": -(-pixels // LG_PX), "depth": depth, "smem": LG_HEADER + depth * stage,
+            "stage": stage}
 
 
 def channels_per_cta(c: int, tiles: int, e: int, w: int, esize: int, num_sms: int) -> int:
@@ -158,7 +179,7 @@ def row_window_copy(x: torch.Tensor, th: int, halo: int, halo_sums: bool = False
                          H=h, W=w, th=th, halo=halo, cpc=cpc)
     launch("probe_row_window", args, x.device)
     row_window_copy.launches += 1
-    last_launch.update(grid=args.grid, cpc=cpc, smem=args.smem)
+    last_launch.update(grid=args.grid, cpc=cpc, smem=args.smem, depth=0)
     return (out, sums.to(torch.int64) & 0xFFFFFFFF) if halo_sums else out
 
 
@@ -201,7 +222,7 @@ def layer_grid(w_all: torch.Tensor, m: torch.Tensor, e: int) -> torch.Tensor:
                          E=e, Em=m.shape[2], W=w)
     launch("probe_layer_grid", args, m.device)
     layer_grid.launches += 1
-    last_launch.update(grid=args.grid, cpc=c, smem=args.smem)
+    last_launch.update(grid=args.grid, cpc=c, smem=args.smem, depth=args.depth)
     return out
 
 

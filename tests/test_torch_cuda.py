@@ -430,33 +430,108 @@ def test_row_window_matches_plain_on_ragged_groups(cuda, dtype):
     assert torch.equal(out2, ref) and torch.equal(sums, S.halo_sums_plain(x, th, halo))
 
 
-@pytest.mark.parametrize("C", [12, 32])
-def test_layer_grid_matches_plain_on_ragged_tiles(cuda, C):
-    """The layer-grid kernel against its plain version at (E-2) W = 240
-    pixels (3 blocks of 64 and one of 48), L=5, C=12 (padded to 16 channels)
-    and 32: within ``staging.tolerance``."""
-    from evflow_torch.probes import staging as S
-    from evflow_torch.probes._harness import compare
-
-    L, E, W = 5, 12, 24
-    rng = np.random.default_rng(C)
+def layer_grid_operands(cuda, L, C, E, W, seed):
+    rng = np.random.default_rng(seed)
     w_all = torch.tensor(rng.standard_normal((L, C, 9 * C), dtype=np.float32) * 0.05,
                          device=cuda).to(torch.bfloat16)
     m = torch.tensor(rng.standard_normal((L, C, E + 8, W), dtype=np.float32),
                      device=cuda).to(torch.bfloat16)
+    return w_all, m
+
+
+def check_layer_grid(w_all, m, E):
+    """One launch of the layer grid against its plain version within
+    ``staging.tolerance``, with the launch's grid, ring depth and shared
+    bytes those of ``staging.layer_grid_plan``; returns the output."""
+    from evflow_torch.probes import staging as S
+    from evflow_torch.probes._harness import compare
+
+    L, C, _ = w_all.shape
     case = S.Case("ragged", S.layer_grid, S.layer_grid_plain, (w_all, m), {"e": E}, 0, 0.0, 0,
                   0.0, "")
     before = S.layer_grid.launches
     out = S.layer_grid(w_all, m, E)
-    assert S.layer_grid.launches == before + 1 and S.last_launch["grid"] == 4
+    assert S.layer_grid.launches == before + 1
+    plan = S.layer_grid_plan(C, L, (E - 2) * m.shape[3])
+    assert {k: S.last_launch[k] for k in ("grid", "depth", "smem")} == {
+        k: plan[k] for k in ("grid", "depth", "smem")}
     ref = S.layer_grid_plain(w_all, m, E)
     torch.cuda.synchronize()
     res = compare(out, ref, S.tolerance(case, ref))
     assert res["ok"], res
-    # the odd layers' zeroed buffer: m's odd layers do not reach the output
+    return out
+
+
+@pytest.mark.parametrize("C", [12, 32, 48, 64])
+def test_layer_grid_matches_plain_on_ragged_tiles(cuda, C):
+    """The layer-grid kernel against its plain version at (E-2) W = 240
+    pixels (3 blocks of 64 and one of 48: 4 CTAs), L=5, at C=12 (padded to
+    16 channels, staged element by element), 32, 48 and 64 (one m16
+    fragment count each): within ``staging.tolerance``; m's odd layers do
+    not reach the output."""
+    from evflow_torch.probes import staging as S
+
+    L, E, W = 5, 12, 24
+    w_all, m = layer_grid_operands(cuda, L, C, E, W, seed=C)
+    out = check_layer_grid(w_all, m, E)
+    assert S.last_launch["grid"] == 4
+    # the odd layers' zero block: m's odd layers do not reach the output
     m2 = m.clone()
     m2[1::2] = float("nan")
     assert torch.equal(S.layer_grid(w_all, m2, E), out)
+
+
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("L", [1, 2, 7, 9])
+def test_layer_grid_ring_at_every_depth(cuda, L, C):
+    """The layer grid against its plain version at L = 1, 2, 7 and 9 over a
+    ragged last block: at C=32 the ring holds every layer up to 8 (9 reuses
+    a stage), at C=64 two, so L >= 3 refills stages that the consumers
+    release."""
+    from evflow_torch.probes import staging as S
+
+    E, W = 7, 40  # 200 pixels: 3 blocks of 64 and one of 8
+    w_all, m = layer_grid_operands(cuda, L, C, E, W, seed=100 + L)
+    check_layer_grid(w_all, m, E)
+    assert S.last_launch["depth"] == min(L, 8 if C == 32 else 2)
+
+
+@pytest.mark.parametrize("C", [12, 32])
+def test_layer_grid_nonfinite_odd_weight_gives_nan(cuda, C):
+    """An odd layer's products with the zero block are kept: a non-finite
+    weight there (inf times 0) turns its output row to NaN, in the kernel as
+    in the plain version, and every other row stays within tolerance."""
+    from evflow_torch.probes import staging as S
+    from evflow_torch.probes._harness import compare
+
+    L, E, W = 4, 6, 16
+    w_all, m = layer_grid_operands(cuda, L, C, E, W, seed=7)
+    w_all[1, 3, 5] = float("inf")
+    w_all[3, C - 1, 9 * C - 1] = float("nan")
+    out = S.layer_grid(w_all, m, E)
+    ref = S.layer_grid_plain(w_all, m, E)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert bool(nan[0, 3].all()) and bool(nan[0, C - 1].all()) and int(nan.sum()) == 2 * (E - 2) * W
+    assert torch.equal(torch.isnan(out), nan)
+    finite = S.layer_grid_plain(w_all.nan_to_num(posinf=0.0), m, E)
+    case = S.Case("nan", S.layer_grid, S.layer_grid_plain, (w_all, m), {"e": E}, 0, 0.0, 0, 0.0,
+                  "")
+    res = compare(out[~nan], ref[~nan], S.tolerance(case, finite))
+    assert res["ok"], res
+
+
+def test_staging_slope_times_each_layer_count(cuda):
+    """``staging_slope.layer_times`` times K8e at each layer count it is
+    given and fits a line through the times."""
+    from evflow_torch.probes import staging as S
+    from evflow_torch.probes.staging_slope import layer_times
+
+    before = S.layer_grid.launches
+    rows, line = layer_times(S.layer_grid, layers=(1, 3), iters=2)
+    assert [r["L"] for r in rows] == [1, 3] and all(r["ms"] > 0 for r in rows)
+    assert line["slope_ms"] == pytest.approx((rows[1]["ms"] - rows[0]["ms"]) / 2)
+    assert S.layer_grid.launches > before
 
 
 def test_staging_refuses_what_it_cannot_take(cuda):
@@ -548,6 +623,7 @@ def test_loop_dyn_matches_plain(cuda, shape, body):
     assert case.fn.launches == before + 1
     pixels = shape[2] * shape[3]
     assert D.last_launch["grid"] == (D.load_dot_grid(pixels, 4) if body == "k2"
+                                     else D.store_grid(pixels) if body in ("k3", "k11")
                                      else -(-pixels // 64))
     ref = case.plain(*case.args, **case.kwargs)
     torch.cuda.synchronize()
@@ -563,6 +639,31 @@ def test_loop_dyn_matches_plain(cuda, shape, body):
         assert case.fn(*case.args, out=filled) is filled
         torch.cuda.synchronize()
         assert torch.equal(filled, ref)
+
+
+@pytest.mark.parametrize("P", [(24, 256), (5, 24)], ids=["full", "ragged"])
+@pytest.mark.parametrize("L", [1, 4, 8, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dyn_store_at_every_layer_count(cuda, dtype, L, P):
+    """k3 (f32 scratch) and k11 (bf16) at L = 1, 4, 8 and 9 (a second batch
+    of loads) over 6144 pixels and over 120 (three CTAs of 32 pixels and one
+    of 24): the output and, with ``scratch=True``, every layer of the slab
+    equal to the plain version's; the launch's CTAs and shared bytes those
+    of ``loop_dyn.store_grid`` and ``store_smem``."""
+    from evflow_torch.probes import loop_dyn as D
+
+    E, W = P
+    (x,) = D.draw_operands(np.random.default_rng(L), "k11", L, 32, E, W, device=cuda)
+    before = D.dyn_store.launches
+    out = D.dyn_store(x, scratch_dtype=dtype)
+    assert D.dyn_store.launches == before + 1
+    assert (D.last_launch["grid"], D.last_launch["smem"]) == (
+        D.store_grid(E * W), D.store_smem(L, torch.finfo(dtype).bits // 8))
+    out2, scr = D.dyn_store(x, scratch_dtype=dtype, scratch=True)
+    ref, ref_scr = D.dyn_store_plain(x, dtype, scratch=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(out2, ref)
+    assert scr.dtype == dtype and torch.equal(scr, ref_scr)
 
 
 def test_loop_dyn_refuses_what_it_cannot_take(cuda):

@@ -338,6 +338,36 @@ def test_load_dot_smem_and_grid():
         192, 96, 4)
 
 
+def test_store_smem_grid_and_kernel_bytes():
+    """k3's and k11's CTA: 32 pixels (192 CTAs at the files' E W = 6144, 4
+    at a ragged 120), its ``[L, C, 32]`` slab in the scratch type, up to 56
+    f32 layers in a CTA's shared memory; what the kernel reads and writes
+    (every layer of x and the output: 3,932,160 bytes, 0.001174 ms at 3.35
+    TB/s) against what the function needs (x[0] and the output)."""
+    assert (D.store_grid(6144), D.store_grid(120), D.store_grid(8)) == (192, 4, 1)
+    assert (D.store_smem(4, 4), D.store_smem(4, 2)) == (16_384, 8_192)
+    assert D.store_smem(56, 4) <= D.SMEM_LIMIT < D.store_smem(57, 4)
+    assert D.store_kernel_bytes(4, 32, 24, 256) == 3_932_160
+    assert round(1e3 * D.store_kernel_bytes(4, 32, 24, 256) / HBM_BYTES_PER_S, 6) == 0.001174
+    k3 = D.probe_cases("meta")[2]
+    assert k3.nbytes == 2 * 32 * 24 * 256 * 4  # the function: x[0] and the output
+
+
+def test_store_instantiations_are_gated():
+    """Both ``store_kernel`` instantiations the launch can choose (f32 and
+    bf16 scratch) are in ``chip_smoke.REDESIGNED``, whose ptxas gate fails on
+    a missing one."""
+    import re
+    from pathlib import Path
+
+    import chip_smoke
+
+    text = (Path(D.__file__).resolve().parents[1] / "csrc" / "probe_loop_dyn.cu").read_text()
+    assert sorted(set(re.findall(r"run\(a, store_kernel<(\w+)>", text))) == ["bf", "float"]
+    assert {"store_kernel<float>", "store_kernel<__nv_bfloat16>"} <= set(
+        chip_smoke.REDESIGNED["probe_loop_dyn"])
+
+
 def test_base_8_draw_is_exact_at_five_layers():
     """At L=5 a 16^l draw can leave f32's exact integers; 8^l keeps every
     dot's sum of |terms| below 2^24 and still moves the output when a layer

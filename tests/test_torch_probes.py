@@ -136,11 +136,20 @@ ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
     ("_Z1aPf", "a"),
     ("_ZN1a1bILin3EEEvv", "b<-3>"),
     ("plain_c_name", "plain_c_name"),
-], ids=["pixel-major", "int8-split", "k2", "global", "negative", "unmangled"])
+    ("_ZN6evflow7loopdyn12store_kernelIfEEvPKfPfPT_ii", "store_kernel<float>"),
+    ("_ZN6evflow7loopdyn12store_kernelI13__nv_bfloat16EEvPKfPfPT_ii",
+     "store_kernel<__nv_bfloat16>"),
+    ("_ZN6evflow7staging17layer_grid_kernelILi3EEEvNS0_13LayerGridArgsE",
+     "layer_grid_kernel<3>"),
+    ("_ZN6evflow7loopdyn15load_sum_kernelIfNS0_8IdentityEEEvPKT_Pfii", "load_sum_kernel"),
+    ("_ZN1a1bIPfEEvv", "b"),
+], ids=["pixel-major", "int8-split", "k2", "global", "negative", "unmangled", "store-f32",
+        "store-bf16", "layer-grid", "nested-type", "pointer-argument"])
 def test_kernel_name_reads_template_arguments(mangled, name):
     """``cuda_build.kernel_name`` drops namespaces and parameter types and
-    keeps integer and bool template arguments, as the build phase names the
-    redesigned kernels."""
+    keeps integer and bool template arguments, ``float`` and named types,
+    as the build phase names the redesigned kernels; a template argument of
+    another kind (a nested name, a pointer) leaves the bare name."""
     from evflow_torch.ops.cuda_build import kernel_name
 
     assert kernel_name(mangled) == name

@@ -177,3 +177,54 @@ def test_layer_grid_refuses(bad, match):
     kw = dict(LG, **bad)
     with pytest.raises(ValueError, match=match):
         S.layer_grid(kw["w"], kw["m"], kw["e"])
+
+
+def test_layer_grid_plan_fits_shared_memory():
+    """The layer grid's launch choices (``layer_grid_plan``, mirrored from
+    ``launch_layer_grid``): for every C <= 64 and L up to 40 the ring, its
+    barriers and its alignment fit a CTA's shared memory, with as many
+    stages as L, 8 and the memory allow, each a whole number of 1024-byte
+    swizzle blocks, and stage 0 holds the K groups' partial sums; all 7 of
+    the probe's layers at C=32 (5 weight boxes a stage), 4 stages at C=48,
+    2 at C=64 (9 boxes)."""
+    for c in range(1, S.LG_MAX_C + 1):
+        mf = -(-c // 16)
+        for layers in range(1, 41):
+            plan = S.layer_grid_plan(c, layers, 7680)
+            fit = (S.SMEM_LIMIT - S.LG_HEADER) // plan["stage"]
+            assert plan["depth"] == max(1, min(layers, S.LG_MAX_DEPTH, fit))
+            assert plan["smem"] == S.LG_HEADER + plan["depth"] * plan["stage"] <= S.SMEM_LIMIT
+            assert 4 * 32 * mf * 8 * 4 <= plan["stage"]  # 4 quarters' f32 partial sums
+            assert plan["stage"] % 1024 == 0
+    assert S.layer_grid_plan(32, 7, 7680) == {"grid": 120, "depth": 7, "smem": 173_184,
+                                              "stage": 24_576}
+    assert [S.layer_grid_plan(c, 9, 240)["depth"] for c in (12, 16, 32, 48, 64)] == [8, 8, 8, 4, 2]
+    assert S.layer_grid_plan(64, 9, 240) == {"grid": 4, "depth": 2, "smem": 164_992,
+                                             "stage": 81_920}
+
+
+def test_layer_grid_instantiations_are_gated():
+    """Every ``layer_grid_kernel<MF>`` the entry point can launch is in
+    ``chip_smoke.REDESIGNED``, whose ptxas gate fails on a missing one."""
+    import re
+    from pathlib import Path
+
+    import chip_smoke
+
+    text = (Path(S.__file__).resolve().parents[1] / "csrc" / "probe_staging.cu").read_text()
+    launched = sorted(set(re.findall(r"launch_layer_grid<(\d)>\(\*a, s\)", text)))
+    assert launched == ["1", "2", "3", "4"]
+    assert chip_smoke.REDESIGNED["probe_staging"] == tuple(
+        f"layer_grid_kernel<{mf}>" for mf in launched)
+
+
+def test_staging_slope_fit_and_refusal(capsys):
+    """``staging_slope.fit`` recovers a line's slope and intercept; its
+    entry point measures the card only and refuses here, with no output."""
+    from evflow_torch.probes import staging_slope
+
+    slope, intercept = staging_slope.fit([1, 3, 5, 7], [0.004 + 0.0025 * n for n in (1, 3, 5, 7)])
+    assert slope == pytest.approx(0.0025) and intercept == pytest.approx(0.004)
+    assert staging_slope.LAYERS == (1, 3, 5, 7)
+    assert staging_slope.main([]) == 1
+    assert capsys.readouterr().out == ""
