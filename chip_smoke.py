@@ -10,9 +10,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
    and print ptxas's registers, stack and spill bytes of the redesigned
    kernels (the in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
-   ``load_dot_f32_kernel``, K8e's 4 ``layer_grid_kernel`` instantiations
-   and the ``store_kernel`` of k3 and k11), failing if ptxas reports any of
-   them not at all, or with a stack or spills.
+   ``load_dot_f32_kernel``, k12's ``load_dot_bf16_kernel``, K8e's 4
+   ``layer_grid_kernel`` instantiations, the ``store_kernel`` of k3 and k11
+   and the ``store_bulk_kernel`` of k4 and k8), failing if ptxas reports
+   any of them not at all, or with a stack or spills.
 2. ``kernels``: every kernel against its plain PyTorch version on the card at
    full width (B=2, 256x256, C=32): head (Cin=2), feedforward, recurrent and
    subtract reset, in both layouts. mem' within 1e-4 where the spikes agree
@@ -91,20 +92,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
    against its plain version (equal, on integer operands scaled 16^l per
    layer that make every sum exact: ``loop_dyn.draw_operands``; the f32
    dots k2 and k7 also on f32 normals, within ``loop_dyn.f32_tolerance``,
-   which a dot on TF32 or bf16 operands misses), k3's and
+   which a dot on TF32 or bf16 operands misses, and k12 on bf16 normals
+   within the same, which its sums kept in bf16 must miss), k3's and
    k11's whole scratch (``scratch=True``) equal to the plain one, and k4
    launched into a NaN-filled output, every element written; with device
    ms, the bound (the function's bytes over 3.35 TB/s, or its operations
-   over 67 TFLOP/s f32 or 989 bf16; for k3 and k11 also the bound of what
-   the kernel moves, every layer of x and the output, and the launch floor:
-   the same kernel at P = 8, one CTA), GB/s and TFLOP/s of what it needs,
+   over 67 TFLOP/s f32 or 989 bf16; for k3, k4, k8, k11 and k12 also the
+   bound of what the kernel moves through device memory, for k3 and k11
+   every layer of x and the output, and the launch floor: the same kernel
+   at one CTA, ``loop_dyn.floor_args``), GB/s and TFLOP/s of what it needs,
    the CTAs, threads and shared bytes, and one PyTorch call for the same
    function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0], 2)``,
    ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1, 2, 0]
    with x, one ``torch.matmul`` of the stacked ``[C, L 3C] @ [L 3C, E W]``
-   operands; k6 ``p[:, :, 1].sum(0)`` broadcast, k7 one ``F.conv2d`` of
-   ``[1, L C, E, W]`` (f32, TF32 off), k8 ``torch.mul(x[:, :, 8:16], 2)``;
-   and the kernel's time over the bound and over the yardstick.
+   operands (k12 also ``torch.mm`` of them with an f32 output, as the
+   kernel writes: ``library_f32_ms``); k6 ``p[:, :, 1].sum(0)`` broadcast,
+   k7 one ``F.conv2d`` of ``[1, L C, E, W]`` (f32, TF32 off), k8
+   ``torch.mul(x[:, :, 8:16], 2)``; and the kernel's time over the bound
+   and over the yardstick.
 11. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
    K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
    in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
@@ -370,8 +375,9 @@ def phase_build(state):
 
 
 # the kernels redesigned for the card's speed, per source: every instantiation
-# probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, every
-# layer_grid_kernel<MF> (K8e, C <= 16 MF) and the store kernel of k3 and k11
+# probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, k12,
+# every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3 and
+# k11 and the bulk store of k4 and k8
 REDESIGNED = {
     "probe_inkernel_dot": tuple(f"probe_kernel<{a}>" for a in (
         "32,0,1,0", "32,0,1,1",                          # f32 accumulation, pixel-major
@@ -379,8 +385,8 @@ REDESIGNED = {
         "32,1,0,0", "16,1,0,0",                          # bf16 accumulation (no split K)
         "32,2,0,0", "32,2,0,1", "16,2,0,0", "16,2,0,1",  # int8
     )),
-    "probe_loop_dyn": ("load_dot_f32_kernel", "store_kernel<float>",
-                       "store_kernel<__nv_bfloat16>"),
+    "probe_loop_dyn": ("load_dot_f32_kernel", "load_dot_bf16_kernel", "store_kernel<float>",
+                       "store_kernel<__nv_bfloat16>", "store_bulk_kernel"),
     "probe_staging": tuple(f"layer_grid_kernel<{mf}>" for mf in (1, 2, 3, 4)),
 }
 
@@ -1192,11 +1198,19 @@ def loopdyn_yardstick(case):
         return lambda: torch.mul(x[0], 2)
     if body == "k4":
         return lambda: torch.mul(x, 3)
-    w = case.args[1]
-    c = w.shape[1]
+    stacked, layers3 = stacked_operands(case)
+    return lambda: torch.matmul(stacked, layers3)
+
+
+def stacked_operands(case):
+    """A dot body's (k2, k12) stacked weights ``[C, L 3C]`` and stacked,
+    thrice repeated layers ``[L 3C, E W]``: one product of the two is the
+    body's function."""
+    x, w = case.args
+    layers, c = w.shape[:2]
     stacked = w.permute(1, 0, 2).reshape(c, -1).contiguous()
     layers3 = x.reshape(layers, c, -1).repeat(1, 3, 1).reshape(layers * 3 * c, -1).contiguous()
-    return lambda: torch.matmul(stacked, layers3)
+    return stacked, layers3
 
 
 def phase_loopdyn(state):
@@ -1239,13 +1253,20 @@ def phase_loopdyn(state):
         lib_ms = device_ms(loopdyn_yardstick(case), iters=20)
         bms, by = D.bound(case)
         row = f"{case.fn.__name__}[{body}]"
-        if body in ("k3", "k11"):
-            # the bound of what the kernel moves (every layer of x, the output)
-            # beside the function's (x[0]); the launch floor: one CTA at P = 8
-            res["kernel_bound_ms"] = 1e3 * D.store_kernel_bytes(*case.args[0].shape) / (
-                HBM_BYTES_PER_S)
-            small = case.args[0][:1, :, :1, :8].contiguous()
-            res["floor_ms"] = device_ms(lambda: case.fn(small, **case.kwargs), iters=20)
+        if body in ("k3", "k4", "k8", "k11", "k12"):
+            # the bound of what the kernel moves through device memory beside
+            # the function's (k3 and k11: every layer of x and the output, the
+            # function x[0]; the others each input once, the function's
+            # bytes); the launch floor: the same kernel at one CTA
+            moved = D.store_kernel_bytes(*case.args[0].shape) if body in ("k3", "k11") else (
+                case.nbytes)
+            res["kernel_bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S
+            small, small_kw = D.floor_args(case)
+            res["floor_ms"] = device_ms(lambda: case.fn(*small, **small_kw), iters=20)
+        if body == "k12":  # the one call with the kernel's f32 output
+            stacked, layers3 = stacked_operands(case)
+            res["library_f32_ms"] = device_ms(
+                lambda: torch.mm(stacked, layers3, out_dtype=torch.float32), iters=20)
         emit({"phase": "loopdyn", "case": case.name, "kernel": row, **res, "ms": ms,
               "gbps": case.nbytes / ms / 1e6, "tflops": case.flops / ms / 1e9,
               "ctas": launch["grid"], "threads": launch["threads"], "smem": launch["smem"],
@@ -1257,18 +1278,24 @@ def phase_loopdyn(state):
         errs[row] = res["max_abs_err"]
         launches[row] = per_case[case.name]
         state.setdefault("probe_rows", []).append((row, LOOPDYN_SOURCE, case.replaces))
-        if body in D.F32_DOTS:
-            # the integer draw cannot show operands rounded to TF32 or bf16: f32 normals can
+        if body in D.DOTS:
+            # the integer draw cannot show operands rounded to TF32 or bf16, or
+            # sums kept in bf16: normals can
             args = D.draw_operands(np.random.default_rng(1), body, *case.args[0].shape,
                                    device="cuda", normals=True)
             out = case.fn(*args)
             ref = case.plain(*args)
             torch.cuda.synchronize()
-            res = compare(out, ref, D.f32_tolerance(*args, ref))
-            emit({"phase": "loopdyn", "case": case.name + " f32 normals", "kernel": row, **res,
-                  "card": name})
+            tol = D.f32_tolerance(*args, ref)
+            res = compare(out, ref, tol)
+            if body == "k12":  # the check tells the sums apart: bf16 sums must fail it
+                res["bf16_sums_fail"] = not compare(D.bf16_sums(*args), ref, tol)["ok"]
+                res["ok"] = res["ok"] and res["bf16_sums_fail"]
+            kind = "bf16" if body == "k12" else "f32"
+            emit({"phase": "loopdyn", "case": f"{case.name} {kind} normals", "kernel": row,
+                  **res, "card": name})
             if not res["ok"]:
-                raise SystemExit(f"loop probe {case.name} on f32 normals is off its plain "
+                raise SystemExit(f"loop probe {case.name} on {kind} normals is off its plain "
                                  f"version by more than f32 rounding: {res}")
             errs[row] = max(errs[row], res["max_abs_err"])
     state.setdefault("times", {}).update(times)

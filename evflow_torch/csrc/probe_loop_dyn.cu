@@ -37,9 +37,9 @@
 //
 // Design. The TPU keeps the whole [L, C, E, W] scratch (3.1 MB in f32) in
 // VMEM under grid=(1,); a CTA has 227 KB. So each CTA owns TP = 64 pixels
-// of every channel (32 for k2, k3 and k11) and keeps its own [L, C, TP]
-// slab of the scratch in shared memory (32 KB in f32 at L=4; 96 CTAs at
-// E W = 6144). The layer
+// of every channel (32 for k2, k3, k11 and k12) and keeps its own [L, C,
+// TP] slab of the scratch in shared memory (32 KB in f32 at L=4; 96 CTAs
+// at E W = 6144). The layer
 // count L is a kernel argument and every layer loop carries `#pragma unroll
 // 1`, so the scratch index l (or s(l)) stays a runtime offset into shared
 // memory, as fori_loop's is into VMEM. Each thread owns 8 consecutive
@@ -62,16 +62,22 @@
 // 8 lanes. Only scr[0] shows in the output, so where `scratch` is given the
 // whole slab is written out as well, on a branch that the timed launches
 // skip.
-//   Bulk store: a CTA owns one contiguous, 16-byte aligned run of TILE
-// elements of the flattened output layer [C, rows W]. For each l its
-// threads write scale x[l] (from each channel's rows row0 .. row0 + rows)
-// into a shared stage, fence the writes to the async proxy and meet at a
-// barrier; one thread then issues one TMA bulk store of the run to out + l
-// C rows W + offset (cp.async.bulk.global.shared::cta), commits it and
-// waits until the stage has been read before the next layer overwrites it:
-// the TPU's start()/wait() per layer. At k8's TH W = TILE each run is one
-// channel's window: one bulk store per (l, c). The output [L, 1, C, TH, W]
-// of k8 is a view of [L, C, TH, W].
+//   Bulk store: a CTA of 128 threads owns one contiguous, 16-byte aligned
+// tile of the flattened output layer [C, rows W], the same in every layer,
+// one 16-byte piece a thread. The launch cuts the layer for at least 132
+// CTAs, an H100 SXM's SMs: tile = the layer / 132 in whole pieces, 256 to
+// 512 elements (132 CTAs of 500 at k8's 65,536; 384 of 512 at k4's
+// 196,608, where tiles of 1492 or 1024 elements, two pieces a thread,
+// measured slower; a fixed 2048 gave 96 and 32 CTAs). Each thread issues
+// the loads of its piece of up to 8 layers (each channel's rows row0 ..
+// row0 + rows) before any store; each layer's scale x[l] then goes into
+// its own stage of a ring of up to 8, the writes are fenced to the async
+// proxy and the CTA meets once; one thread issues one TMA bulk store a
+// layer to out + l C rows W + t0 (cp.async.bulk.global.shared::cta, one
+// bulk group each), at the runtime l: the TPU's start() per layer. A stage
+// is waited for (until its store has read it, bulk_wait_read) only when the
+// ring comes round to it again, 8 layers on; the stores are waited for once,
+// at exit. The output [L, 1, C, TH, W] of k8 is a view of [L, C, TH, W].
 //   Dot: the concat is not built, K index k reads channel k mod C of the
 // slab. f32 products must stay exact (TF32 would round the operands), so k2
 // runs on the CUDA cores. A k2 CTA owns DOT_TP = 32 pixels (192 CTAs at E W
@@ -92,10 +98,33 @@
 // Every output keeps all L 3C products: pre-summing the three weight
 // blocks would round the weights before the product and would no longer do
 // the work of the stacked-matmul yardstick. k12 runs mma.sync m16n8k16
-// bf16 -> f32 (conv_lif_common.cuh's mma_bf16_16816): output channels on
-// M (two m16 fragments, A = w[l] from shared memory, rows padded by 8), the
-// warp's 8 pixels on N, 3C / 16 = 6 k16 steps, B packed from the slab's
-// channel rows (channel block 16 ks mod C).
+// bf16 -> f32 (conv_lif_common.cuh's mma_bf16_16816) on CTAs of DB_TP = 32
+// pixels (192 at E W = 6144; 64 pixels gave 96). A producer lane sets up
+// the barriers and issues, for every layer before the CTA first meets,
+// four TMA tensor copies onto that layer's stage and mbarrier: w[l]'s three
+// [C][C] blocks and x[l]'s [C][32] slab, each a 2 KB box of 64-byte rows
+// with the 64-byte swizzle (pixels past E W zero-filled), a ring of up to 8
+// stages with full and empty barriers beyond 8 layers. Tensor copies, not
+// one cp.async per 16 bytes (the producer warp's lanes issuing them
+// measured slower) or one bulk copy per row: four copies a layer keep the
+// TMA engine's cost per copy small, and the swizzle keeps every ldmatrix
+// free of bank conflicts. Eight mma warps: 2 m16 fragments of output channels x 4 K
+// groups (channel block cb of the slab, layers of one parity), each over
+// all 32 pixels (four n8 fragments), so each weight element is read from
+// shared memory by one warp a layer instead of four: per own layer two
+// ldmatrix.x4.trans of the block's B fragments, then per weight block one
+// ldmatrix.x4 of A and four mma (K index 32 b + c reads channel c: the
+// concat is not built). Each warp waits on its layers' barriers alone, no
+// CTA barrier in the loop. The four groups' sums meet once in shared memory
+// in a fixed order and each output element is written once, 16 bytes a
+// thread along pixels. What sets k12's time beyond its launch is the weight
+// copies: every CTA reads all of w (24 KB at L=4) from L2, all of them the
+// same lines at the same moment. Without them (a timing-only variant) it
+// ran markedly faster, yet copying w[0] alone was no faster than all of w:
+// the contention for those lines costs, not their bytes. Sharing the copies
+// within a cluster (TMA multicast) needs a cluster barrier before the first
+// copy, which measured slower than the copies it saves; 132 CTAs of up to
+// 64 pixels measured no faster.
 //   Narrow sum: p [L, C, 3] has a 12-byte row, so no tensor map (global
 // strides are multiples of 16 bytes) and no vector load of a row can take
 // it. Each CTA stages the whole block (12 L C bytes, a multiple of 16) with
@@ -124,18 +153,21 @@
 //   weight blocks folded: 0.75 us), k12 2.38 MB -> 0.71 us, k6 0.79 MB ->
 //   0.24 us, k8 2.10 MB (the windows and out) -> 0.63 us, k7 453.0 MFLOP
 //   f32 -> 6.76 us (4.08 MB: 1.22 us).
-// The design reads each input byte once and writes each output byte once
-// (k3 and k11 also read x[1..L-1], k5 also x[3], as the TPU bodies do: what
-// k3 and k11 read and write, every layer of x and out, is 3.93 MB -> 1.17 us;
-// k7 reads its halo rows again from L2), on 96 CTAs (k8 on 32, k2, k3 and
-// k11 on 192), one pass and no pipelining but k2's and the stores' batched
-// loads: at a few MB per launch the time is set by the launch and the
-// latency of one synchronous pass, not the bytes; k7's and k2's time by
-// their FFMA and shared-memory load issue (k2 issues the 151 MFLOP of its
-// three weight blocks, 2.25 us at 67 TFLOP/s).
+// The design reads each input byte once from device memory and writes each
+// output byte once (k3 and k11 also read x[1..L-1], k5 also x[3], as the
+// TPU bodies do: what k3 and k11 read and write, every layer of x and out,
+// is 3.93 MB -> 1.17 us; k7 reads its halo rows again from L2, every k12
+// CTA w from L2: 4.7 MB), on 96 CTAs (k2, k3, k11 and k12 on 192, k4 on
+// 384, k8 on 132), one pass with every layer's loads or copies in flight in k2,
+// k3, k11, k12 and the bulk store: at a few MB per launch the time is set
+// by the launch and the latency of one pass, not the bytes; k7's and k2's
+// time by their FFMA and shared-memory load issue (k2 issues the 151 MFLOP
+// of its three weight blocks, 2.25 us at 67 TFLOP/s).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libprobe_loop_dyn.so probe_loop_dyn.cu
+#include <cstring>
+
 #include "conv_lif_common.cuh"
 #include "tma.cuh"
 
@@ -147,9 +179,7 @@ constexpr int TP = 64;         // pixels of every channel per CTA
 constexpr int PPT = 8;         // consecutive pixels per thread
 constexpr int GROUPS = TP / PPT;
 constexpr int THREADS = C * GROUPS;  // 256
-constexpr int TILE = C * TP;   // elements of the flattened layer per bulk-store CTA
 constexpr int K = 3 * C;       // the dot's depth: concat(h, h, h)
-constexpr int WPITCH_BF16 = K + 8;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
 constexpr int CONV_TW = 64;    // output columns of one row per conv CTA
 constexpr int CONV_XP = CONV_TW + 2;  // staged columns: the tile and its halo
@@ -164,6 +194,35 @@ constexpr int ST_PPT = 4;      // consecutive pixels per store thread: one 16-by
 constexpr int ST_GROUPS = ST_TP / ST_PPT;
 constexpr int ST_BATCH = 8;    // layers whose loads a store thread has in flight together
 static_assert(C * ST_GROUPS == THREADS, "a store thread per 4 pixels of a channel");
+constexpr int BULK_CTAS = 132;  // CTAs a bulk-store layer is cut for at least: an H100 SXM's SMs
+constexpr int BULK_THREADS = 128;  // a bulk-store CTA: one 16-byte piece of its tile a thread
+constexpr int BULK_MIN = 256;   // elements of a bulk-store tile at least (1 KB a store)
+constexpr int BULK_MAX = BULK_THREADS * 4;  // and at most (2 KB)
+constexpr int BULK_RING = 8;    // stages: one a layer, the loads of as many in flight
+constexpr int DB_TP = 32;       // pixels of every channel per k12 CTA
+constexpr int DB_CONSUMERS = 8;  // k12's mma warps: 2 m16 fragments x 4 K groups
+constexpr int DB_THREADS = (DB_CONSUMERS + 1) * 32;  // and one producer warp
+constexpr int DB_RING = 8;      // k12's layer stages at most
+constexpr int DB_BOX = C * DB_TP * 2;  // bytes of a [32][32] bf16 box: 64-byte rows
+constexpr int DB_STAGE = 4 * DB_BOX;   // w[l]'s three [C][C] blocks and x[l]'s slab
+constexpr int DB_HEADER = 128 + 1024;  // the full and empty barriers, the ring's alignment
+constexpr int DB_PP = DB_TP + 8;       // a partial-sum row: 40 words, rows 8 banks apart
+constexpr int DB_PARTS = 4 * C * DB_PP * 4;  // the four K groups' partial sums
+
+// The bulk store's tile over a flattened output layer of `layer` elements
+// (mirrored by loop_dyn.store_bulk_tile): the layer cut for BULK_CTAS CTAs,
+// in whole 16-byte pieces, within [BULK_MIN, BULK_MAX].
+inline int bulk_tile(int layer) {
+  const int t = ((layer + BULK_CTAS - 1) / BULK_CTAS + 3) / 4 * 4;
+  return t < BULK_MIN ? BULK_MIN : (t > BULK_MAX ? BULK_MAX : t);
+}
+
+inline int ring_depth(int L, int ring) { return L < ring ? L : ring; }
+
+// k12's dynamic shared memory (mirrored by loop_dyn.load_dot_smem): the
+// barriers and the slack that aligns the ring to 1024 bytes, up to 8 layer
+// stages, the K groups' partial sums.
+inline int dot_bf16_smem(int L) { return DB_HEADER + ring_depth(L, DB_RING) * DB_STAGE + DB_PARTS; }
 
 // k2's dynamic shared memory (mirrored by loop_dyn.load_dot_smem): the
 // layer barriers, then every layer's slab and weight rows, or the four
@@ -336,51 +395,59 @@ __global__ void __launch_bounds__(THREADS) store_kernel(const float* __restrict_
   }
 }
 
-// out[l][c][j] = scale x[l][c][off + j] for j < run, through the stage:
-// in_chan and run are a channel's elements in x and in out, off the window's
-// first element (k4: in_chan = run = P, off = 0).
-__global__ void __launch_bounds__(THREADS) store_bulk_kernel(const float* __restrict__ x,
-                                                             float* __restrict__ out, int L,
-                                                             int in_chan, int run, int off,
-                                                             float scale) {
+// out[l][c][j] = scale x[l][c][off + j] for j < run, through a ring of
+// stages: in_chan and run are a channel's elements in x and in out, off the
+// window's first element (k4: in_chan = run = P, off = 0); the CTA owns
+// elements t0 .. t0 + tile of each flattened output layer [C, run], one
+// 16-byte piece a thread.
+__global__ void __launch_bounds__(BULK_THREADS) store_bulk_kernel(const float* __restrict__ x,
+                                                                  float* __restrict__ out, int L,
+                                                                  int in_chan, int run, int off,
+                                                                  int tile, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* stage = reinterpret_cast<float*>(smem_raw);  // [TILE]
-  constexpr int PIECES = TILE / (THREADS * 4);  // 16-byte pieces of the run a thread
+  float* ring = reinterpret_cast<float*>(smem_raw);  // [min(L, BULK_RING)][tile]
   const int layer = C * run;
-  const int t0 = blockIdx.x * TILE, n = min(TILE, layer - t0);  // n a multiple of 4
-  // each piece's source within x[l], the same in every layer (run a
-  // multiple of 4: no piece spans two channels)
-  int from[PIECES];
-#pragma unroll
-  for (int j = 0; j < PIECES; ++j) {
-    const int o = t0 + (threadIdx.x + j * THREADS) * 4, c = o / run;
-    from[j] = c * in_chan + off + (o - c * run);
-  }
-  // x[l] and out[l] by pointer steps: a 64-bit l * layer product here
-  // cost a 4-byte spill
-  const float* src = x;
-  float* dst = out + t0;
+  const int t0 = blockIdx.x * tile, n = min(tile, layer - t0);  // n a multiple of 4
+  const int i = threadIdx.x * 4;  // the thread's piece of the tile
+  const bool in = i < n;
+  // its source within x[l], the same in every layer (run a multiple of 4: no
+  // piece spans two channels)
+  const int c = (t0 + i) / run;
+  const float* src = x + c * in_chan + off + (t0 + i - c * run);  // x[l0]
+  const size_t in_layer = static_cast<size_t>(C) * in_chan;
+  float* dst = out + t0;  // out[l] at thread 0's next store
 #pragma unroll 1
-  for (int l = 0; l < L; ++l, src += C * in_chan, dst += layer) {
+  for (int l0 = 0; l0 < L; l0 += BULK_RING, src += BULK_RING * in_layer) {
+    const int nl = min(BULK_RING, L - l0);
+    // the loads of up to BULK_RING layers in flight together
+    float4 v[BULK_RING];
 #pragma unroll
-    for (int j = 0; j < PIECES; ++j) {
-      const int i = (threadIdx.x + j * THREADS) * 4;
-      if (i >= n) break;
-      float4 v = *reinterpret_cast<const float4*>(src + from[j]);
-      v.x = __fmul_rn(v.x, scale);
-      v.y = __fmul_rn(v.y, scale);
-      v.z = __fmul_rn(v.z, scale);
-      v.w = __fmul_rn(v.w, scale);
-      *reinterpret_cast<float4*>(stage + i) = v;
+    for (int k = 0; k < BULK_RING; ++k) {
+      v[k] = in && k < nl ? *reinterpret_cast<const float4*>(src + k * in_layer)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    fence_proxy_async();  // this thread's stage writes, before the bulk store reads them
+    if (l0 > 0) {  // the ring comes round again: the last batch's stores have read their stages
+      if (threadIdx.x == 0) bulk_wait_read<0>();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < BULK_RING; ++k) {
+      if (!in || k >= nl) continue;
+      float4 u = v[k];
+      u.x = __fmul_rn(u.x, scale);
+      u.y = __fmul_rn(u.y, scale);
+      u.z = __fmul_rn(u.z, scale);
+      u.w = __fmul_rn(u.w, scale);
+      *reinterpret_cast<float4*>(ring + k * tile + i) = u;
+    }
+    fence_proxy_async();  // this thread's stage writes, before the bulk stores read them
     __syncthreads();
     if (threadIdx.x == 0) {
-      bulk_store(dst, stage, n * 4);  // out[l]: the runtime layer index
-      bulk_commit();
-      bulk_wait_read();  // the stage may be written again
+      for (int k = 0; k < nl; ++k, dst += layer) {
+        bulk_store(dst, ring + k * tile, n * 4);  // out[l0 + k]: the runtime layer index
+        bulk_commit();
+      }
     }
-    __syncthreads();
   }
   if (threadIdx.x == 0) bulk_wait();
 }
@@ -614,71 +681,169 @@ __global__ void __launch_bounds__(THREADS) load_dot_f32_kernel(const float* __re
   *reinterpret_cast<float4*>(out + static_cast<size_t>(co) * P + p0 + p4) = v;
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// What k12 reads: tensor maps of x and w, each with [32][32] boxes
+// (64-byte rows, 64-byte swizzle), and the output and sizes.
+struct DotParams {
+  CUtensorMap xmap;  // x as [L][C][P], box [C][32 pixels]
+  CUtensorMap wmap;  // w as [L][C][3C], box [C][32 columns]: one of the three blocks
+  float* out;
+  int L, P, depth;
+};
+
+// The byte offset of 16-byte chunk `chunk` of row `row` in a [32][32] bf16
+// box that a tensor copy wrote with the 64-byte swizzle: chunk ^ ((row >> 1)
+// & 3), so the 8 rows an ldmatrix phase reads lie on 8 bank quads.
+__device__ __forceinline__ uint32_t box_at(int row, int chunk) {
+  return row * (DB_TP * 2) + ((chunk ^ ((row >> 1) & 3)) << 4);
 }
 
-__global__ void __launch_bounds__(THREADS) load_dot_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    float* __restrict__ out, int L, int P) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* scr = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [L][C][TP]
-  __nv_bfloat16* wsm = scr + L * C * TP;                             // [C][WPITCH_BF16]
-  const int p0 = blockIdx.x * TP, n = min(TP, P - p0);
-  fill_slab(x, scr, L, P, p0, n);
+__global__ void __launch_bounds__(DB_THREADS) load_dot_bf16_kernel(
+    const __grid_constant__ DotParams a) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [DB_RING]: a stage has landed
+  uint64_t* empty = full + DB_RING;                    // [DB_RING]: a stage is read
+  const uint32_t base = smem_u32(smem);
+  unsigned char* ring = smem + (((base + 128 + 1023) & ~1023u) - base);  // 1024-byte aligned
+  float* part = reinterpret_cast<float*>(ring + a.depth * DB_STAGE);     // [4][C][DB_PP]
+  const int depth = a.depth;
+  const int p0 = blockIdx.x * DB_TP, n = min(DB_TP, a.P - p0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int n0 = warp * 8;  // the warp's 8 pixels: N of one n8 fragment
-  float d[2][4];
-#pragma unroll
-  for (int mf = 0; mf < 2; ++mf)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d[mf][i] = 0.f;
-#pragma unroll 1
-  for (int l = 0; l < L; ++l) {
-    __syncthreads();  // the slab is filled; the last layer's weights are read
-    const uint4* wl = reinterpret_cast<const uint4*>(w + static_cast<size_t>(l) * C * K);
-    for (int i = threadIdx.x; i < C * K / 8; i += THREADS) {  // w[l]: the runtime layer index
-      const int r = i / (K / 8), v = i - r * (K / 8);
-      *reinterpret_cast<uint4*>(wsm + r * WPITCH_BF16 + v * 8) = wl[i];
+  // The producer (lane 0 of the last warp): layer l into stage l % depth,
+  // w[l]'s three blocks and x[l]'s slab (pixels past P zero-filled), four
+  // tensor copies on the stage's barrier. It sets up the barriers and
+  // issues the first `depth` layers before the CTA first meets, the rest
+  // once the warps that read the stage's last layer are done.
+  const bool producer = warp == DB_CONSUMERS && lane == 0;
+  auto issue = [&](int l, int s) {
+    unsigned char* st = ring + s * DB_STAGE;
+    mbar_expect_tx(&full[s], DB_STAGE);
+    for (int b = 0; b < 3; ++b) tensor_copy_3d(st + b * DB_BOX, &a.wmap, b * C, 0, l, &full[s]);
+    tensor_copy_3d(st + 3 * DB_BOX, &a.xmap, p0, 0, l, &full[s]);
+  };
+  if (producer) {
+    for (int s = 0; s < depth; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival, and the stage's bytes
+      mbar_init(&empty[s], 4);  // the four warps that read a layer
     }
-    __syncthreads();
-    const __nv_bfloat16* h = scr + l * C * TP;  // scr[l]: the runtime layer index
-#pragma unroll
-    for (int ks = 0; ks < K / 16; ++ks) {
-      const int k0 = ks * 16, c0 = k0 % C;  // concat: K index k is channel k mod C
-      const __nv_bfloat16* pb = h + (c0 + 2 * q) * TP + n0 + g;
-      const uint32_t b0 = pack2(pb[0], pb[TP]), b1 = pack2(pb[8 * TP], pb[9 * TP]);
-#pragma unroll
-      for (int mf = 0; mf < 2; ++mf) {
-        const __nv_bfloat16* pa = wsm + (mf * 16 + g) * WPITCH_BF16 + k0 + 2 * q;
-        const uint32_t a[4] = {lds32(pa), lds32(pa + 8 * WPITCH_BF16), lds32(pa + 8),
-                               lds32(pa + 8 * WPITCH_BF16 + 8)};
-        mma_bf16_16816(d[mf], a, b0, b1);
+    for (int l = 0; l < depth; ++l) issue(l, l);
+  }
+  __syncthreads();  // the barriers are initialised before anyone waits on them
+  if (warp == DB_CONSUMERS) {
+    if (producer) {
+#pragma unroll 1
+      for (int l = depth; l < a.L; ++l) {
+        const int s = l % depth;
+        mbar_wait(&empty[s], ((l / depth) - 1) & 1);
+        issue(l, s);
       }
     }
+    return;
   }
-  if (n0 >= n) return;
+
+  // The consumers: warp (mf, kg) owns output channels 16 mf .. 16 mf + 15 of
+  // all 32 pixels (four n8 fragments) and, of every layer of parity kg >> 1,
+  // the K columns of channel block cb = kg & 1 in each of the three weight
+  // blocks: K index 32 b + c reads channel c (the concat is not built), so
+  // the block's B fragments, loaded once, serve all three.
+  const int mf = warp & 1, kg = warp >> 1, cb = kg & 1;
+  const int g = lane >> 2, q = lane & 3;
+  // ldmatrix rows: A (x4) weight row 16 mf + (lane & 15), k half lane >> 4
+  // of the block's 16 columns; B (x4.trans) channel 16 cb + (lane & 7) + 8
+  // ((lane >> 3) & 1), pixel chunk lane >> 4 (+ 2 for pixels 16 .. 31)
+  const uint32_t a_off = box_at(16 * mf + (lane & 15), 2 * cb + (lane >> 4));
+  const int brow = 16 * cb + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const uint32_t b_off0 = 3 * DB_BOX + box_at(brow, lane >> 4);
+  const uint32_t b_off1 = 3 * DB_BOX + box_at(brow, 2 + (lane >> 4));
+  const uint32_t ring_u32 = smem_u32(ring);
+  float acc[4][4];  // [n8 fragment][mma accumulator]
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf) {
-    float* o = out + static_cast<size_t>(mf * 16 + g) * P + p0 + n0 + 2 * q;
-    *reinterpret_cast<float2*>(o) = make_float2(d[mf][0], d[mf][1]);
-    *reinterpret_cast<float2*>(o + 8 * static_cast<size_t>(P)) = make_float2(d[mf][2], d[mf][3]);
+  for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nf][e] = 0.f;
+#pragma unroll 1
+  for (int l = kg >> 1; l < a.L; l += 2) {
+    const int s = l % depth;
+    mbar_wait(&full[s], (l / depth) & 1);  // x[l] and w[l] have landed
+    const uint32_t st = ring_u32 + s * DB_STAGE;  // stage of l: the runtime layer index
+    uint32_t b[2][4];
+    ldsm_x4_t(b[0], st + b_off0);  // pixels 0 .. 15: n8 fragments 0 and 1
+    ldsm_x4_t(b[1], st + b_off1);  // pixels 16 .. 31: fragments 2 and 3
+#pragma unroll
+    for (int wb = 0; wb < 3; ++wb) {  // the three weight blocks, each against the same slab
+      uint32_t af[4];
+      ldsm_x4(af, st + wb * DB_BOX + a_off);
+      mma_bf16_16816(acc[0], af, b[0][0], b[0][1]);
+      mma_bf16_16816(acc[1], af, b[0][2], b[0][3]);
+      mma_bf16_16816(acc[2], af, b[1][0], b[1][1]);
+      mma_bf16_16816(acc[3], af, b[1][2], b[1][3]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
+
+  // The four K groups' sums -> part[kg], then each output element once,
+  // ((kg 0 + kg 1) + kg 2) + kg 3, 16 bytes a thread along the pixels.
+  float* pk = part + (kg * C + 16 * mf + g) * DB_PP + 2 * q;
+#pragma unroll
+  for (int nf = 0; nf < 4; ++nf) {
+    *reinterpret_cast<float2*>(pk + nf * 8) = make_float2(acc[nf][0], acc[nf][1]);
+    *reinterpret_cast<float2*>(pk + 8 * DB_PP + nf * 8) = make_float2(acc[nf][2], acc[nf][3]);
+  }
+  bar_sync(1, DB_CONSUMERS * 32);  // the consumer warps
+  const int co = threadIdx.x >> 3, p4 = (threadIdx.x & 7) * 4;
+  if (p4 >= n) return;
+  float4 v = *reinterpret_cast<const float4*>(part + co * DB_PP + p4);
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    const float4 u = *reinterpret_cast<const float4*>(part + (k * C + co) * DB_PP + p4);
+    v.x = __fadd_rn(v.x, u.x);
+    v.y = __fadd_rn(v.y, u.y);
+    v.z = __fadd_rn(v.z, u.z);
+    v.w = __fadd_rn(v.w, u.w);
+  }
+  *reinterpret_cast<float4*>(a.out + static_cast<size_t>(co) * a.P + p0 + p4) = v;
 }
 
 template <typename Kernel, typename... Args>
-int run(LoopDynArgs& a, Kernel kernel, int grid, int smem, cudaStream_t stream, Args... args) {
+int run(LoopDynArgs& a, Kernel kernel, int grid, int threads, int smem, cudaStream_t stream,
+        Args... args) {
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, THREADS, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   a.grid = grid;
-  a.threads = THREADS;
+  a.threads = threads;
   a.smem = smem;
   return static_cast<int>(cudaGetLastError());
+}
+
+// A bf16 map over [d2][d1][d0] (packed rows of d0 elements) whose box is
+// [C][32], 64-byte swizzled, zero-filled outside the tensor.
+bool encode_box32(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d1 * d0 * 2};
+  const cuuint32_t box[3] = {DB_TP, C, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_dot_bf16(LoopDynArgs& a, cudaStream_t s) {
+  DotParams prm;
+  memset(&prm, 0, sizeof(prm));
+  if (!encode_box32(&prm.xmap, a.x, a.P, C, a.L) || !encode_box32(&prm.wmap, a.w, K, C, a.L)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  prm.out = static_cast<float*>(a.out);
+  prm.L = a.L;
+  prm.P = a.P;
+  prm.depth = ring_depth(a.L, DB_RING);
+  return run(a, load_dot_bf16_kernel, (a.P + DB_TP - 1) / DB_TP, DB_THREADS, dot_bf16_smem(a.L),
+             s, prm);
 }
 
 int launch(LoopDynArgs& a, cudaStream_t s) {
@@ -690,38 +855,37 @@ int launch(LoopDynArgs& a, cudaStream_t s) {
     case LOAD_SUM:
       if (a.bf16) {
         auto k = a.slot ? load_sum_kernel<bf, Slot> : load_sum_kernel<bf, Identity>;
-        return run(a, k, tiles, slab, s, static_cast<const bf*>(a.x), out, a.L, a.P);
+        return run(a, k, tiles, THREADS, slab, s, static_cast<const bf*>(a.x), out, a.L, a.P);
       } else {
         auto k = a.slot ? load_sum_kernel<float, Slot> : load_sum_kernel<float, Identity>;
-        return run(a, k, tiles, slab, s, static_cast<const float*>(a.x), out, a.L, a.P);
+        return run(a, k, tiles, THREADS, slab, s, static_cast<const float*>(a.x), out, a.L, a.P);
       }
     case STORE: {
       const int grid = (a.P + ST_TP - 1) / ST_TP, smem = a.L * C * ST_TP * (a.bf16 ? 2 : 4);
       if (a.bf16) {
-        return run(a, store_kernel<bf>, grid, smem, s, static_cast<const float*>(a.x), out,
-                   static_cast<bf*>(a.scratch), a.L, a.P);
+        return run(a, store_kernel<bf>, grid, THREADS, smem, s, static_cast<const float*>(a.x),
+                   out, static_cast<bf*>(a.scratch), a.L, a.P);
       }
-      return run(a, store_kernel<float>, grid, smem, s, static_cast<const float*>(a.x), out,
-                 static_cast<float*>(a.scratch), a.L, a.P);
+      return run(a, store_kernel<float>, grid, THREADS, smem, s, static_cast<const float*>(a.x),
+                 out, static_cast<float*>(a.scratch), a.L, a.P);
     }
-    case STORE_BULK:
-      return run(a, store_bulk_kernel, (C * a.rows * a.W + TILE - 1) / TILE, TILE * 4, s,
-                 static_cast<const float*>(a.x), out, a.L, a.P, a.rows * a.W, a.row0 * a.W,
-                 a.scale);
+    case STORE_BULK: {
+      const int layer = C * a.rows * a.W, tile = bulk_tile(layer);
+      return run(a, store_bulk_kernel, (layer + tile - 1) / tile, BULK_THREADS,
+                 ring_depth(a.L, BULK_RING) * tile * 4, s, static_cast<const float*>(a.x), out,
+                 a.L, a.P, a.rows * a.W, a.row0 * a.W, tile, a.scale);
+    }
     case NARROW_SUM:
-      return run(a, narrow_sum_kernel, tiles, 16 + a.L * C * 3 * 4, s,
+      return run(a, narrow_sum_kernel, tiles, THREADS, 16 + a.L * C * 3 * 4, s,
                  static_cast<const float*>(a.x), out, a.L, a.P);
     case CONV:
-      return run(a, conv_sum_kernel, (a.P / a.W) * ((a.W + CONV_TW - 1) / CONV_TW), CONV_SMEM, s,
-                 static_cast<const float*>(a.x), static_cast<const float*>(a.w), out, a.L,
-                 a.P / a.W, a.W);
+      return run(a, conv_sum_kernel, (a.P / a.W) * ((a.W + CONV_TW - 1) / CONV_TW), THREADS,
+                 CONV_SMEM, s, static_cast<const float*>(a.x), static_cast<const float*>(a.w), out,
+                 a.L, a.P / a.W, a.W);
     default:  // LOAD_DOT
-      if (a.bf16) {
-        return run(a, load_dot_bf16_kernel, tiles, slab + C * WPITCH_BF16 * 2, s,
-                   static_cast<const bf*>(a.x), static_cast<const bf*>(a.w), out, a.L, a.P);
-      }
-      return run(a, load_dot_f32_kernel, (a.P + DOT_TP - 1) / DOT_TP, dot_f32_smem(a.L), s,
-                 static_cast<const float*>(a.x), static_cast<const float*>(a.w), out, a.L, a.P);
+      if (a.bf16) return launch_dot_bf16(a, s);
+      return run(a, load_dot_f32_kernel, (a.P + DOT_TP - 1) / DOT_TP, THREADS, dot_f32_smem(a.L),
+                 s, static_cast<const float*>(a.x), static_cast<const float*>(a.w), out, a.L, a.P);
   }
 }
 

@@ -2,8 +2,8 @@
 // on an mbarrier, its bulk stores back, the ldmatrix loads and named
 // barriers of the kernels that read what they staged, and the host's
 // encoder of tensor maps, for sm_90a: shared by the probes that stage their
-// operands (probe_staging.cu, probe_unit_loop.cu, probe_inkernel_dot.cu)
-// and store them (probe_loop_dyn.cu).
+// operands (probe_staging.cu, probe_unit_loop.cu, probe_inkernel_dot.cu,
+// probe_loop_dyn.cu's bf16 dot) and store them (probe_loop_dyn.cu).
 #pragma once
 
 #include <cuda.h>
@@ -80,8 +80,8 @@ __device__ __forceinline__ void tensor_copy_4d(void* dst, const CUtensorMap* map
 }
 
 // The box of a 3-D tensor map at coordinates (c0 innermost, c1, c2), as
-// tensor_copy_4d; with a 128-byte swizzle the destination is 1024-byte
-// aligned.
+// tensor_copy_4d; with a 128-byte (64-byte) swizzle the destination is
+// 1024-byte (512-byte) aligned.
 __device__ __forceinline__ void tensor_copy_3d(void* dst, const CUtensorMap* map, int c0, int c1,
                                                int c2, uint64_t* bar) {
   asm volatile(
@@ -111,10 +111,12 @@ __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Waits until every committed bulk store has read its shared-memory source,
-// which may then be written again.
+// Waits until at most the N most recently committed bulk groups have not yet
+// read their shared-memory sources: every older group's source may then be
+// written again (N = 0: every committed group's).
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Waits until every committed bulk store has completed.

@@ -65,7 +65,8 @@ __all__ = [
     "dyn_narrow_sum_plain", "dyn_conv_sum", "dyn_conv_sum_plain", "dyn_store_window",
     "dyn_store_window_plain", "conv_weights", "slot_of", "loop_dyn_bytes", "draw_operands",
     "load_dot_smem", "load_dot_grid", "store_smem", "store_grid", "store_kernel_bytes",
-    "probe_cases", "body_of", "bound", "tolerance", "f32_tolerance", "run_all", "WRAPPERS",
+    "store_bulk_tile", "store_bulk_grid", "store_bulk_smem", "floor_args", "probe_cases",
+    "body_of", "bound", "tolerance", "f32_tolerance", "bf16_sums", "run_all", "WRAPPERS",
     "BODIES", "last_launch",
 ]
 
@@ -74,8 +75,11 @@ __all__ = [
 L, C, E, W, TH = 4, 32, 24, 256, 8
 ROW0 = 8                # k8's first stored row (probe_loop_dyn2.py:72)
 TP = 64                 # pixels of every channel per CTA (csrc/probe_loop_dyn.cu)
-DOT_TP = 32             # pixels of every channel per k2 CTA
+DOT_TP = 32             # pixels of every channel per k2 / k12 CTA
 ST_TP = 32              # pixels of every channel per k3 / k11 CTA
+BULK_CTAS = 132         # CTAs a bulk-store layer is cut for at least: an H100 SXM's SMs
+BULK_MIN, BULK_MAX = 256, 512  # elements of a bulk-store tile
+RING = 8                # layer stages of the bulk store and of k12, at most
 SMEM_LIMIT = 232448     # dynamic shared memory of one CTA
 LOAD_SUM, STORE, STORE_BULK, LOAD_DOT, NARROW_SUM, CONV = range(6)
 
@@ -222,17 +226,42 @@ def load_dot_smem(layers: int, esize: int) -> int:
     """Dynamic shared memory of a ``dyn_load_dot`` CTA: f32 (k2) 128 bytes
     of layer barriers, then every layer's ``[C, 32]`` slab and ``[C, 3C]``
     weight rows padded to 3C + 4 words, or the four channel quarters'
-    ``[C, 32 + 4]`` partial sums where larger; bf16 (k12) the ``[L, C, 64]``
-    slab and one layer's weight rows padded to 3C + 8."""
+    ``[C, 32 + 4]`` partial sums where larger; bf16 (k12) 128 bytes of full
+    and empty barriers and 1024 of slack that aligns the ring, a ring of up
+    to 8 layer stages (w[l]'s three ``[C, C]`` blocks and x[l]'s ``[C,
+    32]`` slab, 8 KB) and the four K groups' ``[C, 32 + 8]`` f32 partial
+    sums."""
     if esize == 2:
-        return _slab(layers, 2) + C * (3 * C + 8) * 2
+        return 128 + 1024 + min(layers, RING) * 4 * C * DOT_TP * 2 + 4 * C * (DOT_TP + 8) * 4
     return 128 + max(layers * C * (DOT_TP + 3 * C + 4) * 4, 4 * C * (DOT_TP + 4) * 4)
 
 
 def load_dot_grid(p: int, esize: int) -> int:
     """CTAs of a ``dyn_load_dot`` launch over ``p = E W`` pixels: 32 pixels
-    a CTA in f32 (k2), 64 in bf16 (k12)."""
-    return -(-p // (DOT_TP if esize == 4 else TP))
+    a CTA, in f32 (k2) and in bf16 (k12): 192 at the files' 6144."""
+    return -(-p // DOT_TP)
+
+
+def store_bulk_tile(layer: int) -> int:
+    """Elements of one output layer that a bulk-store CTA (k4, k8) owns, for
+    a flattened layer of ``layer = C rows W`` elements: the layer cut for
+    132 CTAs (an H100 SXM's SMs) in whole 16-byte pieces, between 256 and
+    512 elements, one piece a thread (500 at k8's 65,536: 132 CTAs; 512 at
+    k4's 196,608: 384 CTAs)."""
+    per_cta = -(-layer // BULK_CTAS)
+    return max(BULK_MIN, min(BULK_MAX, -(-per_cta // 4) * 4))
+
+
+def store_bulk_grid(layer: int) -> int:
+    """CTAs of a bulk-store launch (k4, k8) over a flattened output layer of
+    ``layer`` elements: 384 at k4's, 132 at k8's."""
+    return -(-layer // store_bulk_tile(layer))
+
+
+def store_bulk_smem(layers: int, layer: int) -> int:
+    """Dynamic shared memory of a bulk-store CTA: a ring of up to 8 f32
+    stages of its tile, one a layer."""
+    return min(layers, RING) * store_bulk_tile(layer) * 4
 
 
 def store_smem(layers: int, esize: int) -> int:
@@ -253,6 +282,20 @@ def store_kernel_bytes(layers: int, c: int, e: int, w: int) -> int:
     f32 output, each once; the function needs x[0] alone
     (``loop_dyn_bytes``)."""
     return (layers + 1) * c * e * w * 4
+
+
+def floor_args(case: Case):
+    """The arguments and keywords of ``case``'s body (k3, k4, k8, k11, k12)
+    at the smallest size its kernel takes, one CTA: one layer of 8 pixels
+    (k8 a window of one 8-pixel row, k12 with w[0]). Its time is the
+    kernel's launch floor."""
+    body = body_of(case)
+    x = case.args[0][:1, :, :1, :8].contiguous()
+    if body == "k12":
+        return (x, case.args[1][:1].contiguous()), dict(case.kwargs)
+    if body == "k8":
+        return (x,), dict(case.kwargs, row0=0, rows=1)
+    return (x,), dict(case.kwargs)
 
 
 def dyn_load_sum(x: torch.Tensor, slot: bool = False) -> torch.Tensor:
@@ -465,16 +508,20 @@ def draw_operands(rng, kind: str, layers: int, c: int, e: int, w: int, device="c
     moves it too. Returns the body's positional arguments (k6: p and the
     output's E and W).
 
-    With ``normals`` (the f32 dots k2 and k7 only) x and w are f32 standard
-    normals instead, most of them not exact in TF32 or bf16: a dot that
-    rounds its operands misses ``f32_tolerance``, which these are held to."""
+    With ``normals`` (the dots k2, k7 and k12 only) x and w are standard
+    normals instead, f32 for k2 and k7 (most of them not exact in TF32 or
+    bf16: a dot that rounds its operands misses ``f32_tolerance``), rounded
+    to bf16 for k12 (whose products are exact in f32: a dot that sums them
+    in bf16 misses it); each is held to ``f32_tolerance``."""
     if kind not in BODIES:
         raise ValueError(f"unknown body {kind!r}; one of {sorted(BODIES)}")
     if normals:
-        if kind not in F32_DOTS:
-            raise ValueError(f"normals are drawn for {F32_DOTS}, not {kind!r}")
+        if kind not in DOTS:
+            raise ValueError(f"normals are drawn for {DOTS}, not {kind!r}")
         taps = 9 if kind == "k7" else 3
-        return tuple(torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device)
+        dtype = torch.bfloat16 if kind == "k12" else torch.float32
+        return tuple(torch.tensor(rng.standard_normal(shape, dtype=np.float32)).to(device=device,
+                                                                                  dtype=dtype)
                      for shape in ((layers, c, e, w), (layers, c, taps * c)))
     dtype = torch.bfloat16 if kind in ("k10", "k12") else torch.float32
 
@@ -516,7 +563,7 @@ def probe_cases(device, seed: int = 0, shape=(L, C, E, W)) -> List[Case]:
     cases = []
     for body, (probe, tag, fn, plain, kwargs, replaces) in BODIES.items():
         needed, flops, staged, issued = loop_dyn_bytes(body, layers, c, e, w)
-        rate = F32_FLOP_PER_S if body in ("k2", "k7") else BF16_FLOP_PER_S
+        rate = F32_FLOP_PER_S if body in F32_DOTS else BF16_FLOP_PER_S
         cases.append(Case(f"{probe} {body} {tag} [{layers},{c},{e},{w}]", fn, plain,
                           operands(body), dict(kwargs), needed, flops, staged, issued, replaces,
                           rate))
@@ -536,13 +583,24 @@ def tolerance(case: Case, ref: torch.Tensor) -> float:
 
 
 def f32_tolerance(x: torch.Tensor, w: torch.Tensor, ref: torch.Tensor) -> float:
-    """What an f32 dot's output (k2, k7) on normal operands may differ from
-    ``ref`` (the plain float64 sums, rounded once) by: ``2 sqrt(n) 2^-24 max
-    |ref|``, n = L w.shape[-1] the terms of each output (L 3C, L 9C), summed
-    in f32 in another order. Operands rounded to TF32 (10 bits) miss it by
-    far."""
+    """What a dot's output with f32 accumulation (k2, k7; k12 on bf16
+    operands) on normal operands may differ from ``ref`` (the plain float64
+    sums, rounded once) by: ``2 sqrt(n) 2^-24 max |ref|``, n = L
+    w.shape[-1] the terms of each output (L 3C, L 9C), summed in f32 in
+    another order. Operands rounded to TF32 (10 bits), or sums kept in bf16,
+    miss it by far."""
     n = x.shape[0] * w.shape[-1]
     return 2.0 * math.sqrt(n) * 2.0 ** -24 * float(ref.abs().max())
+
+
+def bf16_sums(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """k12's function with its sums kept in bf16: each layer's dot (the
+    plain version's) rounded to bf16 and added in bf16, widened to f32. The
+    control that ``f32_tolerance`` must tell from an f32 accumulation."""
+    acc = torch.zeros(x.shape[1:], device=x.device, dtype=torch.bfloat16)
+    for l in range(x.shape[0]):
+        acc = acc + dyn_load_dot_plain(x[l:l + 1], w[l:l + 1]).to(torch.bfloat16)
+    return acc.float()
 
 
 def run_all(device: Optional[str] = None, seed: int = 0, repeats: int = 3) -> List[dict]:

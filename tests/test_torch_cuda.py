@@ -610,11 +610,13 @@ def test_unit_loop_refuses_what_it_cannot_take(cuda):
 @pytest.mark.parametrize("body", ["k1", "k2", "k3", "k4", "k5", "k10", "k11", "k12"])
 def test_loop_dyn_matches_plain(cuda, shape, body):
     """Each runtime-indexed loop body against its plain version: at the JAX
-    probes' shapes (96 CTAs), and at E W = 120 pixels (a tile of 64 pixels
-    and one of 56; for k4 a run of 2048 elements and one of 1792) with 4 and
-    3 layers: equal (every sum exact, ``loop_dyn.tolerance``), one launch
-    each; k3 and k11 also with their whole scratch, every layer equal; k4
-    also into a NaN-filled output, every element written."""
+    probes' shapes, and at E W = 120 pixels (a tile of 64 pixels and one of
+    56; for k2, k3, k11 and k12 three of 32 and one of 24; for k4 15 tiles
+    of 256 elements) with 4 and 3 layers: equal (every sum exact,
+    ``loop_dyn.tolerance``), one launch each, on the CTAs of the mirrors
+    (``load_dot_grid``, ``store_grid``, ``store_bulk_grid``); k3 and k11
+    also with their whole scratch, every layer equal; k4 also into a
+    NaN-filled output, every element written."""
     from evflow_torch.probes import loop_dyn as D
 
     case = next(c for c in D.probe_cases(cuda, seed=1, shape=shape) if D.body_of(c) == body)
@@ -622,8 +624,10 @@ def test_loop_dyn_matches_plain(cuda, shape, body):
     out = case.fn(*case.args, **case.kwargs)
     assert case.fn.launches == before + 1
     pixels = shape[2] * shape[3]
-    assert D.last_launch["grid"] == (D.load_dot_grid(pixels, 4) if body == "k2"
+    assert D.last_launch["grid"] == (D.load_dot_grid(pixels, case.args[0].element_size())
+                                     if body in ("k2", "k12")
                                      else D.store_grid(pixels) if body in ("k3", "k11")
+                                     else D.store_bulk_grid(32 * pixels) if body == "k4"
                                      else -(-pixels // 64))
     ref = case.plain(*case.args, **case.kwargs)
     torch.cuda.synchronize()
@@ -666,6 +670,87 @@ def test_dyn_store_at_every_layer_count(cuda, dtype, L, P):
     assert scr.dtype == dtype and torch.equal(scr, ref_scr)
 
 
+@pytest.mark.parametrize("draw", ["integers", "normals"])
+@pytest.mark.parametrize("image", [(24, 256), (5, 24)], ids=["full", "ragged"])
+@pytest.mark.parametrize("layers", [1, 4, 8, 9, 17])
+def test_dyn_load_dot_bf16_at_every_layer_count(cuda, layers, image, draw):
+    """k12 at L = 1, 4, 8 (every stage of the ring used once), 9 and 17
+    (the ring comes round once and twice) over 6144 pixels (192 CTAs) and a
+    ragged 120 (three CTAs of 32 pixels and one of 24), into output memory
+    filled with NaN, on the CTAs and shared bytes of ``loop_dyn.load_dot_grid``
+    and ``load_dot_smem``: equal on integers (scaled 16^l up to L=4, 1 from
+    L=8, so every sum stays an exact f32 integer), and on bf16 normals
+    within ``loop_dyn.f32_tolerance``, which the same dot with its sums kept
+    in bf16 misses."""
+    from evflow_torch.probes import loop_dyn as D
+    from evflow_torch.probes._harness import compare
+
+    e, w = image
+    args = D.draw_operands(np.random.default_rng(layers), "k12", layers, 32, e, w, device=cuda,
+                           normals=draw == "normals", base=16 if layers <= 4 else 1)
+    if draw == "integers":
+        assert float(D.dyn_load_dot_plain(*(t.abs() for t in args)).max()) < 2 ** 24
+    ref = D.dyn_load_dot_plain(*args)
+    torch.cuda.synchronize()
+    ptr = nan_block(ref.shape, ref.dtype, cuda)
+    before = D.dyn_load_dot.launches
+    out = D.dyn_load_dot(*args)
+    torch.cuda.synchronize()
+    assert D.dyn_load_dot.launches == before + 1 and out.data_ptr() == ptr
+    assert (D.last_launch["grid"], D.last_launch["smem"]) == (
+        D.load_dot_grid(e * w, 2), D.load_dot_smem(layers, 2))
+    if draw == "integers":
+        assert torch.equal(out, ref)
+        assert float((ref != 0).float().mean()) > 0.5
+    else:
+        tol = D.f32_tolerance(*args, ref)
+        res = compare(out, ref, tol)
+        assert res["ok"], res
+        assert not compare(D.bf16_sums(*args), ref, tol)["ok"]
+
+
+@pytest.mark.parametrize("body,image,window", [
+    ("k4", (24, 256), None), ("k4", (5, 24), None),
+    ("k8", (24, 256), (8, 8)), ("k8", (17, 24), (5, 3)), ("k8", (24, 256), (0, 24)),
+    ("k8", (40, 64), (13, 27)),
+], ids=["k4-full", "k4-ragged", "k8-full", "k8-ragged", "k8-whole", "k8-odd-window"])
+@pytest.mark.parametrize("L", [1, 4, 8, 9])
+def test_dyn_store_bulk_at_every_layer_count(cuda, L, body, image, window):
+    """The bulk store at L = 1, 4, 8 (every stage of the ring once) and 9
+    (the ring comes round): k4 over 6144 pixels (384 CTAs) and a ragged 120
+    (15 tiles of 256), each into a NaN-filled output that must be written
+    whole; k8 at the JAX probe's window (rows 8..16 of 256 columns, 132
+    CTAs), at rows 5..8 of 24, at the whole image and at rows 13..40 of 64
+    (a tile that is no divisor of the layer). Every output equal to the
+    plain version's, one launch each, on the CTAs and shared bytes of
+    ``loop_dyn.store_bulk_grid`` and ``store_bulk_smem``."""
+    from evflow_torch.probes import loop_dyn as D
+
+    e, w = image
+    (x,) = D.draw_operands(np.random.default_rng(L), "k4", L, 32, e, w, device=cuda)
+    if body == "k4":
+        ref = D.dyn_store_bulk_plain(x)
+        out = torch.full_like(ref, float("nan"))
+        before = D.dyn_store_bulk.launches
+        assert D.dyn_store_bulk(x, out=out) is out
+        assert D.dyn_store_bulk.launches == before + 1
+        layer = 32 * e * w
+    else:
+        row0, rows = window
+        ref = D.dyn_store_window_plain(x, row0, rows, 2.0)
+        torch.cuda.synchronize()
+        ptr = nan_block(ref.shape, ref.dtype, cuda)
+        before = D.dyn_store_window.launches
+        out = D.dyn_store_window(x, row0=row0, rows=rows, scale=2.0)
+        assert D.dyn_store_window.launches == before + 1 and out.data_ptr() == ptr
+        layer = 32 * rows * w
+    torch.cuda.synchronize()
+    assert (D.last_launch["grid"], D.last_launch["smem"]) == (
+        D.store_bulk_grid(layer), D.store_bulk_smem(L, layer))
+    assert torch.equal(out, ref)
+    assert float((ref != 0).float().mean()) > 0.5
+
+
 def test_loop_dyn_refuses_what_it_cannot_take(cuda):
     """C other than the kernels' 32, E W not a multiple of 8, a k4 output 4
     bytes past a 16-byte boundary, a scratch beyond a CTA's shared memory
@@ -706,8 +791,8 @@ def test_loop_dyn2_matches_plain(cuda, body, shape, window, normals):
     ``loop_dyn.draw_operands``), one launch each, at the JAX probe's shapes
     and at ragged ones: k6 over E W = 120 pixels (a tile of 64 and one of
     56); k7 over 40 and 130 columns (a part of a 64-column tile) and 5 and
-    3 rows; k8 storing rows 5..7 of 24 columns, runs of 2048 elements that
-    cross channels and a last run of 256. The f32 dots k7 and k2 also on
+    3 rows; k8 storing rows 5..7 of 24 columns, 9 tiles of 256 elements
+    that cross channels (``loop_dyn.store_bulk_grid``). The f32 dots k7 and k2 also on
     f32 normals, within ``loop_dyn.f32_tolerance``: a dot that rounded its
     operands to TF32 or bf16 would miss it."""
     from evflow_torch.probes import loop_dyn as D
@@ -724,7 +809,7 @@ def test_loop_dyn2_matches_plain(cuda, body, shape, window, normals):
     assert case.fn.launches == before + 1
     _, c, e, w = shape
     grid = {"k2": -(-e * w // 32), "k6": -(-e * w // 64), "k7": e * -(-w // 64),
-            "k8": -(-c * kwargs.get("rows", 0) * w // 2048)}[body]
+            "k8": D.store_bulk_grid(c * kwargs.get("rows", 0) * w)}[body]
     assert D.last_launch["grid"] == grid
     ref = case.plain(*args, **kwargs)
     torch.cuda.synchronize()

@@ -328,14 +328,95 @@ def test_load_dot_smem_and_grid():
     """k2's CTA: 32 pixels (192 CTAs at the files' E W = 6144, 4 at a
     ragged 120), 128 bytes of layer barriers and every layer's slab and
     weight rows (3C + 4 words), or the quarters' partial sums at L=1; up to
-    13 layers fit a CTA. k12's CTA is unchanged: 64 pixels, its slab and one
-    layer's weights (23,040 bytes at L=4)."""
+    13 layers fit a CTA. k12's CTA: 32 pixels as well (192 CTAs, at least
+    one on each of the 132 SMs), barriers and the ring's alignment (1152
+    bytes), a stage of 8 KB a layer up to 8 (w[l]'s three [C, C] blocks and
+    x[l]'s [C, 32] slab) and the four K groups' partial sums (20,480 bytes):
+    54,400 bytes at L=4, 87,168 from L=8 on, so any L fits and two CTAs
+    share an SM."""
     assert D.load_dot_smem(4, 4) == 128 + 4 * 32 * (32 + 100) * 4
     assert D.load_dot_smem(1, 4) == 128 + 4 * 32 * 36 * 4
     assert D.load_dot_smem(13, 4) <= D.SMEM_LIMIT < D.load_dot_smem(14, 4)
-    assert D.load_dot_smem(4, 2) == 23_040
-    assert (D.load_dot_grid(6144, 4), D.load_dot_grid(6144, 2), D.load_dot_grid(120, 4)) == (
-        192, 96, 4)
+    assert D.load_dot_smem(4, 2) == 54_400
+    assert D.load_dot_smem(1, 2) == 1152 + 8192 + 20_480
+    assert D.load_dot_smem(8, 2) == D.load_dot_smem(17, 2) == 87_168
+    assert 2 * D.load_dot_smem(100, 2) <= D.SMEM_LIMIT
+    assert (D.load_dot_grid(6144, 4), D.load_dot_grid(6144, 2), D.load_dot_grid(120, 4),
+            D.load_dot_grid(120, 2)) == (192, 192, 4, 4)
+    assert (D.load_dot_grid(8, 4), D.load_dot_grid(8, 2), D.load_dot_grid(6176, 2)) == (1, 1, 193)
+    assert D.load_dot_grid(6144, 2) >= 132
+
+
+@pytest.mark.parametrize("layer,tile,grid", [
+    (32 * 24 * 256, 512, 384),   # k4 at the files' 6144 pixels: the largest tile
+    (32 * 8 * 256, 500, 132),    # k8's window, TH=8: cut for 132 CTAs
+    (32 * 120, 256, 15),         # ragged: 120 pixels, the smallest tile
+    (32 * 3 * 24, 256, 9),       # k8 at 3 rows of 24 columns
+    (32 * 8, 256, 1),            # one 8-pixel row: one CTA
+    (32 * 27 * 64, 420, 132),    # k8 at 27 rows of 64: no divisor of the layer
+    (32 * 256 * 256, 512, 4096),
+], ids=["k4", "k8", "ragged", "k8-window", "floor", "odd-window", "large"])
+def test_store_bulk_grid_and_smem(layer, tile, grid):
+    """The bulk store's tile (k4, k8): the flattened output layer cut for
+    132 CTAs in whole 16-byte pieces, 256 to 512 elements (one piece a
+    thread of 128), so k4 at 6144 pixels runs on 384 CTAs and k8 at TH=8 on
+    132 (96 and 32 with the fixed 2048 before); every tile a 16-byte
+    multiple that covers the layer; a ring of up to 8 stages of it, one a
+    layer, within a CTA's shared memory at L = 1, 4, 8 and 9."""
+    assert D.store_bulk_tile(layer) == tile and D.store_bulk_grid(layer) == grid
+    assert tile % 4 == 0 and (grid - 1) * tile < layer <= grid * tile
+    assert [D.store_bulk_smem(n, layer) for n in (1, 4, 8, 9)] == [
+        tile * 4, 4 * tile * 4, 8 * tile * 4, 8 * tile * 4]
+    assert D.store_bulk_smem(9, layer) <= D.SMEM_LIMIT
+
+
+def test_probe_cases_run_on_enough_ctas():
+    """At the files' shapes k4 and k8 run on at least 128 CTAs and k12 on
+    at least 132, each at least one CTA on every SM of an H100 SXM."""
+    k4, k8 = (c for c in D.probe_cases("meta") if D.body_of(c) in ("k4", "k8"))
+    assert D.store_bulk_grid(k4.args[0][0].numel()) >= 132
+    rows = k8.kwargs["rows"]
+    assert D.store_bulk_grid(32 * rows * k8.args[0].shape[-1]) >= 128
+    assert D.load_dot_grid(24 * 256, 2) >= 132
+
+
+@pytest.mark.parametrize("body", ["k3", "k4", "k8", "k11", "k12"])
+def test_floor_args_are_one_cta(body):
+    """``floor_args`` gives each body one layer of 8 pixels (k8 a one-row
+    window of 8, k12 with w[0]): one CTA of its kernel, whose time is the
+    launch floor; the plain version runs on them."""
+    case = next(c for c in D.probe_cases("cpu") if D.body_of(c) == body)
+    args, kwargs = D.floor_args(case)
+    assert tuple(args[0].shape) == (1, 32, 1, 8) and all(t.is_contiguous() for t in args)
+    if body in ("k3", "k11"):
+        assert D.store_grid(8) == 1
+    elif body == "k12":
+        assert D.load_dot_grid(8, 2) == 1
+    else:
+        assert D.store_bulk_grid(32 * kwargs.get("rows", 1) * 8) == 1
+    if body == "k12":
+        assert tuple(args[1].shape) == (1, 32, 96)
+    if body == "k8":
+        assert (kwargs["row0"], kwargs["rows"]) == (0, 1)
+    out = case.plain(*args, **kwargs)
+    assert torch.isfinite(out).all()
+
+
+def test_bf16_dot_matches_jax_probe_on_normals():
+    """k12 on bf16 normals: the JAX body in interpret mode within
+    ``loop_dyn.f32_tolerance`` of the port's plain version (every product is
+    exact in f32, the sums in another order), and the same function with
+    its sums kept in bf16 (each layer's dot rounded to bf16 and added in
+    bf16) past it, so the check the card's kernel is held to
+    (``chip_smoke.py`` phase ``loopdyn``) tells an f32 accumulation from a
+    bf16 one."""
+    x, w = D.draw_operands(np.random.default_rng(9), "k12", L, C, E, W, normals=True)
+    assert x.dtype == w.dtype == torch.bfloat16
+    ref = jax_probe("k12", (x, w))
+    out = D.dyn_load_dot(x, w)
+    tol = D.f32_tolerance(x, w, out)
+    assert np.abs(out.numpy() - ref).max() <= tol
+    assert float((D.bf16_sums(x, w) - out).abs().max()) > 10 * tol
 
 
 def test_store_smem_grid_and_kernel_bytes():
@@ -366,6 +447,25 @@ def test_store_instantiations_are_gated():
     assert sorted(set(re.findall(r"run\(a, store_kernel<(\w+)>", text))) == ["bf", "float"]
     assert {"store_kernel<float>", "store_kernel<__nv_bfloat16>"} <= set(
         chip_smoke.REDESIGNED["probe_loop_dyn"])
+
+
+def test_redesigned_loop_dyn_kernels_are_gated():
+    """k12's ``load_dot_bf16_kernel`` and k4's and k8's ``store_bulk_kernel``
+    (neither a template: one instantiation each, both launched) are in
+    ``chip_smoke.REDESIGNED`` beside k2's, k3's and k11's kernels, so phase
+    ``build`` fails if ptxas reports either missing or spilling."""
+    import re
+    from pathlib import Path
+
+    import chip_smoke
+
+    text = (Path(D.__file__).resolve().parents[1] / "csrc" / "probe_loop_dyn.cu").read_text()
+    for kernel in ("load_dot_bf16_kernel", "store_bulk_kernel"):
+        assert re.search(rf"__global__ void [^;{{}}]*\b{kernel}\(", text)
+        assert re.search(rf"run\(a, {kernel},", text)
+    assert set(chip_smoke.REDESIGNED["probe_loop_dyn"]) == {
+        "load_dot_f32_kernel", "load_dot_bf16_kernel", "store_kernel<float>",
+        "store_kernel<__nv_bfloat16>", "store_bulk_kernel"}
 
 
 def test_base_8_draw_is_exact_at_five_layers():
