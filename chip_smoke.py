@@ -9,11 +9,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. ``build``: compile the hand-written CUDA kernels from ``evflow_torch/csrc``
    (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
    and print ptxas's registers, stack and spill bytes of the redesigned
-   kernels (the in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
-   ``load_dot_f32_kernel``, k12's ``load_dot_bf16_kernel``, K8e's 4
-   ``layer_grid_kernel`` instantiations, the ``store_kernel`` of k3 and k11
-   and the ``store_bulk_kernel`` of k4 and k8), failing if ptxas reports
-   any of them not at all, or with a stack or spills.
+   kernels (K7's two ``fused_net_batch_kernel`` instantiations, the
+   in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
+   ``load_dot_f32_kernel``, k12's ``load_dot_bf16_kernel``, k7's
+   ``conv_sum_kernel``, K8e's 4 ``layer_grid_kernel`` instantiations, the
+   ``store_kernel`` of k3 and k11 and the ``store_bulk_kernel`` of k4 and
+   k8), failing if ptxas reports any of them not at all, or with a stack
+   or spills.
 2. ``kernels``: every kernel against its plain PyTorch version on the card at
    full width (B=2, 256x256, C=32): head (Cin=2), feedforward, recurrent and
    subtract reset, in both layouts. mem' within 1e-4 where the spikes agree
@@ -41,7 +43,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
    against the per-layer FusedFireNet (phase 3's bar; its free-running f32
    trajectory too, held for f32 state only), the five kernels' flows
    bit-equal; device times at B=2 and B=8 beside the plain version and the
-   bound, the per-layer step and 7 cuDNN convs as yardsticks; 300-window
+   bound, the per-layer step and 7 cuDNN convs as yardsticks; K7's and
+   K5's times over the first L = 1, 3, 5, 7 units at B=2 and B=8 in bf16
+   state and their fit (``probes/wholenet_slope.py``); 300-window
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
    just before and read just after (1 launch per window).
@@ -97,12 +101,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k11's whole scratch (``scratch=True``) equal to the plain one, and k4
    launched into a NaN-filled output, every element written; with device
    ms, the bound (the function's bytes over 3.35 TB/s, or its operations
-   over 67 TFLOP/s f32 or 989 bf16; for k3, k4, k8, k11 and k12 also the
-   bound of what the kernel moves through device memory, for k3 and k11
-   every layer of x and the output, and the launch floor: the same kernel
-   at one CTA, ``loop_dyn.floor_args``), GB/s and TFLOP/s of what it needs,
-   the CTAs, threads and shared bytes, and one PyTorch call for the same
-   function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0], 2)``,
+   over 67 TFLOP/s f32 or 989 bf16; for k3, k4, k7, k8, k11 and k12 also
+   the bound of what the kernel moves through device memory, for k3 and
+   k11 every layer of x and the output, and the launch floor: the same
+   kernel at one CTA, ``loop_dyn.floor_args``), GB/s and TFLOP/s of what
+   it needs, the CTAs, threads and shared bytes, and one PyTorch call for
+   the same function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0], 2)``,
    ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1, 2, 0]
    with x, one ``torch.matmul`` of the stacked ``[C, L 3C] @ [L 3C, E W]``
    operands (k12 also ``torch.mm`` of them with an f32 output, as the
@@ -374,11 +378,13 @@ def phase_build(state):
         raise SystemExit(f"a redesigned kernel has a stack frame or spills: {redesigned}")
 
 
-# the kernels redesigned for the card's speed, per source: every instantiation
+# the kernels redesigned for the card's speed, per source: both K7
+# instantiations (f32 and bf16 state), every instantiation
 # probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, k12,
-# every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3 and
-# k11 and the bulk store of k4 and k8
+# k7, every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3
+# and k11 and the bulk store of k4 and k8
 REDESIGNED = {
+    "fused_net_batch": ("fused_net_batch_kernel<float>", "fused_net_batch_kernel<__nv_bfloat16>"),
     "probe_inkernel_dot": tuple(f"probe_kernel<{a}>" for a in (
         "32,0,1,0", "32,0,1,1",                          # f32 accumulation, pixel-major
         "32,0,0,0", "32,0,0,1", "16,0,0,0", "16,0,0,1",  # f32, channel-major
@@ -386,7 +392,7 @@ REDESIGNED = {
         "32,2,0,0", "32,2,0,1", "16,2,0,0", "16,2,0,1",  # int8
     )),
     "probe_loop_dyn": ("load_dot_f32_kernel", "load_dot_bf16_kernel", "store_kernel<float>",
-                       "store_kernel<__nv_bfloat16>", "store_bulk_kernel"),
+                       "store_kernel<__nv_bfloat16>", "store_bulk_kernel", "conv_sum_kernel"),
     "probe_staging": tuple(f"layer_grid_kernel<{mf}>" for mf in (1, 2, 3, 4)),
 }
 
@@ -649,7 +655,8 @@ def issued_flops(kname, runner, batch):
     """bf16 tensor-core flops that the kernel's mma instructions issue for
     one window at ``batch`` x 256^2, halo recompute, channel padding (the
     head's 2 channels run as 16) and ragged 32-pixel fragment pairs
-    included; the tile shapes are those of ``evflow_torch/csrc``."""
+    included (K7: 16-pixel fragments); the tile shapes are those of
+    ``evflow_torch/csrc``."""
     w = runner.weights
     L = w.num_units
     ck = [t.shape[1] // 9 for t in w.wk]
@@ -660,11 +667,16 @@ def issued_flops(kname, runner, batch):
     def pairs(px):  # output pixels rounded up to whole 32-pixel fragment pairs
         return -(-px // 32) * 32
 
+    def frags(px):  # output pixels rounded up to whole 16-pixel m16 fragments
+        return -(-px // 16) * 16
+
     if kname == "fused_firenet_step":  # 16x16 tile, extent shrinking by 2 per unit
         px = [pairs((16 + 2 * (L - 1 - l)) ** 2) * tiles(16, 16) for l in range(L)]
     elif kname == "fused_firenet_step_lgrid":  # 8x32 tiles, no halo recompute
         px = [pairs(8 * 32) * tiles(8, 32)] * L
-    else:  # K5 / K7: 8x16 tiles, uniform (8 + 2(L-1)) x (16 + 2(L-1)) extent
+    elif kname == "fused_firenet_step_batch":  # K7: 16x16 tiles, unit l's grown by L-1-l
+        px = [frags((16 + 2 * (L - 1 - l)) ** 2) * tiles(16, 16) for l in range(L)]
+    else:  # K4 / K5: 8x16 tiles, uniform (8 + 2(L-1)) x (16 + 2(L-1)) extent
         px = [pairs((8 + 2 * (L - 1)) * (16 + 2 * (L - 1))) * tiles(8, 16)] * L
     return sum(2 * p * w.channels * 9 * k for p, k in zip(px, ck))
 
@@ -831,6 +843,16 @@ def phase_wholenet(state):
         emit({"phase": "wholenet", "yardstick": "7 cuDNN bf16 convs (NHWC), the convs alone",
               "batch": batch, "ms": cudnn_ms, "card": name})
     state.setdefault("times", {}).update(times)
+
+    # K7's and K5's time against their unit count (the first L units of the
+    # seeded net): the slope is what one more unit costs
+    from evflow_torch.probes.wholenet_slope import unit_times
+
+    for kname in ("K7", "K5"):
+        for batch in (B_BENCH, 8):
+            rows, line = unit_times(kname, batch, "bf16")
+            emit({"phase": "wholenet", "slope": kname, "batch": batch, "state": "bf16",
+                  "points_ms": {r["L"]: r["ms"] for r in rows}, **line, "card": name})
 
     # each runner's 300-window scan, launch counters 0 just before and read
     # just after (1 launch per window)
@@ -1253,7 +1275,7 @@ def phase_loopdyn(state):
         lib_ms = device_ms(loopdyn_yardstick(case), iters=20)
         bms, by = D.bound(case)
         row = f"{case.fn.__name__}[{body}]"
-        if body in ("k3", "k4", "k8", "k11", "k12"):
+        if body in ("k3", "k4", "k7", "k8", "k11", "k12"):
             # the bound of what the kernel moves through device memory beside
             # the function's (k3 and k11: every layer of x and the output, the
             # function x[0]; the others each input once, the function's

@@ -130,18 +130,30 @@
 // it. Each CTA stages the whole block (12 L C bytes, a multiple of 16) with
 // one bulk copy on an mbarrier, then each thread adds column 1 of its
 // channel's row at the runtime l and writes the sum over its 8 pixels.
-//   Conv: a CTA owns one image row e and TW = 64 columns of all 32 output
-// channels (96 CTAs at E=24, W=256). Per layer, at the runtime l, it stages
-// w[l] transposed to [9C][C] (lanes on output channels, 16-byte loads along
-// K, so the stores hit 32 banks) and x[l]'s rows e-1..e+1 and columns
-// w0-1..w0+TW, zeros outside the image (scalar loads: the halo starts one
-// column off any 16-byte boundary). The loads of layer l + 1 are issued
-// into registers before layer l's dots, so they wait in flight and not in
-// line (each thread's offsets, the same in every layer, are computed once).
-// Warp j owns output channels 4j..4j+3,
-// lane i columns i and i+32: per K index one broadcast 16-byte load of the
-// four weights, two conflict-free loads of x and 8 FFMA into registers
-// that carry the sum over layers. Exact f32, as in k2.
+//   Conv: exact f32 (FFMA on the CUDA cores, as k2). A CTA owns one image
+// row e, CONV_TW = 32 columns and one half of the output channels (384 CTAs
+// at E=24, W=256, three resident on each SM: 2.9 a SM, where 96 CTAs of 64
+// columns and all channels left 36 SMs idle). Its 128 threads are 8 K
+// groups of 4 input channels; each thread holds a 4 x 8 register tile,
+// output channels j + 4 i of the half by 8 consecutive pixels, so per
+// (input channel, dy) the 10 x values it loads once (four 16-byte loads)
+// serve all three dx taps, and per (dy, dx) four 16-byte weight loads (4
+// channels x 4 input channels) feed 128 FFMA: 28 shared loads per 384
+// FFMA, against 3 per 8 before. Weight rows are padded to
+// 296 words, so the 8 rows a warp reads at once lie on 8 bank quads, and a
+// K group's x rows start 4 words after the last group's, so the two groups
+// of a warp read 8 quads too. Each layer is one cp.async group into a ring
+// of two stages: w[l]'s 16 rows of the half as they lie and x[l]'s rows
+// e-1..e+1, columns w0-4..w0+35, 16-byte copies with zeros outside the
+// image (where W is not a multiple of 4 the rows start off 16-byte
+// boundaries: the columns w0-1..w0+32 in 4-byte copies); layers 0 and 1
+// are issued before the first dot, layer l + 2 as soon as layer l's stage
+// is read, so a layer's copies fly during the last one's dots and no
+// register holds them. The eight K
+// groups' sums meet once in shared memory, added in a fixed order, and
+// each output element is written once, 16 bytes a thread where the row
+// allows. What bounds it: its FFMA issue (1.18 M a CTA at L=4) and the
+// weight reads, every CTA all of its half from L2 (147 KB a pair of CTAs).
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s f32, 989 bf16) at the
 // probes' shapes (L=4, C=32, E=24, W=256, TH=8), for what each function
@@ -156,10 +168,11 @@
 // The design reads each input byte once from device memory and writes each
 // output byte once (k3 and k11 also read x[1..L-1], k5 also x[3], as the
 // TPU bodies do: what k3 and k11 read and write, every layer of x and out,
-// is 3.93 MB -> 1.17 us; k7 reads its halo rows again from L2, every k12
-// CTA w from L2: 4.7 MB), on 96 CTAs (k2, k3, k11 and k12 on 192, k4 on
-// 384, k8 on 132), one pass with every layer's loads or copies in flight in k2,
-// k3, k11, k12 and the bulk store: at a few MB per launch the time is set
+// is 3.93 MB -> 1.17 us; k7 reads its halo rows again from L2 and every
+// CTA its half of w, every k12 CTA w from L2: 4.7 MB), on 96 CTAs (k2, k3,
+// k11 and k12 on 192, k4 and k7 on 384, k8 on 132), one pass with every
+// layer's loads or copies in flight in k2, k3, k11, k12 and the bulk store
+// (k7: two layers): at a few MB per launch the time is set
 // by the launch and the latency of one pass, not the bytes; k7's and k2's
 // time by their FFMA and shared-memory load issue (k2 issues the 151 MFLOP
 // of its three weight blocks, 2.25 us at 67 TFLOP/s).
@@ -181,9 +194,18 @@ constexpr int GROUPS = TP / PPT;
 constexpr int THREADS = C * GROUPS;  // 256
 constexpr int K = 3 * C;       // the dot's depth: concat(h, h, h)
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
-constexpr int CONV_TW = 64;    // output columns of one row per conv CTA
-constexpr int CONV_XP = CONV_TW + 2;  // staged columns: the tile and its halo
-constexpr int CONV_SMEM = (9 * C * C + C * 3 * CONV_XP) * 4;
+constexpr int CONV_TW = 32;    // output columns of one row per conv CTA
+constexpr int CONV_CO = C / 2;  // output channels per conv CTA: one half of C
+constexpr int CONV_KG = 8;     // the conv's K groups: 4 input channels each
+constexpr int CONV_THREADS = CONV_KG * 16;  // 16 threads a K group: 4 x 8 outputs each
+constexpr int CONV_WP = 9 * C + 8;  // a staged weight row: 296 words, rows 8 banks apart
+constexpr int CONV_XW = 40;    // a staged x row: columns w0-4 .. w0+35, ten 16-byte chunks
+// x rows of a stage: [C][3][CONV_XW], K group kg's 12 rows 4 words on (bank stagger)
+constexpr int CONV_XWORDS = C * 3 * CONV_XW + CONV_KG * 4;
+constexpr int CONV_PP = CONV_TW + 4;  // a partial-sum row of the conv
+constexpr int CONV_STAGE = (CONV_CO * CONV_WP + CONV_XWORDS) * 4;  // 34,432 bytes
+constexpr int CONV_SMEM = 2 * CONV_STAGE;  // a ring of two layer stages
+static_assert(CONV_KG * CONV_CO * CONV_PP * 4 <= CONV_SMEM, "the partial sums fit the ring");
 constexpr int DOT_TP = 32;     // pixels of every channel per k2 CTA
 constexpr int DOT_WP = K + 4;  // k2's weight row: 100 words, 8 rows on 8 bank quads
 constexpr int DOT_PP = DOT_TP + 4;  // k2's partial-sum row
@@ -477,99 +499,6 @@ __global__ void __launch_bounds__(THREADS) narrow_sum_kernel(const float* __rest
   store8(out + static_cast<size_t>(c) * P + p0 + px, v);
 }
 
-__global__ void __launch_bounds__(THREADS) conv_sum_kernel(const float* __restrict__ x,
-                                                           const float* __restrict__ w,
-                                                           float* __restrict__ out, int L, int E,
-                                                           int W) {
-  constexpr int WQ = 9 * C * C / 4 / THREADS;                     // 16-byte weight loads a thread
-  constexpr int XN = (C * 3 * CONV_XP + THREADS - 1) / THREADS;  // x loads a thread
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* ws = reinterpret_cast<float*>(smem_raw);  // [9C][C]: w[l] with K major
-  float* xs = ws + 9 * C * C;                      // [C][3][CONV_XP]: rows e-1..e+1
-  const int tiles = (W + CONV_TW - 1) / CONV_TW;
-  const int e = blockIdx.x / tiles, w0 = (blockIdx.x - e * tiles) * CONV_TW;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int P = E * W;
-  // the tile's elements this thread stages, the same in every layer: their
-  // offsets in x[l], -1 outside the image (a zero)
-  int xoff[XN];
-#pragma unroll
-  for (int j = 0; j < XN; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int r = i / CONV_XP, col = i - r * CONV_XP;  // r = ci 3 + dy
-    const int ci = r / 3, row = e - 1 + (r - ci * 3), wc = w0 - 1 + col;
-    xoff[j] = (i < C * 3 * CONV_XP && row >= 0 && row < E && wc >= 0 && wc < W)
-                  ? ci * P + row * W + wc
-                  : -1;
-  }
-  // w[l] and x[l] in registers: a layer's loads fly during the last one's
-  // dots. Weights with lanes on output channels, 16-byte loads along K.
-  float4 wv[WQ];
-  float xv[XN];
-  auto load = [&](const float* xl, const float4* wl) {
-#pragma unroll
-    for (int j = 0; j < WQ; ++j) wv[j] = wl[lane * (9 * C / 4) + warp + j * (THREADS / 32)];
-#pragma unroll
-    for (int j = 0; j < XN; ++j) xv[j] = xoff[j] >= 0 ? xl[xoff[j]] : 0.f;
-  };
-  float acc[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc[j][0] = acc[j][1] = 0.f;
-  const float* xl = x;
-  const float4* wl = reinterpret_cast<const float4*>(w);
-  load(xl, wl);
-#pragma unroll 1
-  for (int l = 0; l < L; ++l) {
-    __syncthreads();  // the last layer's tiles are read
-#pragma unroll
-    for (int j = 0; j < WQ; ++j) {
-      float* d = ws + 4 * (warp + j * (THREADS / 32)) * C + lane;  // K index 4 kq, channel lane
-      d[0] = wv[j].x;
-      d[C] = wv[j].y;
-      d[2 * C] = wv[j].z;
-      d[3 * C] = wv[j].w;
-    }
-#pragma unroll
-    for (int j = 0; j < XN; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      if (i < C * 3 * CONV_XP) xs[i] = xv[j];
-    }
-    __syncthreads();
-    if (l + 1 < L) {  // x[l + 1], w[l + 1]: the runtime layer index
-      xl += C * P;
-      wl += 9 * C * C / 4;
-      load(xl, wl);
-    }
-#pragma unroll 2
-    for (int ci = 0; ci < C; ++ci) {
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const float* xr = xs + (ci * 3 + dy) * CONV_XP + lane;
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const float4 wk =
-              reinterpret_cast<const float4*>(ws + ((dy * 3 + dx) * C + ci) * C)[warp];
-          const float a = xr[dx], b = xr[dx + 32];
-          acc[0][0] = fmaf(wk.x, a, acc[0][0]);
-          acc[0][1] = fmaf(wk.x, b, acc[0][1]);
-          acc[1][0] = fmaf(wk.y, a, acc[1][0]);
-          acc[1][1] = fmaf(wk.y, b, acc[1][1]);
-          acc[2][0] = fmaf(wk.z, a, acc[2][0]);
-          acc[2][1] = fmaf(wk.z, b, acc[2][1]);
-          acc[3][0] = fmaf(wk.w, a, acc[3][0]);
-          acc[3][1] = fmaf(wk.w, b, acc[3][1]);
-        }
-      }
-    }
-  }
-  float* o = out + static_cast<size_t>(warp * 4) * P + e * W + w0 + lane;
-#pragma unroll
-  for (int j = 0; j < 4; ++j, o += P) {
-    if (w0 + lane < W) o[0] = acc[j][0];
-    if (w0 + lane + 32 < W) o[32] = acc[j][1];
-  }
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
@@ -580,6 +509,162 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
                : "memory");
+}
+
+// 4 bytes from global to shared memory, zeros where src_bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's latest cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(CONV_THREADS, 3) conv_sum_kernel(const float* __restrict__ x,
+                                                                   const float* __restrict__ w,
+                                                                   float* __restrict__ out, int L,
+                                                                   int E, int W) {
+  constexpr int STAGE = CONV_STAGE / 4;  // words of a ring stage
+  constexpr int XV = CONV_XW / 4;        // 16-byte chunks of a staged x row
+  constexpr int XC = CONV_TW + 2;        // the columns a row needs: the tile and its halo
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);  // [2] stages: w rows [CONV_CO][CONV_WP],
+                                                   // then x rows (CONV_XWORDS)
+  const int tiles = (W + CONV_TW - 1) / CONV_TW;
+  const int half = blockIdx.x & 1, t = blockIdx.x >> 1;  // output channels 16 half .. + 15
+  const int e = t / tiles, w0 = (t - e * tiles) * CONV_TW;
+  const int P = E * W;
+  // Layer l into stage s, one cp.async group: the CTA's 16 rows of w[l] as
+  // they lie (16 bytes a copy), and x[l]'s rows e-1..e+1, columns
+  // w0-4..w0+35 at window index 0..39, zeros outside the image: 16 bytes a
+  // copy where W is a multiple of 4 (the chunks start on 16-byte
+  // boundaries), else the columns w0-1..w0+32 the tile needs, 4 bytes a copy.
+  auto issue = [&](int l, int s) {
+    float* ws = sm + s * STAGE;
+    float* xs = ws + CONV_CO * CONV_WP;
+    const float* wl = w + (static_cast<size_t>(l) * C + half * CONV_CO) * (9 * C);
+    for (int i = threadIdx.x; i < CONV_CO * (9 * C / 4); i += CONV_THREADS) {
+      const int r = i / (9 * C / 4), v = i - r * (9 * C / 4);
+      cp_async16(ws + r * CONV_WP + v * 4, wl + r * (9 * C) + v * 4, 16);
+    }
+    const float* xl = x + static_cast<size_t>(l) * C * P;
+    if ((W & 3) == 0) {
+      for (int i = threadIdx.x; i < C * 3 * XV; i += CONV_THREADS) {
+        const int r = i / XV, v = i - r * XV;  // r = ci 3 + dy
+        const int ci = r / 3, row = e - 1 + (r - ci * 3), wc = w0 - 4 + 4 * v;
+        const bool in = row >= 0 && row < E && wc >= 0 && wc < W;
+        cp_async16(xs + r * CONV_XW + (r / 12) * 4 + 4 * v, in ? xl + ci * P + row * W + wc : xl,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < C * 3 * XC; i += CONV_THREADS) {
+        const int r = i / XC, col = i - r * XC;
+        const int ci = r / 3, row = e - 1 + (r - ci * 3), wc = w0 - 1 + col;
+        const bool in = row >= 0 && row < E && wc >= 0 && wc < W;
+        cp_async4(xs + r * CONV_XW + (r / 12) * 4 + 3 + col, in ? xl + ci * P + row * W + wc : xl,
+                  in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0, 0);
+  if (L > 1) {
+    issue(1, 1);
+  } else {
+    cp_async_commit();  // an empty group: every layer waits for all but the newest
+  }
+  // thread: K group kg (input channels 4 kg .. 4 kg + 3), output channels
+  // j + 4 i (i < 4) of the half, pixels 8 pg .. 8 pg + 7
+  const int kg = threadIdx.x >> 4, j = threadIdx.x & 3, pg = (threadIdx.x >> 2) & 3;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int p = 0; p < 8; ++p) acc[i][p] = 0.f;
+#pragma unroll 1
+  for (int l = 0; l < L; ++l) {
+    cp_async_wait<1>();  // this thread's copies of layer l have landed
+    __syncthreads();     // and every thread's
+    const float* ws = sm + (l & 1) * STAGE + j * CONV_WP + kg * 4;  // stage of l: runtime index
+    const float* xs =
+        sm + (l & 1) * STAGE + CONV_CO * CONV_WP + kg * (12 * CONV_XW + 4) + 8 * pg;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      float v[4][10];  // x[4 kg + c][e + dy - 1][w0 + 8 pg - 1 ..  + 8]: window 8 pg + 3 ..
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float* xr = xs + (c * 3 + dy) * CONV_XW;
+        const float4 a = *reinterpret_cast<const float4*>(xr);
+        const float4 b = *reinterpret_cast<const float4*>(xr + 4);
+        const float4 d = *reinterpret_cast<const float4*>(xr + 8);
+        const float4 f = *reinterpret_cast<const float4*>(xr + 12);
+        v[c][0] = a.w;
+        v[c][1] = b.x, v[c][2] = b.y, v[c][3] = b.z, v[c][4] = b.w;
+        v[c][5] = d.x, v[c][6] = d.y, v[c][7] = d.z, v[c][8] = d.w;
+        v[c][9] = f.x;
+      }
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        float4 wv[4];  // w[l][16 half + j + 4 i][(3 dy + dx) C + 4 kg .. + 3]
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          wv[i] = *reinterpret_cast<const float4*>(ws + 4 * i * CONV_WP + (dy * 3 + dx) * C);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float wt = c == 0 ? wv[i].x : c == 1 ? wv[i].y : c == 2 ? wv[i].z : wv[i].w;
+#pragma unroll
+            for (int p = 0; p < 8; ++p) acc[i][p] = fmaf(wt, v[c][p + dx], acc[i][p]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // layer l's stage is read
+    if (l + 2 < L) {
+      issue(l + 2, l & 1);
+    } else {
+      cp_async_commit();
+    }
+  }
+  // The eight K groups' sums -> part[kg][16 output channels][CONV_PP], then
+  // each output element once, kg 0 + 1 + ... + 7 in order.
+  float* part = sm;  // every copy has landed and every stage is read
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* pr = part + (kg * CONV_CO + j + 4 * i) * CONV_PP + 8 * pg;
+    *reinterpret_cast<float4*>(pr) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(pr + 4) = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+  __syncthreads();
+  const int co = threadIdx.x >> 3, px = (threadIdx.x & 7) * 4;
+  float4 s = *reinterpret_cast<const float4*>(part + co * CONV_PP + px);
+#pragma unroll
+  for (int k = 1; k < CONV_KG; ++k) {
+    const float4 u = *reinterpret_cast<const float4*>(part + (k * CONV_CO + co) * CONV_PP + px);
+    s.x = __fadd_rn(s.x, u.x);
+    s.y = __fadd_rn(s.y, u.y);
+    s.z = __fadd_rn(s.z, u.z);
+    s.w = __fadd_rn(s.w, u.w);
+  }
+  float* o = out + static_cast<size_t>(half * CONV_CO + co) * P + e * W + w0 + px;
+  if ((W & 3) == 0 && w0 + px + 4 <= W) {
+    *reinterpret_cast<float4*>(o) = s;
+  } else {
+    const float vals[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      if (w0 + px + p < W) o[p] = vals[p];
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) load_dot_f32_kernel(const float* __restrict__ x,
@@ -879,9 +964,9 @@ int launch(LoopDynArgs& a, cudaStream_t s) {
       return run(a, narrow_sum_kernel, tiles, THREADS, 16 + a.L * C * 3 * 4, s,
                  static_cast<const float*>(a.x), out, a.L, a.P);
     case CONV:
-      return run(a, conv_sum_kernel, (a.P / a.W) * ((a.W + CONV_TW - 1) / CONV_TW), THREADS,
-                 CONV_SMEM, s, static_cast<const float*>(a.x), static_cast<const float*>(a.w), out,
-                 a.L, a.P / a.W, a.W);
+      return run(a, conv_sum_kernel, (a.P / a.W) * ((a.W + CONV_TW - 1) / CONV_TW) * 2,
+                 CONV_THREADS, CONV_SMEM, s, static_cast<const float*>(a.x),
+                 static_cast<const float*>(a.w), out, a.L, a.P / a.W, a.W);
     default:  // LOAD_DOT
       if (a.bf16) return launch_dot_bf16(a, s);
       return run(a, load_dot_f32_kernel, (a.P + DOT_TP - 1) / DOT_TP, THREADS, dot_f32_smem(a.L),

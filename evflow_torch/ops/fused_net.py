@@ -167,13 +167,15 @@ def _ptr(t: Optional[torch.Tensor]):
 def launch_wholenet(entry: str, x: torch.Tensor, mems: Sequence[torch.Tensor],
                     prevs: Sequence[Optional[torch.Tensor]], wks: Sequence[torch.Tensor],
                     weights: WholeNetWeights, mem_outs: Sequence[torch.Tensor],
-                    spk_outs: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+                    spk_outs: Sequence[Optional[torch.Tensor]],
+                    flow: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Validate the operands of a whole-network kernel and launch it on the
     current stream. ``mem_outs`` / ``spk_outs`` (per unit; ``None`` where a
-    unit's spikes are not kept) are written by the kernel and must not alias
-    the inputs. Returns the flow ``[B, H, W, 2]``; ``launch_wholenet.grid``
-    holds the CTAs of the last launch. Raises on anything the kernel does
-    not take and on a failed launch."""
+    unit's spikes are not kept) and ``flow`` (``[B, H, W, 2]`` f32, made
+    here where not given) are written by the kernel and must not alias the
+    inputs. Returns the flow; ``launch_wholenet.grid`` holds the CTAs of the
+    last launch. Raises on anything the kernel does not take and on a failed
+    launch."""
     from evflow_torch.ops.cuda_build import entry_point
 
     L = weights.num_units
@@ -210,7 +212,11 @@ def launch_wholenet(entry: str, x: torch.Tensor, mems: Sequence[torch.Tensor],
                     ("pred_b", weights.pred_b)):
         if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
-    flow = torch.empty((B, H, W, 2), device=x.device, dtype=torch.float32)
+    if flow is None:
+        flow = torch.empty((B, H, W, 2), device=x.device, dtype=torch.float32)
+    elif (flow.device != x.device or flow.dtype != torch.float32 or not flow.is_contiguous()
+          or tuple(flow.shape) != (B, H, W, 2)):
+        raise ValueError(f"flow must be a contiguous float32 {(B, H, W, 2)} tensor on {x.device}")
     args = WholeNetArgs(
         x=x.data_ptr(),
         mem_in=_Ptrs(*[_ptr(t) for t in mems]), mem_out=_Ptrs(*[_ptr(t) for t in mem_outs]),

@@ -65,7 +65,8 @@ __all__ = [
     "dyn_narrow_sum_plain", "dyn_conv_sum", "dyn_conv_sum_plain", "dyn_store_window",
     "dyn_store_window_plain", "conv_weights", "slot_of", "loop_dyn_bytes", "draw_operands",
     "load_dot_smem", "load_dot_grid", "store_smem", "store_grid", "store_kernel_bytes",
-    "store_bulk_tile", "store_bulk_grid", "store_bulk_smem", "floor_args", "probe_cases",
+    "store_bulk_tile", "store_bulk_grid", "store_bulk_smem", "conv_sum_grid", "conv_sum_tile",
+    "floor_args", "probe_cases",
     "body_of", "bound", "tolerance", "f32_tolerance", "bf16_sums", "run_all", "WRAPPERS",
     "BODIES", "last_launch",
 ]
@@ -77,6 +78,7 @@ ROW0 = 8                # k8's first stored row (probe_loop_dyn2.py:72)
 TP = 64                 # pixels of every channel per CTA (csrc/probe_loop_dyn.cu)
 DOT_TP = 32             # pixels of every channel per k2 / k12 CTA
 ST_TP = 32              # pixels of every channel per k3 / k11 CTA
+CONV_TW, CONV_CO = 32, 16  # columns of one row and output channels per k7 CTA
 BULK_CTAS = 132         # CTAs a bulk-store layer is cut for at least: an H100 SXM's SMs
 BULK_MIN, BULK_MAX = 256, 512  # elements of a bulk-store tile
 RING = 8                # layer stages of the bulk store and of k12, at most
@@ -284,14 +286,32 @@ def store_kernel_bytes(layers: int, c: int, e: int, w: int) -> int:
     return (layers + 1) * c * e * w * 4
 
 
+def conv_sum_grid(e: int, w: int) -> int:
+    """CTAs of a ``dyn_conv_sum`` launch (k7) over an ``e`` x ``w`` image:
+    one row, 32 columns and one half of the output channels a CTA (384 at
+    the file's 24 x 256)."""
+    return e * -(-w // CONV_TW) * (C // CONV_CO)
+
+
+def conv_sum_tile(cta: int, e: int, w: int):
+    """The outputs k7's CTA ``cta`` writes (``csrc/probe_loop_dyn.cu``,
+    ``conv_sum_kernel``): (row, columns, output channels) as ranges, the
+    columns cut at the image's edge."""
+    tiles = -(-w // CONV_TW)
+    half, t = cta % 2, cta // 2
+    row, w0 = t // tiles, (t % tiles) * CONV_TW
+    return row, range(w0, min(w0 + CONV_TW, w)), range(half * CONV_CO, (half + 1) * CONV_CO)
+
+
 def floor_args(case: Case):
-    """The arguments and keywords of ``case``'s body (k3, k4, k8, k11, k12)
-    at the smallest size its kernel takes, one CTA: one layer of 8 pixels
-    (k8 a window of one 8-pixel row, k12 with w[0]). Its time is the
-    kernel's launch floor."""
+    """The arguments and keywords of ``case``'s body (k3, k4, k7, k8, k11,
+    k12) at the smallest size its kernel takes, one CTA: one layer of 8
+    pixels (k8 a window of one 8-pixel row, k7 and k12 with w[0]; k7's
+    8-pixel row runs two CTAs, one a channel half). Its time is the kernel's
+    launch floor."""
     body = body_of(case)
     x = case.args[0][:1, :, :1, :8].contiguous()
-    if body == "k12":
+    if body in ("k7", "k12"):
         return (x, case.args[1][:1].contiguous()), dict(case.kwargs)
     if body == "k8":
         return (x,), dict(case.kwargs, row0=0, rows=1)

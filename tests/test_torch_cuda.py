@@ -181,6 +181,74 @@ def test_wholenet_kernels_agree_bitwise(cuda, dtype):
             assert all(torch.equal(m, r) for m, r in zip(mems, rmems)), name
 
 
+def random_wholenet(cuda, mask: str, hard: bool, seed: int):
+    """WholeNetWeights of random units, recurrent where ``mask`` says
+    ``T`` (unit 0 feedforward): packed bf16 weights of the kernels' widths
+    (16 channels for the head, 32, 64 recurrent), random parameters."""
+    from evflow_torch.ops.fused_net import WholeNetWeights
+
+    rng = np.random.default_rng(seed)
+    rec = tuple(m == "T" for m in mask)
+    wk = tuple(torch.tensor(rng.uniform(-1, 1, (32, 9 * ck)) / np.sqrt(9 * ck), device=cuda,
+                            dtype=torch.float32).to(torch.bfloat16)
+               for ck in (16 if l == 0 else (64 if r else 32) for l, r in enumerate(rec)))
+    params = np.stack([np.stack([rng.normal(0.2, 0.3, 32), rng.uniform(0, 1, 32),
+                                 rng.uniform(0.01, 0.8, 32)]) for _ in rec])
+    return WholeNetWeights(
+        recurrent=rec, wk=wk, params=torch.tensor(params, dtype=torch.float32, device=cuda),
+        pred_w=torch.tensor(rng.normal(0, 0.3, (32, 2)), dtype=torch.float32, device=cuda),
+        pred_b=torch.tensor(rng.normal(0, 0.1, 2), dtype=torch.float32, device=cuda),
+        hard_reset=hard)
+
+
+@pytest.mark.parametrize("B,H,W,mask,dtype,hard", [
+    (1, 17, 40, "F", torch.float32, True),
+    (2, 40, 17, "FT", torch.bfloat16, False),
+    (3, 17, 17, "FTF", torch.float32, False),
+    (8, 40, 40, "FTTF", torch.bfloat16, True),
+    (2, 17, 256, "FFTFT", torch.float32, True),
+    (1, 256, 40, "FTFTFT", torch.bfloat16, False),
+    (8, 80, 64, "FTFFTFF", torch.bfloat16, True),
+    (2, 256, 256, "FTTTTTT", torch.float32, False),
+    (3, 40, 17, "FFFFFFF", torch.bfloat16, True),
+], ids=["B1-L1", "B2-L2", "B3-L3", "B8-L4-adjacent", "B2-L5", "B1-L6", "B8-L7-firenet",
+        "B2-L7-recurrent", "B3-L7-feedforward"])
+def test_batch_writes_every_owned_element(cuda, B, H, W, mask, dtype, hard):
+    """K7 launched into NaN-filled membranes, kept spikes and flow, against
+    ``firenet_step_plain`` under ``check_against_plain``'s bar: every
+    element is written (no NaN left) and agrees, at B = 1, 2, 3, 8, ragged
+    H and W, L = 1..7 units under several recurrent masks (two recurrent
+    units in a row; every unit after the head recurrent), both state dtypes
+    and both reset modes, with fewer (b, tile) items than CTAs and more
+    (B=8 at 80x64: 160 items of 16 x 16; B=2 at 256x256: 512)."""
+    from evflow_torch.ops.fused_net_batch import batch_items
+
+    weights = random_wholenet(cuda, mask, hard, seed=len(mask))
+    rng = np.random.default_rng(B)
+    L = len(mask)
+    x = torch.tensor(rng.poisson(0.3, (B, H, W, 2)).astype(np.float32), device=cuda)
+    mems = [torch.tensor(rng.normal(0, 0.5, (B, 32, H, W)), device=cuda).to(dtype)
+            for _ in range(L)]
+    prevs = [torch.tensor(rng.random((B, 32, H, W)) < 0.3, device=cuda).to(dtype) if r else None
+             for r in weights.recurrent]
+    mem_outs = [torch.full_like(m, float("nan")) for m in mems]
+    spk_outs = [torch.full_like(m, float("nan")) for m in mems]
+    flow = torch.full((B, H, W, 2), float("nan"), device=cuda)
+    launch_wholenet("fused_net_batch", x, mems, prevs, weights.wk, weights, mem_outs, spk_outs,
+                    flow=flow)
+    torch.cuda.synchronize()
+    items = batch_items(B, H, W)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert launch_wholenet.grid == min(items, sms)
+    pflow, pmems, pspikes = firenet_step_plain(x, mems, prevs, weights)
+    for l in range(L):
+        assert not bool(mem_outs[l].isnan().any()) and not bool(spk_outs[l].isnan().any()), l
+        bad = ((mem_outs[l].float() - pmems[l].float()).abs() > 1e-4) | (spk_outs[l] != pspikes[l])
+        assert bad.float().mean() <= 1e-5, (l, int(bad.sum()))
+    assert bool(torch.isfinite(flow).all())
+    assert ((flow - pflow).abs() > 1e-4).float().mean() <= 1e-5
+
+
 def test_lgrid_grid_fills_the_card(cuda):
     """K6 at B=2, 256x256: more (b, tile) items than resident CTAs, so the
     cooperative grid is as large as the card holds at once and each CTA
@@ -783,18 +851,21 @@ def test_loop_dyn_refuses_what_it_cannot_take(cuda):
     ("k7", (4, 32, 24, 256), None, False), ("k7", (3, 32, 5, 40), None, False),
     ("k7", (2, 32, 3, 130), None, False), ("k8", (4, 32, 24, 256), None, False),
     ("k8", (3, 32, 17, 24), (5, 3), False), ("k7", (4, 32, 24, 256), None, True),
-    ("k7", (3, 32, 5, 40), None, True), ("k2", (4, 32, 24, 256), None, True),
+    ("k7", (3, 32, 5, 40), None, True), ("k7", (2, 32, 3, 130), None, True),
+    ("k2", (4, 32, 24, 256), None, True),
 ], ids=["k6-full", "k6-ragged", "k7-full", "k7-ragged", "k7-wide", "k8-full", "k8-ragged",
-        "k7-full-normals", "k7-ragged-normals", "k2-full-normals"])
+        "k7-full-normals", "k7-ragged-normals", "k7-wide-normals", "k2-full-normals"])
 def test_loop_dyn2_matches_plain(cuda, body, shape, window, normals):
     """K8g's bodies against their plain versions, equal (integer operands,
     ``loop_dyn.draw_operands``), one launch each, at the JAX probe's shapes
     and at ragged ones: k6 over E W = 120 pixels (a tile of 64 and one of
-    56); k7 over 40 and 130 columns (a part of a 64-column tile) and 5 and
-    3 rows; k8 storing rows 5..7 of 24 columns, 9 tiles of 256 elements
-    that cross channels (``loop_dyn.store_bulk_grid``). The f32 dots k7 and k2 also on
-    f32 normals, within ``loop_dyn.f32_tolerance``: a dot that rounded its
-    operands to TF32 or bf16 would miss it."""
+    56); k7 over 40 and 130 columns (a part of a 32-column tile) and 5 and
+    3 rows (``loop_dyn.conv_sum_grid`` CTAs, one a row, 32 columns and
+    channel half); k8 storing rows 5..7 of 24 columns, 9 tiles of 256 elements
+    that cross channels (``loop_dyn.store_bulk_grid``). The f32 dots k7 (at
+    all three shapes) and k2 also on f32 normals, within
+    ``loop_dyn.f32_tolerance``: a dot that rounded its operands to TF32 or
+    bf16 would miss it."""
     from evflow_torch.probes import loop_dyn as D
     from evflow_torch.probes._harness import compare
 
@@ -808,7 +879,7 @@ def test_loop_dyn2_matches_plain(cuda, body, shape, window, normals):
     out = case.fn(*args, **kwargs)
     assert case.fn.launches == before + 1
     _, c, e, w = shape
-    grid = {"k2": -(-e * w // 32), "k6": -(-e * w // 64), "k7": e * -(-w // 64),
+    grid = {"k2": -(-e * w // 32), "k6": -(-e * w // 64), "k7": D.conv_sum_grid(e, w),
             "k8": D.store_bulk_grid(c * kwargs.get("rows", 0) * w)}[body]
     assert D.last_launch["grid"] == grid
     ref = case.plain(*args, **kwargs)

@@ -324,6 +324,31 @@ def test_full_size_draw_is_exact_and_shows_the_layer():
     assert (D.dyn_load_sum_plain(shifted) != D.dyn_load_sum_plain(x1)).float().mean() > 0.9
 
 
+@pytest.mark.parametrize("e,w", [(24, 256), (5, 40), (3, 130), (17, 24)])
+def test_conv_sum_tiles_cover_every_output_once(e, w):
+    """k7's launch rule (``conv_sum_grid`` CTAs, each writing
+    ``conv_sum_tile``: one row, 32 columns cut at the image's edge, one half
+    of the output channels) writes every element of the ``[C, e, w]``
+    output exactly once: 384 CTAs at the file's 24 x 256, at least one on
+    each of an H100 SXM's 132 SMs. The tile and the channel half are the
+    source's ``CONV_TW`` and ``CONV_CO``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(D.__file__).resolve().parents[1] / "csrc" / "probe_loop_dyn.cu").read_text()
+    assert int(re.search(r"constexpr int CONV_TW = (\d+);", src).group(1)) == D.CONV_TW
+    assert re.search(r"constexpr int CONV_CO = C / (\d+);", src).group(1) == str(32 // D.CONV_CO)
+    seen = np.zeros((32, e, w), np.int64)
+    grid = D.conv_sum_grid(e, w)
+    for cta in range(grid):
+        row, cols, chans = D.conv_sum_tile(cta, e, w)
+        assert len(cols) >= 1
+        seen[chans.start:chans.stop, row, cols.start:cols.stop] += 1
+    assert (seen == 1).all()
+    if (e, w) == (24, 256):
+        assert grid == 384 >= 132
+
+
 def test_load_dot_smem_and_grid():
     """k2's CTA: 32 pixels (192 CTAs at the files' E W = 6144, 4 at a
     ragged 120), 128 bytes of layer barriers and every layer's slab and
@@ -450,22 +475,23 @@ def test_store_instantiations_are_gated():
 
 
 def test_redesigned_loop_dyn_kernels_are_gated():
-    """k12's ``load_dot_bf16_kernel`` and k4's and k8's ``store_bulk_kernel``
-    (neither a template: one instantiation each, both launched) are in
-    ``chip_smoke.REDESIGNED`` beside k2's, k3's and k11's kernels, so phase
-    ``build`` fails if ptxas reports either missing or spilling."""
+    """k12's ``load_dot_bf16_kernel``, k4's and k8's ``store_bulk_kernel``
+    and k7's ``conv_sum_kernel`` (none a template: one instantiation each,
+    all launched) are in ``chip_smoke.REDESIGNED`` beside k2's, k3's and
+    k11's kernels, so phase ``build`` fails if ptxas reports one missing or
+    spilling."""
     import re
     from pathlib import Path
 
     import chip_smoke
 
     text = (Path(D.__file__).resolve().parents[1] / "csrc" / "probe_loop_dyn.cu").read_text()
-    for kernel in ("load_dot_bf16_kernel", "store_bulk_kernel"):
+    for kernel in ("load_dot_bf16_kernel", "store_bulk_kernel", "conv_sum_kernel"):
         assert re.search(rf"__global__ void [^;{{}}]*\b{kernel}\(", text)
         assert re.search(rf"run\(a, {kernel},", text)
     assert set(chip_smoke.REDESIGNED["probe_loop_dyn"]) == {
         "load_dot_f32_kernel", "load_dot_bf16_kernel", "store_kernel<float>",
-        "store_kernel<__nv_bfloat16>", "store_bulk_kernel"}
+        "store_kernel<__nv_bfloat16>", "store_bulk_kernel", "conv_sum_kernel"}
 
 
 def test_base_8_draw_is_exact_at_five_layers():
