@@ -68,6 +68,28 @@ constexpr int K7_TH = 16, K7_TW = 16;  // the owned tile of an item
 constexpr int K7_ROW = K7_TW + 2 * MAX_UNITS;  // the widest staged row: 30 pixels
 static_assert(K7_ROW <= 32, "a staged row fits the lanes of a warp");
 
+// Parts of the kernel that probes/wholenet_slope.py --split takes out, one a
+// variant build (-DK7_CUT=K7_CUT_<part>), to time what each part costs; a
+// variant computes wrong results. The default build takes out nothing. Each
+// part is one k7_keeps(K7_CUT_<part>) test in the code below (the script
+// refuses a part without one, and an unknown part fails the build).
+enum K7Cut {
+  K7_CUT_NONE,
+  K7_CUT_STATE_LOADS,   // the epilogue's membrane loads read as zeros
+  K7_CUT_STATE_STORES,  // no membrane or kept-spike store
+  K7_CUT_EPILOGUE,      // no LIF update, state load or store; no spike to the next tile
+  K7_CUT_SPIKE_STAGE,   // the recurrent units' previous spikes are not staged
+  K7_CUT_WEIGHT_STAGE,  // no weight copy and no wait: the buffer is read as it lies
+  K7_CUT_EVENT_STAGE,   // the event input is not staged
+  K7_CUT_MMA,           // no fragment load and no mma: the k loop is empty
+  K7_CUT_FLOW,          // the pred head is not run
+  K7_CUT_SECOND_ROUND,  // at most one fragment a warp and unit
+};
+#ifndef K7_CUT
+#define K7_CUT K7_CUT_NONE
+#endif
+__host__ __device__ constexpr bool k7_keeps(K7Cut part) { return K7_CUT != part; }
+
 // Output extent of unit l of L: the owned tile grown by L-1-l pixels a side.
 __host__ __device__ inline int extent_h(int l, int L) { return K7_TH + 2 * (L - 1 - l); }
 __host__ __device__ inline int extent_w(int l, int L) { return K7_TW + 2 * (L - 1 - l); }
@@ -190,8 +212,8 @@ __device__ __forceinline__ void issue_unit_weights(const WholeNetArgs& a, int l,
 // recurrent unit, of its previous spikes `pbuf`, by m16 fragments (16
 // pixels x the 32 output channels) over the warps, then the LIF update;
 // mem' and the kept spikes go to device memory for the owned pixels [th0,
-// th0+8) x [tw0, tw0+16), the spikes (0 outside the image) to `out`, the
-// next unit's input tile (the same extent).
+// th0+K7_TH) x [tw0, tw0+K7_TW), the spikes (0 outside the image) to `out`,
+// the next unit's input tile (the same extent).
 template <class S, class Ready, class Done>
 __device__ __forceinline__ void conv_lif_unit(
     const __nv_bfloat16* hbuf, int hpitch, int ck_h, const __nv_bfloat16* pbuf,
@@ -214,7 +236,8 @@ __device__ __forceinline__ void conv_lif_unit(
   const uint32_t b_addr =
       smem_u32(wsm + ((lane & 7) + 8 * (lane >> 4)) * wpitch + 8 * ((lane >> 3) & 1));
   const uint32_t b_step = 16 * wpitch * 2;
-  const int n_work = (n_out + 15) >> 4;
+  const int n_work = k7_keeps(K7_CUT_SECOND_ROUND) ? (n_out + 15) >> 4
+                                                   : min((n_out + 15) >> 4, K7_WARPS);
   if (warp >= n_work) weights_read();  // a warp without a fragment reads no weight
   for (int frag = warp; frag < n_work; frag += K7_WARPS) {
     if (frag == warp) weights_ready();  // before the warp's first k loop of the unit
@@ -229,7 +252,7 @@ __device__ __forceinline__ void conv_lif_unit(
       for (int i = 0; i < 4; ++i) acc[nf][i] = 0.f;
 
     uint32_t bk = b_addr;  // k0 = 0
-    for (int tap = 0; tap < 9; ++tap) {
+    for (int tap = 0; tap < (k7_keeps(K7_CUT_MMA) ? 9 : 0); ++tap) {
       const int dy = tap / 3, dx = tap - 3 * dy;
       const int toff = dy * wi + dx;
       for (int c0 = 0; c0 < ck_h; c0 += 16, bk += 32) {
@@ -280,7 +303,7 @@ __device__ __forceinline__ void conv_lif_unit(
         for (int j = 0; j < 2; ++j) {
           const int o = off[half] + (nf * 8 + 2 * q + j) * HW;
           m[half][nf][j] = 0.f;
-          if (in[half]) m[half][nf][j] = ld_nc<S>(mem_in + o);
+          if (k7_keeps(K7_CUT_STATE_LOADS) && in[half]) m[half][nf][j] = ld_nc<S>(mem_in + o);
         }
       }
     }
@@ -295,10 +318,10 @@ __device__ __forceinline__ void conv_lif_unit(
         for (int j = 0; j < 2; ++j) {
           const int c = nf * 8 + 2 * q + j;
           float s = 0.f, m2;
-          if (in[half]) {
+          if (k7_keeps(K7_CUT_EPILOGUE) && in[half]) {
             lif_update(acc[nf][2 * half + j] + prm[c], m[half][nf][j], prm[C + c],
                        prm[2 * C + c], hard, s, m2);
-            if (owned[half]) {
+            if (k7_keeps(K7_CUT_STATE_STORES) && owned[half]) {
               const int o = off[half] + c * HW;
               st_state(mem_out + o, m2);
               if (spk_out != nullptr) st_state(spk_out + o, s);
@@ -359,13 +382,15 @@ __global__ void __launch_bounds__(K7_THREADS, 1) fused_net_batch_kernel(WholeNet
     *reads = 0;
   }
   __syncthreads();  // the barrier is initialised before anyone waits on it
-  if (threadIdx.x < 32) issue_unit_weights(a, 0, wsm, wbar);
+  if (k7_keeps(K7_CUT_WEIGHT_STAGE) && threadIdx.x < 32) issue_unit_weights(a, 0, wsm, wbar);
   int u = 0;  // units this CTA has run: the weights' phase u & 1
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int b = item / (nth * ntw), t = item - b * nth * ntw;
     const int th0 = (t / ntw) * K7_TH, tw0 = (t - (t / ntw) * ntw) * K7_TW;
     __syncthreads();  // the last item's units and flow are done with the tiles
-    stage_events(a, b, th0 - L, tw0 - L, K7_TH + 2 * L, K7_TW + 2 * L, tile_b);
+    if (k7_keeps(K7_CUT_EVENT_STAGE)) {
+      stage_events(a, b, th0 - L, tw0 - L, K7_TH + 2 * L, K7_TW + 2 * L, tile_b);
+    }
     for (int l = 0; l < L; ++l, ++u) {
       const int grow = L - 1 - l;  // the output extent: the owned tile grown by `grow`
       const int eh = K7_TH + 2 * grow, ew = K7_TW + 2 * grow;
@@ -373,8 +398,10 @@ __global__ void __launch_bounds__(K7_THREADS, 1) fused_net_batch_kernel(WholeNet
       const bool rec = recurrent(a, l);
       if (rec) {
         if (l > 0 && recurrent(a, l - 1)) __syncthreads();  // the unit before reads tile P
-        stage_prev_spikes<S>(a, static_cast<const S*>(a.spk_in[l]), b, oh0 - 1, ow0 - 1, eh + 2,
-                             ew + 2, tile_p);
+        if (k7_keeps(K7_CUT_SPIKE_STAGE)) {
+          stage_prev_spikes<S>(a, static_cast<const S*>(a.spk_in[l]), b, oh0 - 1, ow0 - 1,
+                               eh + 2, ew + 2, tile_p);
+        }
       }
       __syncthreads();  // the input tiles are complete
       // the next unit's weights (the next item's first after the last),
@@ -384,12 +411,14 @@ __global__ void __launch_bounds__(K7_THREADS, 1) fused_net_batch_kernel(WholeNet
         unsigned last = 0;
         if (lane == 0) last = atomicAdd(reads, 1u) == (u + 1) * K7_WARPS - 1;
         last = __shfl_sync(0xffffffffu, last, 0);
-        if (last && next_l >= 0) {
+        if (k7_keeps(K7_CUT_WEIGHT_STAGE) && last && next_l >= 0) {
           fence_proxy_async();
           issue_unit_weights(a, next_l, wsm, wbar);
         }
       };
-      auto weights_ready = [&]() { mbar_wait(wbar, u & 1); };
+      auto weights_ready = [&]() {
+        if (k7_keeps(K7_CUT_WEIGHT_STAGE)) mbar_wait(wbar, u & 1);
+      };
       const int ck = a.ck[l];
       conv_lif_unit<S>(l == 0 ? tile_b : ((l & 1) ? tile_a : tile_b), l == 0 ? XPITCH : SPITCH,
                        ck - (rec ? C : 0), rec ? tile_p : nullptr, wsm, ck, ew, eh * ew,
@@ -399,7 +428,7 @@ __global__ void __launch_bounds__(K7_THREADS, 1) fused_net_batch_kernel(WholeNet
                        weights_ready, weights_read);
     }
     __syncthreads();  // the last unit's spike tile is complete
-    flow_tile(a, ((L - 1) & 1) ? tile_b : tile_a, pw, b, th0, tw0);
+    if (k7_keeps(K7_CUT_FLOW)) flow_tile(a, ((L - 1) & 1) ? tile_b : tile_a, pw, b, th0, tw0);
   }
 }
 

@@ -12,20 +12,20 @@ recurrent units, as the net stacks them), its intercept what an item and
 the launch cost besides. The input is one Poisson(0.05) count window drawn
 with numpy from seed 0.
 
-With ``--split`` it times K7 alone (B=2, bf16 state unless asked
-otherwise) in variant builds of ``csrc/fused_net_batch.cu``, each with one
-part of the kernel taken out (``VARIANTS``): the state loads of the
-epilogue, its stores, the recurrent spike staging, the weight staging, the
-event staging, the fragment loads and mma, the whole epilogue, the flow,
-the second round of 32-pixel pairs (K7's first version had two rounds a unit at
-L=7). Each variant's source is a copy of the checkout's
-``csrc`` under ``evflow_torch/_build/split/<variant>`` with one text
-patch, built with ``nvcc`` (``cuda_build.NVCC_FLAGS``, all variants at
-once) and loaded in place of the kernel's entry point; a variant whose
-text the checkout does not hold is reported and skipped. The variants
-compute wrong results: they time, nothing more. The difference of a
-variant's slope from the full kernel's is what that part costs a unit.
-The full kernel is timed first and last, so drift shows.
+With ``--split`` it times K7 alone (B=2, bf16 state) in variant builds of
+``csrc/fused_net_batch.cu``, each with one part of the kernel taken out
+(``VARIANTS``): the state loads of the epilogue, its stores, the whole
+epilogue, the recurrent spike staging, the weight staging, the event
+staging, the fragment loads and mma, the flow, every round of 16-pixel
+fragments after a unit's first. A part is a ``k7_keeps(K7_CUT_<part>)``
+test in the source, taken out by building with ``-DK7_CUT=K7_CUT_<part>``
+(``cuda_build.NVCC_FLAGS``, every variant's ``nvcc`` started at once,
+into ``evflow_torch/_build/split/<variant>``) and loaded in place of the
+kernel's entry point. A checkout whose source lacks a part's test is
+refused, and a part the source does not declare fails the build. The
+variants compute wrong results: they time, nothing more. The difference
+of a variant's slope from the full kernel's is what that part costs a
+unit. The full kernel is timed first and last, so drift shows.
 
 It calls the runners alone, so it times the kernels of any checkout that
 has them, for instance an earlier commit unpacked with ``git archive``:
@@ -56,67 +56,22 @@ KERNELS = {  # name: (module under evflow_torch.ops, runner class)
     "K5": ("fused_net_loop2", "LoopFireNet"),
 }
 HEIGHT = WIDTH = 256
+ITERS = 20  # calls timed back to back for one CUDA-event time
+SPLIT_BATCH, SPLIT_STATE = 2, "bf16"
 
-# K7's variants: name -> alternatives, each a list of (file under csrc, text,
-# replacement); the first alternative whose texts the checkout holds, each
-# exactly once, is applied. The first alternatives patch K7's own pieces in
-# fused_net_batch.cu, the second the shared pieces that the first K7 ran
-# (fused_net_common.cuh: uniform_tile, conv_region, UnitEpilogue), which
-# stay in later checkouts for K4 and K5.
+# K7's variants for --split: name -> the part taken out (csrc/fused_net_batch.cu,
+# enum K7Cut), None for the full kernel
 VARIANTS = {
-    "full": [[]],
-    "no_state_loads": [  # the epilogue's membrane loads read as zeros
-        [("fused_net_batch.cu",
-          "          if (in[half]) m[half][nf][j] = ld_nc<S>(mem_in + o);\n", "")],
-        [("fused_net_common.cuh", "ld_state<S>(mem_in, i), prm[C + c]", "0.f, prm[C + c]")],
-    ],
-    "no_state_stores": [  # no membrane or kept-spike store
-        [("fused_net_batch.cu", "              st_state(mem_out + o, m2);\n"
-          "              if (spk_out != nullptr) st_state(spk_out + o, s);\n", "")],
-        [("fused_net_common.cuh", "        st_state(mem_out, i, m2);\n"
-          "        if (spk_out != nullptr) st_state(spk_out, i, s);\n", "")],
-    ],
-    "no_epilogue": [  # no LIF update, no state load or store (K7's first version:
-        # no spike written to the next unit's tile either)
-        [("fused_net_batch.cu", "          if (in[half]) {\n", "          if (false) {\n")],
-        [("fused_net_common.cuh",
-          "              epi(rr[mf][half], cc[mf][half], nf * 8 + 2 * q + j, "
-          "acc[mf][nf][2 * half + j]);\n", "")],
-    ],
-    "no_spike_stage": [  # the recurrent units' previous spikes are not staged
-        [("fused_net_batch.cu", "        stage_prev_spikes<S>(",
-          "        if (false) stage_prev_spikes<S>(")],
-        [("fused_net_common.cuh",
-          "    if (rec) stage_spikes<S>(a, a.spk_in[l], b, oh, ow, bh, bw, bufP);\n", "")],
-    ],
-    "no_weight_stage": [  # no unit's weights are staged (the buffers are read as they lie)
-        [("fused_net_batch.cu",
-          "  if (threadIdx.x < 32) issue_unit_weights(a, 0, wsm, wbar);\n", ""),
-         ("fused_net_batch.cu", "        if (last && next_l >= 0) {", "        if (false) {"),
-         ("fused_net_batch.cu", "[&]() { mbar_wait(wbar, u & 1); }", "[&]() {}")],
-        [("fused_net_common.cuh", "    stage_unit_weights(a.wk[l], ck, wsm);\n", "")],
-    ],
-    "no_x_stage": [  # the event input is not staged
-        [("fused_net_batch.cu", "    stage_events(", "    if (false) stage_events(")],
-        [("fused_net_common.cuh", "  stage_x(a, b, oh, ow, bh, bw, bufP);\n", "")],
-    ],
-    "no_mma": [  # no fragment load and no mma: the k loop is empty
-        [("fused_net_batch.cu", "for (int tap = 0; tap < 9; ++tap) {",
-          "for (int tap = 0; tap < 0; ++tap) {")],
-        [("fused_net_common.cuh", "for (int tap = 0; tap < 9; ++tap) {",
-          "for (int tap = 0; tap < 0; ++tap) {")],
-    ],
-    "no_pred": [  # no flow: the pred head is not run
-        [("fused_net_batch.cu", "    flow_tile(a, ", "    if (false) flow_tile(a, ")],
-        [("fused_net_common.cuh",
-          "  pred_tile(a, ((L - 1) & 1) ? bufB : bufA, bw, L, b, th0, tw0, U_TH, U_TW);\n", "")],
-    ],
-    "one_round": [  # at most one 32-pixel pair a warp and unit
-        [("fused_net_batch.cu", "  const int n_work = (n_out + 15) >> 4;\n",
-          "  const int n_work = min((n_out + 15) >> 4, K7_WARPS);\n")],
-        [("fused_net_common.cuh", "  const int n_pairs = (n_out + 31) >> 5;\n",
-          "  const int n_pairs = min((n_out + 31) >> 5, NWARPS);\n")],
-    ],
+    "full": None,
+    "no_state_loads": "K7_CUT_STATE_LOADS",
+    "no_state_stores": "K7_CUT_STATE_STORES",
+    "no_epilogue": "K7_CUT_EPILOGUE",
+    "no_spike_stage": "K7_CUT_SPIKE_STAGE",
+    "no_weight_stage": "K7_CUT_WEIGHT_STAGE",
+    "no_x_stage": "K7_CUT_EVENT_STAGE",
+    "no_mma": "K7_CUT_MMA",
+    "no_pred": "K7_CUT_FLOW",
+    "one_round": "K7_CUT_SECOND_ROUND",
 }
 
 
@@ -129,7 +84,7 @@ def fit(xs, ys):
     return slope, my - slope * mx
 
 
-def device_ms(fn, iters: int = 20, rounds: int = 3) -> float:
+def device_ms(fn, iters: int = ITERS, rounds: int = 3) -> float:
     """The best of ``rounds`` CUDA-event times of ``iters`` calls back to
     back, per call, after warm-up; the card sleeps while the host enqueues.
     Kept here, not taken from the package under test, so that every
@@ -166,7 +121,7 @@ def first_units(runner, n: int):
     return runner
 
 
-def unit_times(kernel: str, batch: int, state: str, layers=LAYERS, iters: int = 20):
+def unit_times(kernel: str, batch: int, state: str, layers=LAYERS):
     """K7 or K5 (``kernel``) on the card at ``batch`` x 256^2 in ``state``
     over the first L units of the seeded LIFFireNet, for each L of
     ``layers``: a row per L with its ms, and the fit ``{"slope_ms",
@@ -195,50 +150,45 @@ def unit_times(kernel: str, batch: int, state: str, layers=LAYERS, iters: int = 
         runner = first_units(cls(fused, state_dtype=dtype), n)
         states = runner.init_states(batch, HEIGHT, WIDTH)
         _, states = runner.step(x, states)  # spiking states, not zeros
-        ms = device_ms(lambda: runner.step(x, states), iters)
+        ms = device_ms(lambda: runner.step(x, states))
         rows.append({"kernel": kernel, "batch": batch, "state": state, "L": n, "ms": ms})
     slope, intercept = fit([r["L"] for r in rows], [r["ms"] for r in rows])
     return rows, {"kernel": kernel, "batch": batch, "state": state, "slope_ms": slope,
                   "intercept_ms": intercept}
 
 
-def variant_sources(root: Path, names):
-    """Each variant's patched copy of ``root``'s csrc under
-    ``evflow_torch/_build/split/<name>``: {name: directory}, and {name:
-    why it was skipped} for a variant whose texts the checkout does not
-    hold."""
-    csrc = root / "evflow_torch" / "csrc"
-    dirs, skipped = {}, {}
-    for name in names:
-        texts = {p.name: p.read_text() for p in csrc.iterdir() if p.suffix in (".cu", ".cuh")}
-        for alt in VARIANTS[name]:
-            if all(texts.get(f, "").count(old) == 1 for f, old, _ in alt):
-                break
-        else:
-            skipped[name] = "the checkout holds none of the variant's texts"
-            continue
-        for f, old, new in alt:
-            texts[f] = texts[f].replace(old, new)
+def missing_hooks(root: Path):
+    """The variants whose part ``root``'s K7 source has no
+    ``k7_keeps(K7_CUT_<part>)`` test for: a build with that part taken out
+    would time the full kernel."""
+    src = (root / "evflow_torch" / "csrc" / "fused_net_batch.cu").read_text()
+    return [name for name, cut in VARIANTS.items()
+            if cut is not None and f"k7_keeps({cut})" not in src]
+
+
+def build_variants(root: Path):
+    """``libfused_net_batch.so`` of every variant under
+    ``evflow_torch/_build/split/<name>``, one ``nvcc`` each, all started
+    together, with its ptxas report beside it as ``ptxas.txt``: {name:
+    directory}. Raises on a source without a variant's test or a failed
+    build."""
+    from evflow_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
+
+    missing = missing_hooks(root)
+    if missing:
+        raise RuntimeError(f"csrc/fused_net_batch.cu has no k7_keeps test for {missing}")
+    src = root / "evflow_torch" / "csrc" / "fused_net_batch.cu"
+    nvcc = nvcc_path()
+    dirs, procs = {}, {}
+    for name, cut in VARIANTS.items():
         d = root / "evflow_torch" / "_build" / "split" / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for f, text in texts.items():
-            (d / f).write_text(text)
         dirs[name] = d
-    return dirs, skipped
-
-
-def build_variants(dirs):
-    """``libfused_net_batch.so`` in each variant's directory, one ``nvcc``
-    each, all started together, with its ptxas report beside it as
-    ``ptxas.txt``; raises on a failed build."""
-    from evflow_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
-
-    nvcc = nvcc_path()
-    procs = {name: subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(d / "libfused_net_batch.so"),
-                                     str(d / "fused_net_batch.cu")],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name, d in dirs.items()}
+        flags = [] if cut is None else [f"-DK7_CUT={cut}"]
+        procs[name] = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *flags, "-o", str(d / "libfused_net_batch.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     failed = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -247,43 +197,36 @@ def build_variants(dirs):
             failed[name] = log[-2000:]
     if failed:
         raise RuntimeError(f"variant builds failed: {failed}")
+    return dirs
 
 
-def split(root: Path, names, batch: int, state: str, iters: int):
-    """K7's fit in each variant build (``VARIANTS``), the full kernel first
-    and last: a JSON-ready row per fit, and the skipped variants."""
+def split(root: Path):
+    """K7's fit at B=2, bf16 state, in every variant build (``VARIANTS``),
+    the full kernel first and last: a JSON-ready row per fit, with the
+    part taken out."""
     from evflow_torch.ops import cuda_build
 
-    dirs, skipped = variant_sources(root, names)
-    build_variants(dirs)
-    order = list(dirs)
-    if "full" in dirs:
-        order = ["full"] + [n for n in order if n != "full"] + ["full"]
+    dirs = build_variants(root)
+    order = ["full"] + [n for n in VARIANTS if n != "full"] + ["full"]
     out = []
     for name in order:
         fn = ctypes.CDLL(str(dirs[name] / "libfused_net_batch.so")).fused_net_batch
         fn.argtypes = cuda_build.SIGNATURES["fused_net_batch"]
         fn.restype = ctypes.c_int
         cuda_build._ENTRIES["fused_net_batch"] = fn
-        rows, line = unit_times("K7", batch, state, iters=iters)
-        out.append({"variant": name, "points_ms": [r["ms"] for r in rows], **line})
+        rows, line = unit_times("K7", SPLIT_BATCH, SPLIT_STATE)
+        out.append({"variant": name, "cut": VARIANTS[name] or "K7_CUT_NONE",
+                    "points_ms": [r["ms"] for r in rows], **line})
     cuda_build._ENTRIES.pop("fused_net_batch", None)
-    return out, skipped
+    return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=None,
                     help="the checkout whose evflow_torch to time (default: this one)")
-    ap.add_argument("--kernels", default="K7,K5", help="comma-separated subset of K7,K5")
-    ap.add_argument("--batch", default="2,8", help="comma-separated batch sizes")
-    ap.add_argument("--state", default="bf16,f32", help="comma-separated state dtypes")
-    ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--split", action="store_true",
-                    help="time K7's variant builds (VARIANTS) instead, at the first "
-                         "batch and state given")
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated subset of the variants for --split")
+                    help="time K7's variant builds (VARIANTS) instead, at B=2, bf16 state")
     args = ap.parse_args(argv)
     root = Path(args.tree).resolve() if args.tree else Path(__file__).resolve().parents[2]
     sys.path.insert(0, str(root))
@@ -301,23 +244,14 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     card = describe_card()
-    batches = [int(b) for b in args.batch.split(",")]
-    states = args.state.split(",")
     if args.split:
-        names = [n for n in args.variants.split(",") if n]
-        unknown = set(names) - set(VARIANTS)
-        if unknown:
-            ap.error(f"unknown variants {sorted(unknown)}")
-        rows, skipped = split(root, names, batches[0], states[0], args.iters)
-        for r in rows:
+        for r in split(root):
             print(json.dumps({"tree": str(root), **r, "card": card}), flush=True)
-        for name, why in skipped.items():
-            print(json.dumps({"tree": str(root), "variant": name, "skipped": why}), flush=True)
         return 0
-    for kernel in args.kernels.split(","):
-        for batch in batches:
-            for state in states:
-                rows, line = unit_times(kernel, batch, state, iters=args.iters)
+    for kernel in KERNELS:
+        for batch in BATCHES:
+            for state in STATES:
+                rows, line = unit_times(kernel, batch, state)
                 for r in rows + [line]:
                     print(json.dumps({"tree": str(root), **r, "card": card}), flush=True)
     return 0

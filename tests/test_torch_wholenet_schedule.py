@@ -4,7 +4,9 @@ pixel of every (b, tile) item written once per unit, the last unit's
 extent the owned tile, the shared memory within a CTA's for every unit
 count and recurrent mask, the mirror's constants those of the source, and
 ``chip_smoke.issued_flops``'s count of K7's mma work on the shrinking
-extent beside K5's on the uniform one."""
+extent beside K5's on the uniform one, and the parts that
+``probes/wholenet_slope.py --split`` takes out declared and tested in the
+source."""
 
 import ctypes
 import itertools
@@ -17,6 +19,7 @@ import torch
 
 from evflow_torch.ops import fused_net_batch as K7
 from evflow_torch.ops.fused_net import WholeNetArgs, WholeNetWeights
+from evflow_torch.probes import wholenet_slope as S
 
 CSRC = Path(K7.__file__).resolve().parents[1] / "csrc"
 SMEM_LIMIT = 232448  # shared memory of one CTA on an H100
@@ -95,6 +98,22 @@ def test_mirror_constants_match_the_source():
                   "s.bars = s.prm + (a.L * 3 * C + 2 * C + 2) * 4;",
                   "s.total = s.bars + 16;"):
         assert piece in layout
+
+
+@pytest.mark.parametrize("variant", sorted(set(S.VARIANTS) - {"full"}))
+def test_split_variant_has_its_hook(variant):
+    """Each variant of ``wholenet_slope --split`` takes out a part that the
+    K7 source declares (``enum K7Cut``) and tests (``k7_keeps``), so that
+    its build times a kernel without that part; the full build takes out
+    nothing, and no declared part lacks a variant."""
+    src = (CSRC / "fused_net_batch.cu").read_text()
+    declared = re.findall(r"^\s+(K7_CUT_\w+),", re.search(r"enum K7Cut \{(.*?)\};", src, re.S)
+                          .group(1), re.M)
+    cut = S.VARIANTS[variant]
+    assert cut in declared and f"k7_keeps({cut})" in src
+    assert S.VARIANTS["full"] is None and declared[0] == "K7_CUT_NONE"
+    assert sorted(declared[1:]) == sorted(c for c in S.VARIANTS.values() if c)
+    assert S.missing_hooks(CSRC.parents[1]) == []
 
 
 def runner_of(mask):
