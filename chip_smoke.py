@@ -9,8 +9,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. ``build``: compile the hand-written CUDA kernels from ``evflow_torch/csrc``
    (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
    and print ptxas's registers, stack and spill bytes of the redesigned
-   kernels (K7's two ``fused_net_batch_kernel`` instantiations, the
-   in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
+   kernels (K7's two ``fused_net_batch_kernel`` instantiations, K5's two
+   ``fused_net_loop2_kernel`` and K4's eight ``fused_net_loop_kernel``
+   ones, the in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
    ``load_dot_f32_kernel``, k12's ``load_dot_bf16_kernel``, k7's
    ``conv_sum_kernel``, K8e's 4 ``layer_grid_kernel`` instantiations, the
    ``store_kernel`` of k3 and k11 and the ``store_bulk_kernel`` of k4 and
@@ -42,10 +43,13 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (phase 2's bars, flow within 1e-4 on all but 1e-5 of its elements) and
    against the per-layer FusedFireNet (phase 3's bar; its free-running f32
    trajectory too, held for f32 state only), the five kernels' flows
-   bit-equal; device times at B=2 and B=8 beside the plain version and the
-   bound, the per-layer step and 7 cuDNN convs as yardsticks; K7's and
-   K5's times over the first L = 1, 3, 5, 7 units at B=2 and B=8 in bf16
-   state and their fit (``probes/wholenet_slope.py``); 300-window
+   bit-equal; device times at B=2 and B=8 beside the plain version, the
+   bound and the mma work issued (K4, K5 and K7 share the item body of
+   ``csrc/fused_net_item.cuh``: each unit over the 16x16 tile grown by
+   L-1-l pixels, in 16-pixel fragments), the per-layer step and 7 cuDNN
+   convs as yardsticks; K7's and K5's times over the first L = 1, 3, 5, 7
+   units at B=2 and B=8 in bf16 state and their fit
+   (``probes/wholenet_slope.py``); 300-window
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
    just before and read just after (1 launch per window).
@@ -378,13 +382,18 @@ def phase_build(state):
         raise SystemExit(f"a redesigned kernel has a stack frame or spills: {redesigned}")
 
 
-# the kernels redesigned for the card's speed, per source: both K7
-# instantiations (f32 and bf16 state), every instantiation
+# the kernels redesigned for the card's speed, per source: the K7 and K5
+# instantiations (f32 and bf16 state), K4's for each compiled unit layout
+# (units, recurrent mask) and state, every instantiation
 # probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, k12,
 # k7, every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3
 # and k11 and the bulk store of k4 and k8
 REDESIGNED = {
     "fused_net_batch": ("fused_net_batch_kernel<float>", "fused_net_batch_kernel<__nv_bfloat16>"),
+    "fused_net_loop2": ("fused_net_loop2_kernel<float>", "fused_net_loop2_kernel<__nv_bfloat16>"),
+    "fused_net_loop": tuple(f"fused_net_loop_kernel<{layout},{s}>"
+                            for layout in ("7,18", "5,10", "7,0", "5,0")
+                            for s in ("float", "__nv_bfloat16")),
     "probe_inkernel_dot": tuple(f"probe_kernel<{a}>" for a in (
         "32,0,1,0", "32,0,1,1",                          # f32 accumulation, pixel-major
         "32,0,0,0", "32,0,0,1", "16,0,0,0", "16,0,0,1",  # f32, channel-major
@@ -655,8 +664,10 @@ def issued_flops(kname, runner, batch):
     """bf16 tensor-core flops that the kernel's mma instructions issue for
     one window at ``batch`` x 256^2, halo recompute, channel padding (the
     head's 2 channels run as 16) and ragged 32-pixel fragment pairs
-    included (K7: 16-pixel fragments); the tile shapes are those of
+    included (K4, K5, K7: 16-pixel fragments); the tile shapes are those of
     ``evflow_torch/csrc``."""
+    from evflow_torch.ops.fused_net_item import item_count, item_extent
+
     w = runner.weights
     L = w.num_units
     ck = [t.shape[1] // 9 for t in w.wk]
@@ -674,10 +685,9 @@ def issued_flops(kname, runner, batch):
         px = [pairs((16 + 2 * (L - 1 - l)) ** 2) * tiles(16, 16) for l in range(L)]
     elif kname == "fused_firenet_step_lgrid":  # 8x32 tiles, no halo recompute
         px = [pairs(8 * 32) * tiles(8, 32)] * L
-    elif kname == "fused_firenet_step_batch":  # K7: 16x16 tiles, unit l's grown by L-1-l
-        px = [frags((16 + 2 * (L - 1 - l)) ** 2) * tiles(16, 16) for l in range(L)]
-    else:  # K4 / K5: 8x16 tiles, uniform (8 + 2(L-1)) x (16 + 2(L-1)) extent
-        px = [pairs((8 + 2 * (L - 1)) * (16 + 2 * (L - 1))) * tiles(8, 16)] * L
+    else:  # K4 / K5 / K7: 16x16 items, unit l's extent grown by L-1-l
+        px = [frags(item_extent(l, L)[0] * item_extent(l, L)[1])
+              * item_count(batch, H_BENCH, W_BENCH) for l in range(L)]
     return sum(2 * p * w.channels * 9 * k for p, k in zip(px, ck))
 
 

@@ -23,6 +23,11 @@
 // [h | prev] channels), the same order as conv_lif_common.cuh. Membranes
 // are read and written straight from the accumulator fragments; spikes for
 // the next unit go to shared memory (K3, K4, K5, K7) or to device memory (K6).
+// K3 and K6 stage with the pieces below (stage_x, stage_spikes,
+// stage_unit_weights: a thread an element) and run conv_region's 32-pixel
+// pairs; K4, K5 and K7 run fused_net_item.cuh's item body, which stages a
+// pixel a lane, refills one weight buffer by TMA bulk copies and takes m16
+// fragments.
 #pragma once
 
 #include "conv_lif_common.cuh"
@@ -173,9 +178,7 @@ __device__ __forceinline__ void mma_k16(const __nv_bfloat16* buf, int pitch,
 // the staged tiles, which are wo + 2 pixels wide: hbuf holds the unit's
 // input (ck_h channels, pitch hpitch), pbuf its previous spikes (recurrent
 // units; null otherwise). Warps take 32-pixel pairs of m16 fragments in
-// turn; epi(r, c, channel, acc) receives every output once. Always
-// inlined, so a caller that passes compile-time geometry (K4) gets loops with
-// constant trip counts and offsets.
+// turn; epi(r, c, channel, acc) receives every output once.
 template <int NWARPS, class Epi>
 __device__ __forceinline__ void conv_region(const __nv_bfloat16* hbuf, int hpitch, int ck_h,
                                             const __nv_bfloat16* pbuf, const __nv_bfloat16* wsm,
@@ -310,64 +313,6 @@ __device__ void pred_tile(const WholeNetArgs& a, const __nv_bfloat16* buf, int b
     for (int c = 0; c < C; ++c) acc = __fmaf_rn(__bfloat162float(s[c]), a.pred_w[c * 2 + o], acc);
     a.flow[((static_cast<size_t>(b) * a.H + h) * a.W + w) * 2 + o] = tanhf(acc + a.pred_b[o]);
   }
-}
-
-// ---------------------------------------------------------------------------
-// K4 / K5 / K7: one tile with a uniform extent
-// ---------------------------------------------------------------------------
-
-constexpr int U_TH = 8, U_TW = 16;  // owned tile
-constexpr int U_THREADS = 512;
-// staged tiles are (U_TH + 2L) x (U_TW + 2L) pixels: the owned tile, the
-// L-1 pixels of garbage that the uniform extent lets in, and a zero ring
-constexpr int U_PX = (U_TH + 2 * MAX_UNITS) * (U_TW + 2 * MAX_UNITS);
-constexpr size_t U_SMEM =
-    (3 * static_cast<size_t>(U_PX) * SPITCH + static_cast<size_t>(C) * WPITCH_MAX) *
-    sizeof(__nv_bfloat16);
-
-__device__ void uniform_zero(__nv_bfloat16* smem) {
-  uint4* p = reinterpret_cast<uint4*>(smem);
-  for (int i = threadIdx.x; i < 2 * U_PX * SPITCH / 8; i += blockDim.x) p[i] = make_uint4(0, 0, 0, 0);
-}
-
-// Every unit computes the same (U_TH + 2L - 2) x (U_TW + 2L - 2) region; the
-// event input and previous spikes are staged with one more pixel around it
-// (real values), unit outputs go to the interior of ping-pong tiles whose
-// one-pixel ring stays zero. A unit's output is exact one pixel further in
-// than its input, so after L units the owned tile is exact.
-//
-// With NL = 0 the unit count and which units are recurrent are read from the
-// arguments and the unit loop stays rolled (K5, K7). K4 passes them as NL
-// and the bit mask REC: the unit loop unrolls, and every unit's input
-// channels, weight pitch, extent and k loop become compile-time constants.
-template <class S, int NL = 0, unsigned REC = 0u>
-__device__ __forceinline__ void uniform_tile(const WholeNetArgs& a, int b, int th0, int tw0,
-                                             __nv_bfloat16* smem) {
-  __nv_bfloat16* bufA = smem;
-  __nv_bfloat16* bufB = bufA + U_PX * SPITCH;
-  __nv_bfloat16* bufP = bufB + U_PX * SPITCH;
-  __nv_bfloat16* wsm = bufP + U_PX * SPITCH;
-  const int L = NL > 0 ? NL : a.L;
-  const int bh = U_TH + 2 * L, bw = U_TW + 2 * L;
-  const int oh = th0 - L, ow = tw0 - L;  // image position of tile pixel (0, 0)
-  __syncthreads();  // the previous tile is done with the shared tiles
-  stage_x(a, b, oh, ow, bh, bw, bufP);
-#pragma unroll (NL > 0 ? NL : 1)
-  for (int l = 0; l < L; ++l) {
-    const bool rec = NL > 0 ? ((REC >> l) & 1u) != 0u : recurrent(a, l);
-    const int ck = NL > 0 ? (l == 0 ? 16 : (rec ? 2 * C : C)) : a.ck[l];
-    stage_unit_weights(a.wk[l], ck, wsm);
-    if (rec) stage_spikes<S>(a, a.spk_in[l], b, oh, ow, bh, bw, bufP);
-    __syncthreads();
-    const __nv_bfloat16* in = l == 0 ? bufP : ((l & 1) ? bufA : bufB);
-    __nv_bfloat16* out = (l & 1) ? bufB : bufA;
-    const UnitEpilogue<S> epi = unit_epilogue<S>(a, l, b, oh + 1, ow + 1, th0, tw0, th0 + U_TH,
-                                                 tw0 + U_TW, out, bw, 1);
-    conv_region<U_THREADS / 32>(in, l == 0 ? XPITCH : SPITCH, ck - (rec ? C : 0),
-                                rec ? bufP : nullptr, wsm, ck, bw - 2, (bh - 2) * (bw - 2), epi);
-    __syncthreads();
-  }
-  pred_tile(a, ((L - 1) & 1) ? bufB : bufA, bw, L, b, th0, tw0, U_TH, U_TW);
 }
 
 // Kernel arguments -> shared memory, so that per-unit pointers indexed by a

@@ -1,62 +1,44 @@
-// The whole FireNet step in one launch, units unrolled at compile time over
-// a uniform extent, recurrent units' spikes only (K4), for sm_90a.
+// The whole FireNet step in one launch, units unrolled at compile time,
+// recurrent units' spikes only (K4), for sm_90a.
 //
 // Replaces the TPU kernel
 // benchmarks/pallas_archive/fused_net_loop.py::fused_firenet_step_loop
 // (Pallas, body `_make_kernel`): one grid step per (b, row tile) runs every
-// unit over the same extent, its unit loop unrolled in Python so that every
-// weight, state and spike-slot index is a constant, and writes the
-// membranes and only the R recurrent units' spikes. Function and shared
-// pieces: fused_net_common.cuh.
+// unit, its unit loop unrolled in Python so that every weight, state and
+// spike-slot index is a constant, and writes the membranes and only the R
+// recurrent units' spikes. Function: fused_net_common.cuh.
 //
-// Schedule. K5's tile (uniform_tile in fused_net_common.cuh): one CTA of 16
-// warps per (b, 8x16 output tile), every unit over the same
-// (8 + 2(L-1)) x (16 + 2(L-1)) extent, three 22x30-pixel tiles and one
-// unit's weights in 191 KB of shared memory, one CTA per SM. The TPU's tile
-// (16 rows x the whole width, a 32-row extent) would need ~512 KB and has
-// no counterpart here. What K4 adds to K5 is the unroll: the kernel is a
-// template on the unit count and on which units are recurrent (LIFFireNet,
-// LIFFireNet_short and their feedforward variants), which uniform_tile takes
-// as its NL and REC: every unit's input channels, weight pitch, extent and k
-// loop are compile-time constants and each unit's conv compiles into its own
-// straight-line code, where K5 runs one body with runtime trip counts
-// (`#pragma unroll 1`). The same k order and LIF epilogue as
-// K1/K3/K5/K6/K7: with f32 state the five whole-network kernels are
-// bit-equal.
+// Schedule. K5's grid (fused_net_loop2.cu): one CTA of 16 warps per (b,
+// 16 x 16 item), each the item body of fused_net_item.cuh. What K4 adds is
+// the unroll: the kernel is a template on the unit count and on which
+// units are recurrent (LIFFireNet, LIFFireNet_short and their feedforward
+// variants), which run_item takes as its NL and REC: every unit's input
+// channels, weight pitch, extent and work count are compile-time constants
+// and each unit compiles into its own code, where K5 runs one body with
+// runtime trip counts. The tap and k loops stay as K5's. The same k order
+// and LIF epilogue as K1/K3/K5/K6/K7: with f32 state the five whole-network
+// kernels are bit-equal.
 //
 // Bound on an H100 SXM (B=2, 256x256): input, membranes in and out, the
 // recurrent units' spikes in and out and the flow, once each: ~153 MB with
-// bf16 state -> 0.0457 ms at 3.35 TB/s (0.091 ms f32), K3's bytes; K5 also
-// writes its slot 2. The uniform extent issues 4.4x the useful MACs (92.4
-// GFLOP of mma per window at B=2), as K5. Single stage, as fused_net.cu.
+// bf16 state -> 0.0457 ms at 3.35 TB/s (0.091 ms f32), K3's bytes. 39.94
+// GFLOP of mma issued a window at B=2, as K5 and K7.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libfused_net_loop.so fused_net_loop.cu
-#include "fused_net_common.cuh"
+#include "fused_net_item.cuh"
 
 namespace evflow {
 namespace wholenet {
 
 template <int L, unsigned REC, class S>
-__global__ void __launch_bounds__(U_THREADS, 1) fused_net_loop_kernel(WholeNetArgs args) {
+__global__ void __launch_bounds__(ITEM_THREADS, 1) fused_net_loop_kernel(WholeNetArgs args) {
   __shared__ WholeNetArgs a;
   copy_args(args, a);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  uniform_zero(smem);
-  uniform_tile<S, L, REC>(a, blockIdx.z, blockIdx.y * U_TH, blockIdx.x * U_TW, smem);
-}
-
-template <int L, unsigned REC, class S>
-int launch(WholeNetArgs& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fused_net_loop_kernel<L, REC, S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(U_SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.W + U_TW - 1) / U_TW, (a.H + U_TH - 1) / U_TH, a.B);
-  fused_net_loop_kernel<L, REC, S><<<grid, U_THREADS, U_SMEM, stream>>>(a);
-  a.grid = static_cast<int>(grid.x * grid.y * grid.z);
-  return static_cast<int>(cudaGetLastError());
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const ItemSmem sm = item_start(a, smem_raw);
+  int u = 0;
+  run_item<S, L, REC>(a, sm, blockIdx.x, u, false);
 }
 
 // The unit layouts compiled in: (L, recurrent-unit mask) of LIFFireNet
@@ -67,10 +49,11 @@ int launch_layout(WholeNetArgs& a, cudaStream_t stream) {
   for (int l = 0; l < a.L; ++l) {
     if (recurrent(a, l)) rec |= 1u << l;
   }
-  if (a.L == 7 && rec == 0x12u) return launch<7, 0x12u, S>(a, stream);
-  if (a.L == 5 && rec == 0x0Au) return launch<5, 0x0Au, S>(a, stream);
-  if (a.L == 7 && rec == 0u) return launch<7, 0u, S>(a, stream);
-  if (a.L == 5 && rec == 0u) return launch<5, 0u, S>(a, stream);
+  auto go = [&](auto kernel) { return launch_items(kernel, a, stream, false); };
+  if (a.L == 7 && rec == 0x12u) return go(fused_net_loop_kernel<7, 0x12u, S>);
+  if (a.L == 5 && rec == 0x0Au) return go(fused_net_loop_kernel<5, 0x0Au, S>);
+  if (a.L == 7 && rec == 0u) return go(fused_net_loop_kernel<7, 0u, S>);
+  if (a.L == 5 && rec == 0u) return go(fused_net_loop_kernel<5, 0u, S>);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,11 +23,11 @@
 // Design. One CTA per TW = 16 output columns keeps all E rows of the window
 // (one bf16 [C, E, W] window is 393 KB, beyond a CTA's 227 KB) and a halo of
 // HALO columns on each side (L rounded up to a multiple of 8), whose values
-// it recomputes each layer as K5's uniform extent does: every layer computes
-// the same TW + 2(L-1) columns on all E rows, and a layer's output is exact
-// one column further in than its input, so after L layers the owned columns
-// are exact. Rows need no halo: the window is the whole image in rows, and
-// the rows -1 and E of the buffers stay zero.
+// it recomputes each layer as the TPU's K5 (fused_net_loop2.py) does:
+// every layer computes the same TW + 2(L-1) columns on all E rows, and a
+// layer's output is exact one column further in than its input, so after L
+// layers the owned columns are exact. Rows need no halo: the window is the
+// whole image in rows, and the rows -1 and E of the buffers stay zero.
 //   Staging. x, each layer's membrane and (K8j) each layer's spike slot are
 // one TMA tensor copy each (cp.async.bulk.tensor.4d, a tensor map over
 // [slot|layer, C, E, W]) of the box [C][E][BW] at the runtime layer or slot

@@ -6,9 +6,10 @@ The same function as ``evflow_torch.ops.fused_net`` over the layout of
 ``LoopFusedFireNet`` without its row padding: membranes ``[L, B, C, H, W]``
 and one spike slot per recurrent unit, ``[max(R, 1), B, C, H, W]`` (a
 feedforward net keeps one zero slot, as the TPU layout does). The CUDA
-kernel (``evflow_torch/csrc/fused_net_loop.cu``) runs K5's tile with the
-unit loop unrolled for the unit layouts of the FireNet family; CPU tensors
-run ``firenet_step_plain``.
+kernel (``evflow_torch/csrc/fused_net_loop.cu``) runs K5's grid of (b, 16 x
+16) items (``evflow_torch.ops.fused_net_item``) with the unit loop unrolled
+for the unit layouts of the FireNet family; CPU tensors run
+``firenet_step_plain``.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ and three spike slots ``[3, B, C, H, W]``: slots 0 and 1 hold the recurrent
 units' spikes, slot 2 the spikes of the last feedforward unit (the TPU
 kernel writes every feedforward unit there in turn). Slot 2 is never read.
 The CUDA kernel (``evflow_torch/csrc/fused_net_loop2.cu``) runs one conv+LIF
-body in a runtime loop over the stacked weights; CPU tensors run
+body in a runtime loop over the stacked weights, a CTA per (b, 16 x 16)
+item (``evflow_torch.ops.fused_net_item``); CPU tensors run
 ``firenet_step_plain``.
 
 ``slotted_step`` serves every slot layout (K4's holds the recurrent units

@@ -1,5 +1,5 @@
 """K7's and K5's time against their unit count: what one more unit costs,
-and what a K7 unit's time is made of.
+and what their unit's time is made of.
 
 Times the whole-net step of K7 (``ops/fused_net_batch.py``,
 ``csrc/fused_net_batch.cu``) and K5 (``ops/fused_net_loop2.py``,
@@ -12,27 +12,29 @@ recurrent units, as the net stacks them), its intercept what an item and
 the launch cost besides. The input is one Poisson(0.05) count window drawn
 with numpy from seed 0.
 
-With ``--split`` it times K7 alone (B=2, bf16 state) in variant builds of
-``csrc/fused_net_batch.cu``, each with one part of the kernel taken out
-(``VARIANTS``): the state loads of the epilogue, its stores, the whole
-epilogue, the recurrent spike staging, the weight staging, the event
-staging, the fragment loads and mma, the flow, every round of 16-pixel
-fragments after a unit's first. A part is a ``k7_keeps(K7_CUT_<part>)``
-test in the source, taken out by building with ``-DK7_CUT=K7_CUT_<part>``
-(``cuda_build.NVCC_FLAGS``, every variant's ``nvcc`` started at once,
-into ``evflow_torch/_build/split/<variant>``) and loaded in place of the
-kernel's entry point. A checkout whose source lacks a part's test is
-refused, and a part the source does not declare fails the build. The
+With ``--split`` it times K7 and K5 (B=2, bf16 state) in variant builds of
+their sources (``csrc/fused_net_batch.cu``, ``csrc/fused_net_loop2.cu``),
+each with one part of their shared item body taken out (``VARIANTS``): the
+state loads of the epilogue, its stores, the whole epilogue, the recurrent
+spike staging, the weight staging, the event staging, the fragment loads
+and mma, the flow, every round of 16-pixel fragments after a unit's first.
+A part is an ``item_keeps(ITEM_CUT_<part>)`` test in
+``csrc/fused_net_item.cuh``, taken out by building a source with
+``-DITEM_CUT=ITEM_CUT_<part>`` (``cuda_build.NVCC_FLAGS``, every variant's
+``nvcc`` started at once, into ``evflow_torch/_build/split/<kernel>/<variant>``)
+and loaded in place of the kernel's entry point. A checkout whose header
+lacks a part's test, or whose kernel source does not run that header, is
+refused, and a part the header does not declare fails the build. The
 variants compute wrong results: they time, nothing more. The difference
 of a variant's slope from the full kernel's is what that part costs a
-unit. The full kernel is timed first and last, so drift shows.
+unit. Each kernel's full build is timed first and last, so drift shows.
 
 It calls the runners alone, so it times the kernels of any checkout that
 has them, for instance an earlier commit unpacked with ``git archive``:
 
     python -m evflow_torch.probes.wholenet_slope             # this checkout
     python evflow_torch/probes/wholenet_slope.py --tree DIR  # the package under DIR
-    python -m evflow_torch.probes.wholenet_slope --split     # K7's variants
+    python -m evflow_torch.probes.wholenet_slope --split     # K7's and K5's variants
 
 Each run prints one JSON line per point and one per fit, with the card's
 name and power limit; it needs a CUDA card.
@@ -59,20 +61,21 @@ HEIGHT = WIDTH = 256
 ITERS = 20  # calls timed back to back for one CUDA-event time
 SPLIT_BATCH, SPLIT_STATE = 2, "bf16"
 
-# K7's variants for --split: name -> the part taken out (csrc/fused_net_batch.cu,
-# enum K7Cut), None for the full kernel
+# the variants for --split: name -> the part taken out (csrc/fused_net_item.cuh,
+# enum ItemCut), None for the full kernel
 VARIANTS = {
     "full": None,
-    "no_state_loads": "K7_CUT_STATE_LOADS",
-    "no_state_stores": "K7_CUT_STATE_STORES",
-    "no_epilogue": "K7_CUT_EPILOGUE",
-    "no_spike_stage": "K7_CUT_SPIKE_STAGE",
-    "no_weight_stage": "K7_CUT_WEIGHT_STAGE",
-    "no_x_stage": "K7_CUT_EVENT_STAGE",
-    "no_mma": "K7_CUT_MMA",
-    "no_pred": "K7_CUT_FLOW",
-    "one_round": "K7_CUT_SECOND_ROUND",
+    "no_state_loads": "ITEM_CUT_STATE_LOADS",
+    "no_state_stores": "ITEM_CUT_STATE_STORES",
+    "no_epilogue": "ITEM_CUT_EPILOGUE",
+    "no_spike_stage": "ITEM_CUT_SPIKE_STAGE",
+    "no_weight_stage": "ITEM_CUT_WEIGHT_STAGE",
+    "no_x_stage": "ITEM_CUT_EVENT_STAGE",
+    "no_mma": "ITEM_CUT_MMA",
+    "no_pred": "ITEM_CUT_FLOW",
+    "one_round": "ITEM_CUT_SECOND_ROUND",
 }
+ITEM_HEADER = "fused_net_item.cuh"
 
 
 def fit(xs, ys):
@@ -158,66 +161,75 @@ def unit_times(kernel: str, batch: int, state: str, layers=LAYERS):
 
 
 def missing_hooks(root: Path):
-    """The variants whose part ``root``'s K7 source has no
-    ``k7_keeps(K7_CUT_<part>)`` test for: a build with that part taken out
-    would time the full kernel."""
-    src = (root / "evflow_torch" / "csrc" / "fused_net_batch.cu").read_text()
-    return [name for name, cut in VARIANTS.items()
-            if cut is not None and f"k7_keeps({cut})" not in src]
+    """What keeps ``root``'s checkout from a split: the variants whose part
+    its item header has no ``item_keeps(ITEM_CUT_<part>)`` test for, and
+    the kernels whose source does not include the header (a build with that
+    part taken out would time the full kernel)."""
+    csrc = root / "evflow_torch" / "csrc"
+    header = csrc / ITEM_HEADER
+    src = header.read_text() if header.exists() else ""
+    missing = [name for name, cut in VARIANTS.items()
+               if cut is not None and f"item_keeps({cut})" not in src]
+    return missing + [kernel for kernel, (module, _) in KERNELS.items()
+                      if f'#include "{ITEM_HEADER}"' not in (csrc / f"{module}.cu").read_text()]
 
 
 def build_variants(root: Path):
-    """``libfused_net_batch.so`` of every variant under
-    ``evflow_torch/_build/split/<name>``, one ``nvcc`` each, all started
-    together, with its ptxas report beside it as ``ptxas.txt``: {name:
-    directory}. Raises on a source without a variant's test or a failed
-    build."""
+    """Every kernel's (``KERNELS``) library in every variant under
+    ``evflow_torch/_build/split/<kernel>/<variant>``, one ``nvcc`` each, all
+    started together, with its ptxas report beside it as ``ptxas.txt``:
+    {(kernel, variant): directory}. Raises on a checkout that
+    ``missing_hooks`` refuses or a failed build."""
     from evflow_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
 
     missing = missing_hooks(root)
     if missing:
-        raise RuntimeError(f"csrc/fused_net_batch.cu has no k7_keeps test for {missing}")
-    src = root / "evflow_torch" / "csrc" / "fused_net_batch.cu"
+        raise RuntimeError(f"the item body cannot be split for {missing}: "
+                           f"csrc/{ITEM_HEADER} has no item_keeps test, or the source "
+                           "does not include it")
     nvcc = nvcc_path()
     dirs, procs = {}, {}
-    for name, cut in VARIANTS.items():
-        d = root / "evflow_torch" / "_build" / "split" / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        dirs[name] = d
-        flags = [] if cut is None else [f"-DK7_CUT={cut}"]
-        procs[name] = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *flags, "-o", str(d / "libfused_net_batch.so"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for kernel, (module, _) in KERNELS.items():
+        src = root / "evflow_torch" / "csrc" / f"{module}.cu"
+        for name, cut in VARIANTS.items():
+            d = root / "evflow_torch" / "_build" / "split" / kernel / name
+            shutil.rmtree(d, ignore_errors=True)
+            d.mkdir(parents=True)
+            dirs[kernel, name] = d
+            flags = [] if cut is None else [f"-DITEM_CUT={cut}"]
+            procs[kernel, name] = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *flags, "-o", str(d / f"lib{module}.so"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     failed = {}
-    for name, proc in procs.items():
+    for key, proc in procs.items():
         log, _ = proc.communicate()
-        (dirs[name] / "ptxas.txt").write_text(log)
+        (dirs[key] / "ptxas.txt").write_text(log)
         if proc.returncode != 0:
-            failed[name] = log[-2000:]
+            failed["/".join(key)] = log[-2000:]
     if failed:
         raise RuntimeError(f"variant builds failed: {failed}")
     return dirs
 
 
 def split(root: Path):
-    """K7's fit at B=2, bf16 state, in every variant build (``VARIANTS``),
-    the full kernel first and last: a JSON-ready row per fit, with the
-    part taken out."""
+    """Each kernel's fit at B=2, bf16 state, in every variant build
+    (``VARIANTS``), its full build first and last: a JSON-ready row per
+    fit, with the part taken out."""
     from evflow_torch.ops import cuda_build
 
     dirs = build_variants(root)
     order = ["full"] + [n for n in VARIANTS if n != "full"] + ["full"]
     out = []
-    for name in order:
-        fn = ctypes.CDLL(str(dirs[name] / "libfused_net_batch.so")).fused_net_batch
-        fn.argtypes = cuda_build.SIGNATURES["fused_net_batch"]
-        fn.restype = ctypes.c_int
-        cuda_build._ENTRIES["fused_net_batch"] = fn
-        rows, line = unit_times("K7", SPLIT_BATCH, SPLIT_STATE)
-        out.append({"variant": name, "cut": VARIANTS[name] or "K7_CUT_NONE",
-                    "points_ms": [r["ms"] for r in rows], **line})
-    cuda_build._ENTRIES.pop("fused_net_batch", None)
+    for kernel, (module, _) in KERNELS.items():
+        for name in order:
+            fn = getattr(ctypes.CDLL(str(dirs[kernel, name] / f"lib{module}.so")), module)
+            fn.argtypes = cuda_build.SIGNATURES[module]
+            fn.restype = ctypes.c_int
+            cuda_build._ENTRIES[module] = fn
+            rows, line = unit_times(kernel, SPLIT_BATCH, SPLIT_STATE)
+            out.append({"variant": name, "cut": VARIANTS[name] or "ITEM_CUT_NONE",
+                        "points_ms": [r["ms"] for r in rows], **line})
+        cuda_build._ENTRIES.pop(module, None)
     return out
 
 
@@ -226,7 +238,8 @@ def main(argv=None):
     ap.add_argument("--tree", default=None,
                     help="the checkout whose evflow_torch to time (default: this one)")
     ap.add_argument("--split", action="store_true",
-                    help="time K7's variant builds (VARIANTS) instead, at B=2, bf16 state")
+                    help="time K7's and K5's variant builds (VARIANTS) instead, at B=2, "
+                         "bf16 state")
     args = ap.parse_args(argv)
     root = Path(args.tree).resolve() if args.tree else Path(__file__).resolve().parents[2]
     sys.path.insert(0, str(root))

@@ -201,28 +201,47 @@ def random_wholenet(cuda, mask: str, hard: bool, seed: int):
         hard_reset=hard)
 
 
-@pytest.mark.parametrize("B,H,W,mask,dtype,hard", [
-    (1, 17, 40, "F", torch.float32, True),
-    (2, 40, 17, "FT", torch.bfloat16, False),
-    (3, 17, 17, "FTF", torch.float32, False),
-    (8, 40, 40, "FTTF", torch.bfloat16, True),
-    (2, 17, 256, "FFTFT", torch.float32, True),
-    (1, 256, 40, "FTFTFT", torch.bfloat16, False),
-    (8, 80, 64, "FTFFTFF", torch.bfloat16, True),
-    (2, 256, 256, "FTTTTTT", torch.float32, False),
-    (3, 40, 17, "FFFFFFF", torch.bfloat16, True),
-], ids=["B1-L1", "B2-L2", "B3-L3", "B8-L4-adjacent", "B2-L5", "B1-L6", "B8-L7-firenet",
-        "B2-L7-recurrent", "B3-L7-feedforward"])
-def test_batch_writes_every_owned_element(cuda, B, H, W, mask, dtype, hard):
-    """K7 launched into NaN-filled membranes, kept spikes and flow, against
-    ``firenet_step_plain`` under ``check_against_plain``'s bar: every
-    element is written (no NaN left) and agrees, at B = 1, 2, 3, 8, ragged
-    H and W, L = 1..7 units under several recurrent masks (two recurrent
-    units in a row; every unit after the head recurrent), both state dtypes
-    and both reset modes, with fewer (b, tile) items than CTAs and more
-    (B=8 at 80x64: 160 items of 16 x 16; B=2 at 256x256: 512)."""
-    from evflow_torch.ops.fused_net_batch import batch_items
+BATCH_CASES = {  # id: (B, H, W, mask, state dtype, hard reset)
+    "B1-L1": (1, 17, 40, "F", torch.float32, True),
+    "B2-L2": (2, 40, 17, "FT", torch.bfloat16, False),
+    "B3-L3": (3, 17, 17, "FTF", torch.float32, False),
+    "B8-L4-adjacent": (8, 40, 40, "FTTF", torch.bfloat16, True),
+    "B2-L5": (2, 17, 256, "FFTFT", torch.float32, True),
+    "B3-L5-short": (3, 40, 40, "FTFTF", torch.bfloat16, False),
+    "B2-L5-feedforward": (2, 17, 40, "FFFFF", torch.float32, True),
+    "B1-L6": (1, 256, 40, "FTFTFT", torch.bfloat16, False),
+    "B8-L7-firenet": (8, 80, 64, "FTFFTFF", torch.bfloat16, True),
+    "B2-L7-recurrent": (2, 256, 256, "FTTTTTT", torch.float32, False),
+    "B3-L7-feedforward": (3, 40, 17, "FFFFFFF", torch.bfloat16, True),
+}
+# the item kernels: K7 walks items in persistent CTAs, K5 and K4 launch one
+# CTA an item; K4 takes only the unit layouts it compiles
+ITEM_KERNELS = {"batch": "fused_net_batch", "loop2": "fused_net_loop2", "loop": "fused_net_loop"}
 
+
+def compiled_by_k4(mask):
+    from evflow_torch.ops.fused_net_loop import LAYOUTS
+
+    return (len(mask), tuple(l for l, m in enumerate(mask) if m == "T")) in LAYOUTS
+
+
+@pytest.mark.parametrize("kernel,case", [
+    (k, c) for k in ITEM_KERNELS for c, v in BATCH_CASES.items()
+    if k != "loop" or compiled_by_k4(v[3])])
+def test_batch_writes_every_owned_element(cuda, kernel, case):
+    """K7, K5 and K4 launched into NaN-filled membranes, spikes of every
+    unit (K5's slot 2, the last feedforward unit's, among them) and flow,
+    against ``firenet_step_plain`` under ``check_against_plain``'s bar:
+    every element is written (no NaN left) and agrees, at B = 1, 2, 3, 8,
+    ragged H and W, L = 1..7 units under several recurrent masks (two
+    recurrent units in a row; every unit after the head recurrent), both
+    state dtypes and both reset modes, with fewer (b, tile) items than SMs
+    and more (B=8 at 80x64: 160 items of 16 x 16; B=2 at 256x256: 512). K4
+    runs the layouts it compiles; its grid, as K5's, is a CTA an item, K7's
+    one CTA an SM at most."""
+    from evflow_torch.ops.fused_net_item import item_count
+
+    B, H, W, mask, dtype, hard = BATCH_CASES[case]
     weights = random_wholenet(cuda, mask, hard, seed=len(mask))
     rng = np.random.default_rng(B)
     L = len(mask)
@@ -234,12 +253,12 @@ def test_batch_writes_every_owned_element(cuda, B, H, W, mask, dtype, hard):
     mem_outs = [torch.full_like(m, float("nan")) for m in mems]
     spk_outs = [torch.full_like(m, float("nan")) for m in mems]
     flow = torch.full((B, H, W, 2), float("nan"), device=cuda)
-    launch_wholenet("fused_net_batch", x, mems, prevs, weights.wk, weights, mem_outs, spk_outs,
+    launch_wholenet(ITEM_KERNELS[kernel], x, mems, prevs, weights.wk, weights, mem_outs, spk_outs,
                     flow=flow)
     torch.cuda.synchronize()
-    items = batch_items(B, H, W)
+    items = item_count(B, H, W)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert launch_wholenet.grid == min(items, sms)
+    assert launch_wholenet.grid == (min(items, sms) if kernel == "batch" else items)
     pflow, pmems, pspikes = firenet_step_plain(x, mems, prevs, weights)
     for l in range(L):
         assert not bool(mem_outs[l].isnan().any()) and not bool(spk_outs[l].isnan().any()), l
