@@ -10,7 +10,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
    and print ptxas's registers, stack and spill bytes of the redesigned
    kernels (K7's two ``fused_net_batch_kernel`` instantiations, K5's two
-   ``fused_net_loop2_kernel`` and K4's eight ``fused_net_loop_kernel``
+   ``fused_net_loop2_kernel``, K4's eight ``fused_net_loop_kernel``, K3's
+   14 ``fused_net_kernel`` (L = 1..7) and K6's two ``fused_net_lgrid_kernel``
    ones, the in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
    ``load_dot_f32_kernel``, k12's ``load_dot_bf16_kernel``, k7's
    ``conv_sum_kernel``, K8e's 4 ``layer_grid_kernel`` instantiations, the
@@ -44,11 +45,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
    against the per-layer FusedFireNet (phase 3's bar; its free-running f32
    trajectory too, held for f32 state only), the five kernels' flows
    bit-equal; device times at B=2 and B=8 beside the plain version, the
-   bound and the mma work issued (K4, K5 and K7 share the item body of
+   bound and the mma work issued (K3, K4, K5 and K7 share the item body of
    ``csrc/fused_net_item.cuh``: each unit over the 16x16 tile grown by
-   L-1-l pixels, in 16-pixel fragments), the per-layer step and 7 cuDNN
-   convs as yardsticks; K7's and K5's times over the first L = 1, 3, 5, 7
-   units at B=2 and B=8 in bf16 state and their fit
+   L-1-l pixels, in 16-pixel fragments; K6 runs its pieces over the 16x16
+   tiles with no halo), the per-layer step and 7 cuDNN convs as
+   yardsticks; K7's, K5's, K3's and K6's times over the first L = 1, 3, 5,
+   7 units at B=2 and B=8 in bf16 state and their fit
    (``probes/wholenet_slope.py``); 300-window
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
@@ -382,9 +384,10 @@ def phase_build(state):
         raise SystemExit(f"a redesigned kernel has a stack frame or spills: {redesigned}")
 
 
-# the kernels redesigned for the card's speed, per source: the K7 and K5
-# instantiations (f32 and bf16 state), K4's for each compiled unit layout
-# (units, recurrent mask) and state, every instantiation
+# the kernels redesigned for the card's speed, per source: the K7, K5 and
+# K6 instantiations (f32 and bf16 state), K4's for each compiled unit layout
+# (units, recurrent mask) and state, K3's for each unit count and state,
+# every instantiation
 # probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, k12,
 # k7, every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3
 # and k11 and the bulk store of k4 and k8
@@ -394,6 +397,9 @@ REDESIGNED = {
     "fused_net_loop": tuple(f"fused_net_loop_kernel<{layout},{s}>"
                             for layout in ("7,18", "5,10", "7,0", "5,0")
                             for s in ("float", "__nv_bfloat16")),
+    "fused_net": tuple(f"fused_net_kernel<{n},{s}>" for n in range(1, 8)
+                       for s in ("float", "__nv_bfloat16")),
+    "fused_net_lgrid": ("fused_net_lgrid_kernel<float>", "fused_net_lgrid_kernel<__nv_bfloat16>"),
     "probe_inkernel_dot": tuple(f"probe_kernel<{a}>" for a in (
         "32,0,1,0", "32,0,1,1",                          # f32 accumulation, pixel-major
         "32,0,0,0", "32,0,0,1", "16,0,0,0", "16,0,0,1",  # f32, channel-major
@@ -663,31 +669,24 @@ def timed_scan(net, windows, states):
 def issued_flops(kname, runner, batch):
     """bf16 tensor-core flops that the kernel's mma instructions issue for
     one window at ``batch`` x 256^2, halo recompute, channel padding (the
-    head's 2 channels run as 16) and ragged 32-pixel fragment pairs
-    included (K4, K5, K7: 16-pixel fragments); the tile shapes are those of
-    ``evflow_torch/csrc``."""
+    head's 2 channels run as 16) and ragged 16-pixel fragments included;
+    the tile shapes are those of ``evflow_torch/csrc``: K3, K4, K5 and K7
+    each unit over its item's extent, K6 every unit over the 16 x 16 tiles
+    with no halo."""
     from evflow_torch.ops.fused_net_item import item_count, item_extent
 
     w = runner.weights
     L = w.num_units
     ck = [t.shape[1] // 9 for t in w.wk]
 
-    def tiles(th, tw):
-        return batch * -(-H_BENCH // th) * -(-W_BENCH // tw)
-
-    def pairs(px):  # output pixels rounded up to whole 32-pixel fragment pairs
-        return -(-px // 32) * 32
-
     def frags(px):  # output pixels rounded up to whole 16-pixel m16 fragments
         return -(-px // 16) * 16
 
-    if kname == "fused_firenet_step":  # 16x16 tile, extent shrinking by 2 per unit
-        px = [pairs((16 + 2 * (L - 1 - l)) ** 2) * tiles(16, 16) for l in range(L)]
-    elif kname == "fused_firenet_step_lgrid":  # 8x32 tiles, no halo recompute
-        px = [pairs(8 * 32) * tiles(8, 32)] * L
-    else:  # K4 / K5 / K7: 16x16 items, unit l's extent grown by L-1-l
-        px = [frags(item_extent(l, L)[0] * item_extent(l, L)[1])
-              * item_count(batch, H_BENCH, W_BENCH) for l in range(L)]
+    items = item_count(batch, H_BENCH, W_BENCH)
+    if kname == "fused_firenet_step_lgrid":  # 16 x 16 tiles, no halo recompute
+        px = [frags(16 * 16) * items] * L
+    else:  # K3 / K4 / K5 / K7: 16x16 items, unit l's extent grown by L-1-l
+        px = [frags(item_extent(l, L)[0] * item_extent(l, L)[1]) * items for l in range(L)]
     return sum(2 * p * w.channels * 9 * k for p, k in zip(px, ck))
 
 
@@ -854,11 +853,12 @@ def phase_wholenet(state):
               "batch": batch, "ms": cudnn_ms, "card": name})
     state.setdefault("times", {}).update(times)
 
-    # K7's and K5's time against their unit count (the first L units of the
-    # seeded net): the slope is what one more unit costs
+    # K7's, K5's, K3's and K6's time against their unit count (the first L
+    # units of the seeded net): the slope is what one more unit costs
+    from evflow_torch.probes.wholenet_slope import KERNELS as SLOPE_KERNELS
     from evflow_torch.probes.wholenet_slope import unit_times
 
-    for kname in ("K7", "K5"):
+    for kname in SLOPE_KERNELS:
         for batch in (B_BENCH, 8):
             rows, line = unit_times(kname, batch, "bf16")
             emit({"phase": "wholenet", "slope": kname, "batch": batch, "state": "bf16",

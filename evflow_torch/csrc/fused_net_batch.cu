@@ -10,7 +10,7 @@
 // Function: fused_net_common.cuh; the mainloop's k order, the LIF update and
 // the pred head are the other schedules', so the flows agree bit for bit.
 // The item body (every piece below but the persistent loop) is
-// fused_net_item.cuh's run_item, which K5 and K4 run too, an item a CTA.
+// fused_net_item.cuh's run_item, which K5, K4 and K3 run too, an item a CTA.
 //
 // What held the first version back, measured (probes/wholenet_slope.py
 // --split, variant builds with one part taken out): 1.88 ms at B=2, bf16
@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(ITEM_THREADS, 1) fused_net_batch_kernel(WholeN
   __shared__ WholeNetArgs a;
   copy_args(args, a);
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const ItemSmem sm = item_start(a, smem_raw);
+  const ItemSmem sm = item_start(a, smem_raw, item_layout(a));
   const int items = item_count(a);
   int u = 0;  // units this CTA has run
   for (int item = blockIdx.x; item < items; item += gridDim.x) {

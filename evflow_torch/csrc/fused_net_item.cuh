@@ -1,5 +1,6 @@
-// The item body of K4, K5 and K7: one (b, 16 x 16 tile) item of the whole
-// FireNet step, every unit and the flow, in one CTA of 16 warps, for sm_90a.
+// The item body of K3, K4, K5 and K7, and its pieces, which K6 runs too:
+// one (b, 16 x 16 tile) item of the whole FireNet step, every unit and the
+// flow, in one CTA of 16 warps, for sm_90a.
 //
 // An item owns a 16 x 16 tile; unit l computes it grown by L-1-l pixels a
 // side, so the last unit's extent is the owned tile. The design of each
@@ -9,8 +10,11 @@
 // layout) and what it cost before, measured: fused_net_batch.cu. Each
 // kernel keeps only what makes it the counterpart of its TPU kernel:
 // fused_net_batch.cu (K7) runs items in persistent CTAs, fused_net_loop2.cu
-// (K5) and fused_net_loop.cu (K4) one item a CTA, K4 with the unit loop
-// unrolled at compile time (run_item's NL and REC).
+// (K5), fused_net_loop.cu (K4) and fused_net.cu (K3) one item a CTA, K4
+// and K3 with the unit loop unrolled at compile time (run_item's NL; K4
+// also compiles which units are recurrent, REC). fused_net_lgrid.cu (K6)
+// runs the pieces (staging, conv_lif_unit, flow_tile, the weight buffer)
+// a unit at a time over 16 x 16 tiles with no halo, in CTAs of 8 warps.
 #pragma once
 
 #include "fused_net_common.cuh"
@@ -29,8 +33,8 @@ static_assert(ITEM_ROW <= 32, "a staged row fits the lanes of a warp");
 // one a variant build (-DITEM_CUT=ITEM_CUT_<part>) of a kernel's source, to
 // time what each part costs; a variant computes wrong results. The default
 // build takes out nothing. Each part is one item_keeps(ITEM_CUT_<part>) test
-// in the code below (the script refuses a part without one, and an unknown
-// part fails the build).
+// in the code below, K6's own two in fused_net_lgrid.cu (the script refuses
+// a part without one, and an unknown part fails the build).
 enum ItemCut {
   ITEM_CUT_NONE,
   ITEM_CUT_STATE_LOADS,   // the epilogue's membrane loads read as zeros
@@ -42,6 +46,8 @@ enum ItemCut {
   ITEM_CUT_MMA,           // no fragment load and no mma: the k loop is empty
   ITEM_CUT_FLOW,          // the pred head is not run
   ITEM_CUT_SECOND_ROUND,  // at most one fragment a warp and unit
+  ITEM_CUT_INPUT_STAGE,   // K6: unit l's input (unit l-1's spikes) is not staged
+  ITEM_CUT_GRID_BARRIER,  // K6: no grid barrier between units
 };
 #ifndef ITEM_CUT
 #define ITEM_CUT ITEM_CUT_NONE
@@ -57,34 +63,48 @@ __host__ __device__ inline int item_count(const WholeNetArgs& a) {
   return a.B * ((a.H + ITEM_TH - 1) / ITEM_TH) * ((a.W + ITEM_TW - 1) / ITEM_TW);
 }
 
-// Where an item CTA's shared memory lies, in bytes from the dynamic base
-// (mirrored by ops/fused_net_item.py::item_smem): spike tiles A and B (unit
-// 0's output extent at SPITCH; B first holds the event input at XPITCH),
-// the previous spikes P (recurrent nets only), the weight buffer of the
-// widest unit, the units' [L, 3, C] parameters, pred_w [C, 2] and pred_b
-// [2], the weights' mbarrier and the count of warps done reading them.
+// Where a CTA's shared memory lies, in bytes from the dynamic base: tiles
+// A, B and P at 0, `tile` and `spk`, then the weight buffer of the widest
+// unit, the units' [L, 3, C] parameters, pred_w [C, 2] and pred_b [2], the
+// weights' mbarrier and the count of warps done reading them.
 struct ItemLayout {
   int tile, spk, wbuf, prm, bars, total;
 };
 
-__host__ __device__ inline ItemLayout item_layout(const WholeNetArgs& a) {
+__host__ __device__ inline bool any_recurrent(const WholeNetArgs& a) {
+  bool any = false;
+  for (int l = 0; l < a.L; ++l) any = any || recurrent(a, l);
+  return any;
+}
+
+// The layout's weight buffer, parameters and barriers after `tiles` bytes.
+__host__ __device__ inline void place_after_tiles(const WholeNetArgs& a, int tiles,
+                                                  ItemLayout& s) {
   int ck_max = 0;
-  bool any_rec = false;
-  for (int l = 0; l < a.L; ++l) {
-    ck_max = a.ck[l] > ck_max ? a.ck[l] : ck_max;
-    any_rec = any_rec || recurrent(a, l);
-  }
-  ItemLayout s;
-  s.tile = extent_h(0, a.L) * extent_w(0, a.L) * SPITCH * 2;
-  s.spk = 2 * s.tile;
-  s.wbuf = s.spk + (any_rec ? s.tile : 0);
+  for (int l = 0; l < a.L; ++l) ck_max = a.ck[l] > ck_max ? a.ck[l] : ck_max;
+  s.wbuf = tiles;
   s.prm = s.wbuf + C * (9 * ck_max + PAD) * 2;
   s.bars = s.prm + (a.L * 3 * C + 2 * C + 2) * 4;
   s.total = s.bars + 16;
+}
+
+// An item CTA's layout (mirrored by ops/fused_net_item.py::item_smem):
+// spike tiles A and B of unit 0's output extent at SPITCH, the previous
+// spikes P (recurrent nets only). B first holds the event input, unit 0's
+// extent grown by a pixel a side at the head's width + PAD; a 32-channel
+// head's runs past B into P, which the first recurrent unit stages only
+// after unit 0 is done with it.
+__host__ __device__ inline ItemLayout item_layout(const WholeNetArgs& a) {
+  ItemLayout s;
+  s.tile = extent_h(0, a.L) * extent_w(0, a.L) * SPITCH * 2;
+  s.spk = 2 * s.tile;
+  const int events = (extent_h(0, a.L) + 2) * (extent_w(0, a.L) + 2) * (a.ck[0] + PAD) * 2;
+  const int tiles = s.spk + (any_recurrent(a) ? s.tile : 0);
+  place_after_tiles(a, tiles > s.tile + events ? tiles : s.tile + events, s);
   return s;
 }
 
-// The pieces of item_layout as pointers.
+// The pieces of an ItemLayout as pointers.
 struct ItemSmem {
   __nv_bfloat16 *tile_a, *tile_b, *tile_p, *wsm;
   float* prm;       // [L, 3, C], then pred_w [C][2] and pred_b [2]
@@ -102,61 +122,80 @@ template <>
 __device__ __forceinline__ float ld_nc<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
 }
+// Loads through L2 only (ld.global.cg): K6 reads spikes that other CTAs
+// wrote earlier in the same launch, which the non-coherent path can miss.
+template <class S>
+__device__ __forceinline__ float ld_cg(const S* p);
+template <>
+__device__ __forceinline__ float ld_cg<float>(const float* p) {
+  return __ldcg(p);
+}
+template <>
+__device__ __forceinline__ float ld_cg<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
 __device__ __forceinline__ void st_state(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st_state(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// Event input, image rows [oh, oh+eh) x cols [ow, ow+ew) -> [eh*ew][XPITCH]
-// bf16, channels Cin..15 and pixels outside the image zero: a row a warp,
-// a pixel a lane, every load of a lane before its stores.
-__device__ void stage_events(const WholeNetArgs& a, int b, int oh, int ow, int eh, int ew,
+// Event input, image rows [oh, oh+eh) x cols [ow, ow+ew) (eh <= MAX_ROWS)
+// -> [eh*ew][cw + PAD] bf16, cw = 16 or 32 channels, channels Cin..cw-1 and
+// pixels outside the image zero: a row a warp of NWARPS, a pixel a lane,
+// 16 channels at a time, every load of a lane before its stores.
+template <int NWARPS = ITEM_WARPS, int MAX_ROWS = ITEM_ROW>
+__device__ void stage_events(const WholeNetArgs& a, int b, int oh, int ow, int eh, int ew, int cw,
                              __nv_bfloat16* buf) {
-  constexpr int ROWS = (ITEM_TH + 2 * MAX_UNITS + ITEM_WARPS - 1) / ITEM_WARPS;
+  constexpr int ROWS = (MAX_ROWS + NWARPS - 1) / NWARPS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* __restrict__ x = a.x;
-  float v[ROWS][16];
+  for (int c0 = 0; c0 < cw; c0 += 16) {
+    float v[ROWS][16];
 #pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    const int r = warp + k * ITEM_WARPS, h = oh + r, w = ow + lane;
-    const bool in = r < eh && lane < ew && inside(a, h, w);
-    const float* src = x + ((static_cast<size_t>(b) * a.H + (in ? h : 0)) * a.W + (in ? w : 0)) *
-                               a.Cin;
+    for (int k = 0; k < ROWS; ++k) {
+      const int r = warp + k * NWARPS, h = oh + r, w = ow + lane;
+      const bool in = r < eh && lane < ew && inside(a, h, w);
+      const float* src =
+          x + ((static_cast<size_t>(b) * a.H + (in ? h : 0)) * a.W + (in ? w : 0)) * a.Cin + c0;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) v[k][c] = in && c < a.Cin ? __ldg(src + c) : 0.f;
-  }
+      for (int c = 0; c < 16; ++c) v[k][c] = in && c0 + c < a.Cin ? __ldg(src + c) : 0.f;
+    }
 #pragma unroll
-  for (int k = 0; k < ROWS; ++k) {
-    const int r = warp + k * ITEM_WARPS;
-    if (r < eh && lane < ew) {
-      uint4 u[2];
-      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(u);
+    for (int k = 0; k < ROWS; ++k) {
+      const int r = warp + k * NWARPS;
+      if (r < eh && lane < ew) {
+        uint4 u[2];
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(u);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) h2[c] = __floats2bfloat162_rn(v[k][2 * c], v[k][2 * c + 1]);
-      uint4* d = reinterpret_cast<uint4*>(buf + (r * ew + lane) * XPITCH);
-      d[0] = u[0];
-      d[1] = u[1];
+        for (int c = 0; c < 8; ++c) h2[c] = __floats2bfloat162_rn(v[k][2 * c], v[k][2 * c + 1]);
+        uint4* d = reinterpret_cast<uint4*>(buf + (r * ew + lane) * (cw + PAD) + c0);
+        d[0] = u[0];
+        d[1] = u[1];
+      }
     }
   }
 }
 
-// A recurrent unit's previous spikes [B,C,H,W] (state dtype) over image
-// rows [oh, oh+eh) x cols [ow, ow+ew) -> [eh*ew][SPITCH] bf16, zero outside
-// the image: a row of pixels a warp, a pixel a lane (reads along W), the
-// lane's 32 channel loads issued together, then its pixel's 64 bytes
+// Spikes [B,C,H,W] (state dtype: a recurrent unit's previous spikes, or
+// in K6 the unit before's, COHERENT: read by ld_cg) over image rows [oh,
+// oh+eh) x cols [ow, ow+ew) -> [eh*ew][SPITCH] bf16, zero outside the
+// image: a row of pixels a warp of NWARPS, a pixel a lane (reads along W),
+// the lane's 32 channel loads issued together, then its pixel's 64 bytes
 // written as four 16-byte stores.
-template <class S>
+template <class S, int NWARPS = ITEM_WARPS, bool COHERENT = false>
 __device__ void stage_prev_spikes(const WholeNetArgs& a, const S* __restrict__ src, int b,
                                   int oh, int ow, int eh, int ew, __nv_bfloat16* buf) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int HW = a.H * a.W;
   src += static_cast<size_t>(b) * C * HW;
-  for (int r = warp; r < eh; r += ITEM_WARPS) {
+  for (int r = warp; r < eh; r += NWARPS) {
     const int h = oh + r, w = ow + lane;
     if (lane >= ew) continue;
     const bool in = inside(a, h, w);
     const S* p = src + (in ? h * a.W + w : 0);
     float v[C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) v[c] = in ? ld_nc<S>(p + c * HW) : 0.f;
+    for (int c = 0; c < C; ++c) {
+      v[c] = in ? (COHERENT ? ld_cg<S>(p + c * HW) : ld_nc<S>(p + c * HW)) : 0.f;
+    }
     uint4 u[4];
     __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(u);
 #pragma unroll
@@ -181,11 +220,12 @@ __device__ __forceinline__ void issue_unit_weights(const WholeNetArgs& a, int l,
 // row-major, image position of pixel 0 (oh0, ow0)): the conv of the staged
 // input tile `hbuf` (ck_h channels at pitch hpitch, wo + 2 wide) and, for a
 // recurrent unit, of its previous spikes `pbuf`, by m16 fragments (16
-// pixels x the 32 output channels) over the warps, then the LIF update;
-// mem' and the kept spikes go to device memory for the owned pixels [th0,
-// th0+ITEM_TH) x [tw0, tw0+ITEM_TW), the spikes (0 outside the image) to
-// `out`, the next unit's input tile (the same extent).
-template <class S, class Ready, class Done>
+// pixels x the 32 output channels) over the NWARPS warps, then the LIF
+// update; mem' and the kept spikes go to device memory for the owned
+// pixels [th0, th0+ITEM_TH) x [tw0, tw0+ITEM_TW), the spikes (0 outside
+// the image) to `out`, the next unit's input tile (the same extent), where
+// there is one.
+template <class S, int NWARPS = ITEM_WARPS, class Ready, class Done>
 __device__ __forceinline__ void conv_lif_unit(
     const __nv_bfloat16* hbuf, int hpitch, int ck_h, const __nv_bfloat16* pbuf,
     const __nv_bfloat16* wsm, int ck, int wo, int n_out, const S* __restrict__ mem_in,
@@ -208,9 +248,9 @@ __device__ __forceinline__ void conv_lif_unit(
       smem_u32(wsm + ((lane & 7) + 8 * (lane >> 4)) * wpitch + 8 * ((lane >> 3) & 1));
   const uint32_t b_step = 16 * wpitch * 2;
   const int n_work = item_keeps(ITEM_CUT_SECOND_ROUND) ? (n_out + 15) >> 4
-                                                       : min((n_out + 15) >> 4, ITEM_WARPS);
+                                                       : min((n_out + 15) >> 4, NWARPS);
   if (warp >= n_work) weights_read();  // a warp without a fragment reads no weight
-  for (int frag = warp; frag < n_work; frag += ITEM_WARPS) {
+  for (int frag = warp; frag < n_work; frag += NWARPS) {
     if (frag == warp) weights_ready();  // before the warp's first k loop of the unit
     const int pa = min(frag * 16 + (lane & 15), n_out - 1);  // ragged: a valid pixel
     const int pin = (pa / wo) * wi + pa % wo;
@@ -252,7 +292,7 @@ __device__ __forceinline__ void conv_lif_unit(
       }
     }
 
-    if (frag + ITEM_WARPS >= n_work) weights_read();  // the warp's last k loop of the unit
+    if (frag + NWARPS >= n_work) weights_read();  // the warp's last k loop of the unit
 
     // the state loads of this lane's 2 pixels x 8 channels, all issued
     // before the first LIF update: one round trip a fragment (issued before
@@ -300,17 +340,19 @@ __device__ __forceinline__ void conv_lif_unit(
           }
           s2[j] = s;
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + p * SPITCH + nf * 8 + 2 * q) =
-            __floats2bfloat162_rn(s2[0], s2[1]);
+        if (out != nullptr) {
+          *reinterpret_cast<__nv_bfloat162*>(out + p * SPITCH + nf * 8 + 2 * q) =
+              __floats2bfloat162_rn(s2[0], s2[1]);
+        }
       }
     }
   }
 }
 
 // flow = tanh(spikes . pred_w + pred_b) over the owned tile from the last
-// unit's spike tile (the owned tile, ITEM_TW wide), as pred_tile computes it
-// (the same order of sums, so the flows are the other schedules'), with
-// pred_w and pred_b (`pw`) in shared memory.
+// unit's spike tile (the owned tile, ITEM_TW wide), the channels summed in
+// order (every schedule's flow is this one), with pred_w and pred_b (`pw`)
+// in shared memory.
 __device__ void flow_tile(const WholeNetArgs& a, const __nv_bfloat16* buf, const float* pw, int b,
                           int th0, int tw0) {
   for (int i = threadIdx.x; i < ITEM_TH * ITEM_TW * 2; i += blockDim.x) {
@@ -326,11 +368,11 @@ __device__ void flow_tile(const WholeNetArgs& a, const __nv_bfloat16* buf, const
   }
 }
 
-// A CTA's start: its shared memory laid out (item_layout), the parameters
-// and pred head copied in, the weights' mbarrier set up and unit 0's
-// weights issued, so that they land while the first item stages its events.
-__device__ __forceinline__ ItemSmem item_start(const WholeNetArgs& a, unsigned char* smem_raw) {
-  const ItemLayout lay = item_layout(a);
+// A CTA's start: its shared memory laid out (`lay`), the parameters and
+// pred head copied in, the weights' mbarrier set up and unit 0's weights
+// issued, so that they land while the first item stages its events.
+__device__ __forceinline__ ItemSmem item_start(const WholeNetArgs& a, unsigned char* smem_raw,
+                                               const ItemLayout& lay) {
   ItemSmem s;
   s.tile_a = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   s.tile_b = reinterpret_cast<__nv_bfloat16*>(smem_raw + lay.tile);
@@ -355,36 +397,48 @@ __device__ __forceinline__ ItemSmem item_start(const WholeNetArgs& a, unsigned c
   return s;
 }
 
+// run_item's REC when the recurrent units and the head's width are read
+// from the arguments (K3).
+constexpr unsigned REC_ARGS = ~0u;
+
 // One item (b, 16 x 16 tile) through every unit and the flow. `u` counts
 // the units the CTA has run (the weights' phase is u & 1). The warp that is
 // the last to finish reading a unit's weights issues the next unit's; after
 // the item's last unit, unit 0's for the CTA's next item when `next_item`,
-// else nothing. With NL = 0 the unit count and which units are recurrent
-// are read from the arguments and the unit loop stays rolled (K5, K7); K4
-// passes them as NL and the bit mask REC: the loop unrolls, and each unit's
-// input channels, weight pitch, extent and work count are constants.
+// else nothing. With NL = 0 the unit count, which units are recurrent and
+// the head's width (16 or 32 channels) are read from the arguments and the
+// unit loop stays rolled (K5, K7). With NL > 0 the unit count is NL: the
+// loop unrolls, and each unit's extent and work count are constants; K4
+// passes which units are recurrent as the bit mask REC (each unit's input
+// channels and weight pitch constants too, a 16-channel head), K3 passes
+// REC_ARGS and reads them, and the head's width, from the arguments.
 template <class S, int NL = 0, unsigned REC = 0u>
 __device__ __forceinline__ void run_item(const WholeNetArgs& a, const ItemSmem& sm, int item,
                                          int& u, bool next_item) {
+  constexpr bool fixed = NL > 0 && REC != REC_ARGS;  // K4: recurrence compiled in
   const int L = NL > 0 ? NL : a.L;
+  const int head = fixed ? 16 : a.ck[0];
   const int ntw = (a.W + ITEM_TW - 1) / ITEM_TW, nth = (a.H + ITEM_TH - 1) / ITEM_TH;
   const int b = item / (nth * ntw), t = item - b * nth * ntw;
   const int th0 = (t / ntw) * ITEM_TH, tw0 = (t - (t / ntw) * ntw) * ITEM_TW;
   const int lane = threadIdx.x & 31;
   __syncthreads();  // the last item's units and flow are done with the tiles
   if (item_keeps(ITEM_CUT_EVENT_STAGE)) {
-    stage_events(a, b, th0 - L, tw0 - L, ITEM_TH + 2 * L, ITEM_TW + 2 * L, sm.tile_b);
+    stage_events(a, b, th0 - L, tw0 - L, ITEM_TH + 2 * L, ITEM_TW + 2 * L, head, sm.tile_b);
   }
 #pragma unroll (NL > 0 ? NL : 1)
   for (int l = 0; l < L; ++l, ++u) {
     const int grow = L - 1 - l;  // the output extent: the owned tile grown by `grow`
     const int eh = ITEM_TH + 2 * grow, ew = ITEM_TW + 2 * grow;
     const int oh0 = th0 - grow, ow0 = tw0 - grow;
-    const bool rec = NL > 0 ? ((REC >> l) & 1u) != 0u : recurrent(a, l);
-    const int ck = NL > 0 ? (l == 0 ? 16 : (rec ? 2 * C : C)) : a.ck[l];
+    const bool rec = fixed ? ((REC >> l) & 1u) != 0u : recurrent(a, l);
+    // with NL > 0 a constant for every unit after the head but the recurrent
+    // part (args_valid holds a.ck to this)
+    const int ck = NL > 0 ? (l == 0 ? head : (rec ? 2 * C : C)) : a.ck[l];
     if (rec) {
-      if (l > 0 && (NL > 0 ? ((REC >> (l - 1)) & 1u) != 0u : recurrent(a, l - 1))) {
-        __syncthreads();  // the unit before reads tile P
+      if (l > 0 && ((fixed ? ((REC >> (l - 1)) & 1u) != 0u : recurrent(a, l - 1)) ||
+                    (l == 1 && head > 16))) {
+        __syncthreads();  // the unit before reads tile P (unit 0: the event tile runs into it)
       }
       if (item_keeps(ITEM_CUT_SPIKE_STAGE)) {
         stage_prev_spikes<S>(a, static_cast<const S*>(a.spk_in[l]), b, oh0 - 1, ow0 - 1, eh + 2,
@@ -406,7 +460,7 @@ __device__ __forceinline__ void run_item(const WholeNetArgs& a, const ItemSmem& 
       if (item_keeps(ITEM_CUT_WEIGHT_STAGE)) mbar_wait(sm.wbar, u & 1);
     };
     conv_lif_unit<S>(l == 0 ? sm.tile_b : ((l & 1) ? sm.tile_a : sm.tile_b),
-                     l == 0 ? XPITCH : SPITCH, ck - (rec ? C : 0), rec ? sm.tile_p : nullptr,
+                     l == 0 ? head + PAD : SPITCH, ck - (rec ? C : 0), rec ? sm.tile_p : nullptr,
                      sm.wsm, ck, ew, eh * ew, static_cast<const S*>(a.mem_in[l]),
                      static_cast<S*>(a.mem_out[l]), static_cast<S*>(a.spk_out[l]),
                      sm.prm + l * 3 * C, a.H, a.W, b, a.hard_reset != 0, oh0, ow0, th0, tw0,

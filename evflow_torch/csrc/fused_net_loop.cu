@@ -36,13 +36,14 @@ __global__ void __launch_bounds__(ITEM_THREADS, 1) fused_net_loop_kernel(WholeNe
   __shared__ WholeNetArgs a;
   copy_args(args, a);
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const ItemSmem sm = item_start(a, smem_raw);
+  const ItemSmem sm = item_start(a, smem_raw, item_layout(a));
   int u = 0;
   run_item<S, L, REC>(a, sm, blockIdx.x, u, false);
 }
 
 // The unit layouts compiled in: (L, recurrent-unit mask) of LIFFireNet
-// (G1, G2 recurrent), LIFFireNet_short, and their feedforward variants.
+// (G1, G2 recurrent), LIFFireNet_short, and their feedforward variants,
+// each with a 16-channel head (Cin <= 16).
 template <class S>
 int launch_layout(WholeNetArgs& a, cudaStream_t stream) {
   unsigned rec = 0;
@@ -50,6 +51,7 @@ int launch_layout(WholeNetArgs& a, cudaStream_t stream) {
     if (recurrent(a, l)) rec |= 1u << l;
   }
   auto go = [&](auto kernel) { return launch_items(kernel, a, stream, false); };
+  if (a.ck[0] != 16) return static_cast<int>(cudaErrorInvalidValue);  // a 16-channel head
   if (a.L == 7 && rec == 0x12u) return go(fused_net_loop_kernel<7, 0x12u, S>);
   if (a.L == 5 && rec == 0x0Au) return go(fused_net_loop_kernel<5, 0x0Au, S>);
   if (a.L == 7 && rec == 0u) return go(fused_net_loop_kernel<7, 0u, S>);

@@ -33,7 +33,7 @@ __global__ void __launch_bounds__(ITEM_THREADS, 1) fused_net_loop2_kernel(WholeN
   __shared__ WholeNetArgs a;
   copy_args(args, a);
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const ItemSmem sm = item_start(a, smem_raw);
+  const ItemSmem sm = item_start(a, smem_raw, item_layout(a));
   int u = 0;
   run_item<S>(a, sm, blockIdx.x, u, false);
 }

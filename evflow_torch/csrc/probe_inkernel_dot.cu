@@ -12,7 +12,7 @@
 //
 // On Hopper. One CTA of 16 warps owns TP = 64 pixels and MT (32, or 16 where
 // L weight slices of 32 rows do not fit) output channels. A warp's tile is
-// 32 pixels x 32 channels (2 m16 x 4 n8 fragments), the tile of conv_region
+// 32 pixels x 32 channels (2 m16 x 4 n8 fragments), the tile of mma_k16
 // in fused_net_common.cuh, run with mma.sync m16n8k16 bf16 -> f32 (m16n8k32
 // s8 -> s32 for the int8 probe), so the rate reached at S = 64 is the
 // ceiling of the whole-network kernels' mainloop with staging, halo and LIF
@@ -67,7 +67,7 @@
 // threads running along the output's contiguous axis: coalesced f32 stores.
 //
 // Orientation: pixel-major (A) puts pixels on the mma's M side and channels
-// on N, as conv_region does; channel-major (B, Bi, C, dot2, k_dot3) puts
+// on N, as the whole-net kernels do; channel-major (B, Bi, C, dot2, k_dot3) puts
 // the weight rows on M and pixels on N. C's three K=96 dots per weight run
 // as one K=288 stream into the same accumulators. acc=bf16 (dot2)
 // accumulates each dot in f32, rounds it to bf16, and rounds the running

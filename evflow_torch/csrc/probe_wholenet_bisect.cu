@@ -82,6 +82,16 @@ constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
 constexpr int SMEM_LIMIT = 232448;
 
+// Packed weights [C, 9*ck] -> shared memory [C][9*ck + PAD], 16 bytes at a time.
+__device__ void stage_unit_weights(const __nv_bfloat16* wk, int ck, __nv_bfloat16* wsm) {
+  const int vec_per_row = 9 * ck / 8;
+  const uint4* src = reinterpret_cast<const uint4*>(wk);
+  for (int i = threadIdx.x; i < C * vec_per_row; i += blockDim.x) {
+    const int n = i / vec_per_row, v = i - n * vec_per_row;
+    *reinterpret_cast<uint4*>(wsm + n * (9 * ck + PAD) + v * 8) = src[i];
+  }
+}
+
 enum Body { KA = 0, KB = 1, CHAIN0 = 2, N_BODIES = 11 };  // chain variants 2..10
 enum Lif { SIMPLE, REAL, ONE_WHERE, TWO_WHERE };
 enum Prm { NO_PARAMS, HALF, PER_CHANNEL };  // no bias, beta = theta = 0.5 | all 0.5 | from p
@@ -192,7 +202,7 @@ __global__ void __launch_bounds__(THREADS, 1) stack_kernel(const __grid_constant
   // i on block row j + 7. Tile row 0 of x is NL rows above either.
   const int src_rows = NL == 1 ? a.H + 2 * TH : (a.H / TH) * E;
   const int row0 = NL == 1 ? i * TH + TH - 1 : i * E;
-  wholenet::stage_unit_weights(a.w0, C, wsm);
+  stage_unit_weights(a.w0, C, wsm);
   stage(a.x + static_cast<size_t>(b) * C * src_rows * a.W, src_rows, a.W, row0, c0 - NL, X, X,
         buf0);
   __syncthreads();
@@ -256,8 +266,8 @@ __global__ void __launch_bounds__(THREADS, 1) chain_kernel(const __grid_constant
   const int Hp = a.H + 2 * TH, W = a.W;
   const int R = TH + i * TH;  // padded row of the tile's first output row
   const size_t img = static_cast<size_t>(b) * C * Hp * W;
-  wholenet::stage_unit_weights(a.w0, C, w0s);
-  wholenet::stage_unit_weights(a.w1, C, w1s);
+  stage_unit_weights(a.w0, C, w0s);
+  stage_unit_weights(a.w1, C, w1s);
   stage(a.x + img, Hp, W, R - 2, c0 - 2, TH + 4, XW, xt);
   for (int edge = 0; edge < 2; ++edge) {  // the border rows: zero
     if (edge == 0 ? i != 0 : i != static_cast<int>(gridDim.y) - 1) continue;

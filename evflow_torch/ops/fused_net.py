@@ -3,13 +3,13 @@
 
 One window runs every unit (conv3x3 + folded BN + snn.Leaky) and the 1x1
 pred head with tanh in a single kernel, so inter-unit spikes never round-trip
-device memory. Four schedules compute this one function; this module holds
+device memory. Five schedules compute this one function; this module holds
 what they share and the K3 schedule:
 
 * ``WholeNetWeights`` / ``fold_wholenet``: the kernel operands folded from a
   port ``FusedFireNet`` (per-unit ``pack_weights`` matrices, ``[L, 3, C]``
   bias/beta/theta, the pred head in f32);
-* ``firenet_step_plain``: the plain PyTorch version shared by all four
+* ``firenet_step_plain``: the plain PyTorch version shared by all five
   kernels: per unit ``F.conv2d`` on bf16-rounded values with f32 sums, the
   folded bias, ``leaky_step``, the state rounded to the state dtype; then
   pred and tanh;
@@ -23,7 +23,10 @@ records the difference); the port does not copy that.
 States are unpadded ``[B, C, H, W]`` in the state dtype (f32 or bf16). The
 TPU runners' ``H + 2*tile_rows`` padded arrays existed for 8-row-aligned
 DMAs and have no counterpart here. Input ``x`` is ``[B, H, W, Cin]`` and the
-flow ``[B, H, W, 2]``, as the JAX runners take and return them.
+flow ``[B, H, W, 2]``, as the JAX runners take and return them. The kernels
+take Cin <= 32 (the head packed to 16 or 32 channels, ``packed_channels``;
+K4 only 16) and 1..7 units, any of them after the head recurrent (K4 only
+the layouts it compiles).
 
 ``fused_firenet_step`` launches ``evflow_torch/csrc/fused_net.cu`` for CUDA
 tensors (counted in ``fused_firenet_step.launches``) and runs
@@ -37,7 +40,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from evflow_torch.ops.conv_lif import conv_packed
+from evflow_torch.ops.conv_lif import conv_packed, packed_channels
 from evflow_torch.ops.lif import leaky_step
 
 __all__ = [
@@ -56,8 +59,8 @@ STATE_DTYPES = (torch.float32, torch.bfloat16)
 class WholeNetWeights(NamedTuple):
     """Folded operands of the whole-network step.
 
-    ``wk[l]``: bf16 ``[C, 9*Ck]`` (``pack_weights``; Ck 16 for the head, C
-    feedforward, 2C recurrent); ``params``: f32 ``[L, 3, C]`` (bias, beta,
+    ``wk[l]``: bf16 ``[C, 9*Ck]`` (``pack_weights``; Ck 16 or 32 for the
+    head, C feedforward, 2C recurrent); ``params``: f32 ``[L, 3, C]`` (bias, beta,
     theta); ``pred_w`` f32 ``[C, 2]``, ``pred_b`` f32 ``[2]``.
     """
 
@@ -184,8 +187,8 @@ def launch_wholenet(entry: str, x: torch.Tensor, mems: Sequence[torch.Tensor],
         raise ValueError(f"the whole-network kernels run C={KERNEL_CHANNELS} units, got C={C}")
     if not (len(mems) == len(prevs) == len(wks) == len(mem_outs) == len(spk_outs) == L):
         raise ValueError(f"expected {L} entries per unit")
-    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous() or x.shape[-1] > 16:
-        raise ValueError("x must be a contiguous float32 [B, H, W, Cin] tensor, Cin <= 16")
+    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous() or x.shape[-1] > 32:
+        raise ValueError("x must be a contiguous float32 [B, H, W, Cin] tensor, Cin <= 32")
     B, H, W, cin = x.shape
     dtype = mems[0].dtype
     if dtype not in STATE_DTYPES:
@@ -206,7 +209,8 @@ def launch_wholenet(entry: str, x: torch.Tensor, mems: Sequence[torch.Tensor],
                 or wks[l].data_ptr() % 16):
             raise ValueError(f"unit {l}: packed weights must be 16-byte aligned contiguous "
                              f"bfloat16 {tuple(weights.wk[l].shape)} on {x.device}")
-        if ck != (16 if l == 0 else (2 * C if weights.recurrent[l] else C)):
+        if ck != (packed_channels(cin, C, False) if l == 0
+                  else (2 * C if weights.recurrent[l] else C)):
             raise ValueError(f"unit {l}: packed weights of {ck} channels do not fit the kernel")
     for name, t in (("params", weights.params), ("pred_w", weights.pred_w),
                     ("pred_b", weights.pred_b)):

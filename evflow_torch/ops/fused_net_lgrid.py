@@ -6,8 +6,9 @@ membranes ``[L, B, C, H, W]`` and every unit's spikes ``[L, B, C, H, W]``
 (only the recurrent units' slices are read next window), the layout of
 ``LayerGridFusedFireNet`` without its row padding. The CUDA kernel
 (``evflow_torch/csrc/fused_net_lgrid.cu``) is one cooperative launch that
-runs unit l over the whole image, waits at a grid barrier, then runs unit
-l+1; CPU tensors run ``firenet_step_plain``.
+runs unit l over the whole image in 16 x 16 tiles with no halo recompute
+(the item body's pieces, ``evflow_torch.ops.fused_net_item``), waits at a
+grid barrier, then runs unit l+1; CPU tensors run ``firenet_step_plain``.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ and one spike slot per recurrent unit, ``[max(R, 1), B, C, H, W]`` (a
 feedforward net keeps one zero slot, as the TPU layout does). The CUDA
 kernel (``evflow_torch/csrc/fused_net_loop.cu``) runs K5's grid of (b, 16 x
 16) items (``evflow_torch.ops.fused_net_item``) with the unit loop unrolled
-for the unit layouts of the FireNet family; CPU tensors run
-``firenet_step_plain``.
+for the unit layouts of the FireNet family, each with a head of 16 packed
+input channels (Cin <= 16); CPU tensors run ``firenet_step_plain``.
 """
 
 from __future__ import annotations
@@ -48,12 +48,16 @@ def fused_firenet_step_loop(x: torch.Tensor, mem_stack: torch.Tensor, spk_slots:
 
     CPU tensors run ``firenet_step_plain``; CUDA tensors launch the kernel
     (counted in ``fused_firenet_step_loop.launches``) or raise, also for a
-    unit layout outside ``LAYOUTS``.
+    unit layout outside ``LAYOUTS`` and for a head wider than 16 packed
+    channels.
     """
     layout = (weights.num_units, tuple(l for l, r in enumerate(weights.recurrent) if r))
     if x.device.type == "cuda" and layout not in LAYOUTS:
         raise ValueError(f"the unrolled kernel is compiled for (units, recurrent units) in "
                          f"{LAYOUTS}, got {layout}")
+    if x.device.type == "cuda" and weights.wk[0].shape[1] != 9 * 16:
+        raise ValueError("the unrolled kernel is compiled for a head of 16 packed input "
+                         f"channels (Cin <= 16), got {weights.wk[0].shape[1] // 9}")
     return slotted_step("fused_net_loop", fused_firenet_step_loop, x, mem_stack, spk_slots,
                         w_stack, weights, layout=recurrent_slots)
 

@@ -1,9 +1,11 @@
-"""K7's and K5's time against their unit count: what one more unit costs,
-and what their unit's time is made of.
+"""K7's, K5's, K3's and K6's time against their unit count: what one more
+unit costs, and what their unit's time is made of.
 
 Times the whole-net step of K7 (``ops/fused_net_batch.py``,
-``csrc/fused_net_batch.cu``) and K5 (``ops/fused_net_loop2.py``,
-``csrc/fused_net_loop2.cu``) on the first L = 1, 3, 5 and 7 units of the
+``csrc/fused_net_batch.cu``), K5 (``ops/fused_net_loop2.py``,
+``csrc/fused_net_loop2.cu``), K3 (``ops/fused_net.py``,
+``csrc/fused_net.cu``) and K6 (``ops/fused_net_lgrid.py``,
+``csrc/fused_net_lgrid.cu``) on the first L = 1, 3, 5 and 7 units of the
 seeded LIFFireNet (``bench_wholenet.MODEL``, weights from seed 0) at B=2
 and B=8, 256x256, in bf16 and f32 state, by CUDA events (calls back to
 back, on spiking states), and fits a line through the times by least
@@ -12,18 +14,20 @@ recurrent units, as the net stacks them), its intercept what an item and
 the launch cost besides. The input is one Poisson(0.05) count window drawn
 with numpy from seed 0.
 
-With ``--split`` it times K7 and K5 (B=2, bf16 state) in variant builds of
-their sources (``csrc/fused_net_batch.cu``, ``csrc/fused_net_loop2.cu``),
-each with one part of their shared item body taken out (``VARIANTS``): the
-state loads of the epilogue, its stores, the whole epilogue, the recurrent
-spike staging, the weight staging, the event staging, the fragment loads
-and mma, the flow, every round of 16-pixel fragments after a unit's first.
-A part is an ``item_keeps(ITEM_CUT_<part>)`` test in
-``csrc/fused_net_item.cuh``, taken out by building a source with
-``-DITEM_CUT=ITEM_CUT_<part>`` (``cuda_build.NVCC_FLAGS``, every variant's
-``nvcc`` started at once, into ``evflow_torch/_build/split/<kernel>/<variant>``)
-and loaded in place of the kernel's entry point. A checkout whose header
-lacks a part's test, or whose kernel source does not run that header, is
+With ``--split`` it times the four (B=2, bf16 state) in variant builds of
+their sources, each with one part of the item body they share taken out
+(``VARIANTS``): the state loads of the epilogue, its stores, the whole
+epilogue, the recurrent spike staging, the weight staging, the event
+staging, the fragment loads and mma, the flow, every round of 16-pixel
+fragments after a unit's first; K6 also in its own (``OWN_VARIANTS``):
+the staging of each unit's input from the unit before's spikes, the grid
+barrier. A part is an ``item_keeps(ITEM_CUT_<part>)`` test in
+``csrc/fused_net_item.cuh`` (K6's own in its source), taken out by
+building a source with ``-DITEM_CUT=ITEM_CUT_<part>``
+(``cuda_build.NVCC_FLAGS``, every variant's ``nvcc`` started at once, into
+``evflow_torch/_build/split/<kernel>/<variant>``) and loaded in place of
+the kernel's entry point. A checkout whose header (or kernel source) lacks
+a part's test, or whose kernel source does not run that header, is
 refused, and a part the header does not declare fails the build. The
 variants compute wrong results: they time, nothing more. The difference
 of a variant's slope from the full kernel's is what that part costs a
@@ -34,7 +38,7 @@ has them, for instance an earlier commit unpacked with ``git archive``:
 
     python -m evflow_torch.probes.wholenet_slope             # this checkout
     python evflow_torch/probes/wholenet_slope.py --tree DIR  # the package under DIR
-    python -m evflow_torch.probes.wholenet_slope --split     # K7's and K5's variants
+    python -m evflow_torch.probes.wholenet_slope --split     # the four kernels' variants
 
 Each run prints one JSON line per point and one per fit, with the card's
 name and power limit; it needs a CUDA card.
@@ -53,9 +57,11 @@ from pathlib import Path
 LAYERS = (1, 3, 5, 7)
 BATCHES = (2, 8)
 STATES = ("bf16", "f32")
-KERNELS = {  # name: (module under evflow_torch.ops, runner class)
-    "K7": ("fused_net_batch", "BatchFireNet"),
-    "K5": ("fused_net_loop2", "LoopFireNet"),
+KERNELS = {  # name: (module under evflow_torch.ops, runner class, its own split variants)
+    "K7": ("fused_net_batch", "BatchFireNet", ()),
+    "K5": ("fused_net_loop2", "LoopFireNet", ()),
+    "K3": ("fused_net", "WholeNetFireNet", ()),
+    "K6": ("fused_net_lgrid", "LayerGridFireNet", ("no_input_stage", "no_grid_barrier")),
 }
 HEIGHT = WIDTH = 256
 ITERS = 20  # calls timed back to back for one CUDA-event time
@@ -75,7 +81,17 @@ VARIANTS = {
     "no_pred": "ITEM_CUT_FLOW",
     "one_round": "ITEM_CUT_SECOND_ROUND",
 }
+# the parts only some kernels have, each tested in their sources (KERNELS)
+OWN_VARIANTS = {
+    "no_input_stage": "ITEM_CUT_INPUT_STAGE",
+    "no_grid_barrier": "ITEM_CUT_GRID_BARRIER",
+}
 ITEM_HEADER = "fused_net_item.cuh"
+
+
+def variants_of(kernel: str):
+    """``kernel``'s variants for --split: name -> the part taken out."""
+    return {**VARIANTS, **{name: OWN_VARIANTS[name] for name in KERNELS[kernel][2]}}
 
 
 def fit(xs, ys):
@@ -112,20 +128,23 @@ def device_ms(fn, iters: int = ITERS, rounds: int = 3) -> float:
 
 
 def first_units(runner, n: int):
-    """``runner`` (a K5 or K7 runner) cut to the first ``n`` units of its
-    net, with its stacked weights and spike slots made anew."""
+    """``runner`` (a K7, K5, K3 or K6 runner) cut to the first ``n`` units
+    of its net, with its stacked weights and spike slots, where it has them,
+    made anew."""
     from evflow_torch.ops.fused_net import stack_weights
 
     w = runner.weights
     runner.weights = w._replace(recurrent=w.recurrent[:n], wk=w.wk[:n],
                                 params=w.params[:n].contiguous())
-    runner.w_stack = stack_weights(runner.weights)
-    runner.slots = runner.slot_layout(runner.weights.recurrent)
+    if hasattr(runner, "w_stack"):
+        runner.w_stack = stack_weights(runner.weights)
+    if hasattr(runner, "slots"):
+        runner.slots = runner.slot_layout(runner.weights.recurrent)
     return runner
 
 
 def unit_times(kernel: str, batch: int, state: str, layers=LAYERS):
-    """K7 or K5 (``kernel``) on the card at ``batch`` x 256^2 in ``state``
+    """K7, K5, K3 or K6 (``kernel``) on the card at ``batch`` x 256^2 in ``state``
     over the first L units of the seeded LIFFireNet, for each L of
     ``layers``: a row per L with its ms, and the fit ``{"slope_ms",
     "intercept_ms"}``."""
@@ -139,7 +158,7 @@ def unit_times(kernel: str, batch: int, state: str, layers=LAYERS):
     from evflow_torch.registry import build_model
     from evflow_torch.weights import seeded_state_dict
 
-    module, cls_name = KERNELS[kernel]
+    module, cls_name, _ = KERNELS[kernel]
     cls = getattr(importlib.import_module(f"evflow_torch.ops.{module}"), cls_name)
     model = build_model(dict(MODEL), device="cuda")
     model.load_state_dict(seeded_state_dict(model, seed=0))
@@ -162,20 +181,26 @@ def unit_times(kernel: str, batch: int, state: str, layers=LAYERS):
 
 def missing_hooks(root: Path):
     """What keeps ``root``'s checkout from a split: the variants whose part
-    its item header has no ``item_keeps(ITEM_CUT_<part>)`` test for, and
-    the kernels whose source does not include the header (a build with that
-    part taken out would time the full kernel)."""
+    its item header has no ``item_keeps(ITEM_CUT_<part>)`` test for (a
+    kernel's own variants: its source), as ``<kernel>/<variant>`` for a
+    kernel's own, and the kernels whose source does not include the header
+    (a build with that part taken out would time the full kernel)."""
     csrc = root / "evflow_torch" / "csrc"
     header = csrc / ITEM_HEADER
     src = header.read_text() if header.exists() else ""
     missing = [name for name, cut in VARIANTS.items()
                if cut is not None and f"item_keeps({cut})" not in src]
-    return missing + [kernel for kernel, (module, _) in KERNELS.items()
+    for kernel, (module, _, own) in KERNELS.items():
+        kernel_src = (csrc / f"{module}.cu").read_text()
+        missing += [f"{kernel}/{name}" for name in own
+                    if f"item_keeps({OWN_VARIANTS[name]})" not in kernel_src]
+    return missing + [kernel for kernel, (module, _, _) in KERNELS.items()
                       if f'#include "{ITEM_HEADER}"' not in (csrc / f"{module}.cu").read_text()]
 
 
 def build_variants(root: Path):
-    """Every kernel's (``KERNELS``) library in every variant under
+    """Every kernel's (``KERNELS``) library in each of its variants
+    (``variants_of``) under
     ``evflow_torch/_build/split/<kernel>/<variant>``, one ``nvcc`` each, all
     started together, with its ptxas report beside it as ``ptxas.txt``:
     {(kernel, variant): directory}. Raises on a checkout that
@@ -189,9 +214,9 @@ def build_variants(root: Path):
                            "does not include it")
     nvcc = nvcc_path()
     dirs, procs = {}, {}
-    for kernel, (module, _) in KERNELS.items():
+    for kernel, (module, _, _) in KERNELS.items():
         src = root / "evflow_torch" / "csrc" / f"{module}.cu"
-        for name, cut in VARIANTS.items():
+        for name, cut in variants_of(kernel).items():
             d = root / "evflow_torch" / "_build" / "split" / kernel / name
             shutil.rmtree(d, ignore_errors=True)
             d.mkdir(parents=True)
@@ -213,21 +238,21 @@ def build_variants(root: Path):
 
 def split(root: Path):
     """Each kernel's fit at B=2, bf16 state, in every variant build
-    (``VARIANTS``), its full build first and last: a JSON-ready row per
+    (``variants_of``), its full build first and last: a JSON-ready row per
     fit, with the part taken out."""
     from evflow_torch.ops import cuda_build
 
     dirs = build_variants(root)
-    order = ["full"] + [n for n in VARIANTS if n != "full"] + ["full"]
     out = []
-    for kernel, (module, _) in KERNELS.items():
-        for name in order:
+    for kernel, (module, _, _) in KERNELS.items():
+        variants = variants_of(kernel)
+        for name in ["full"] + [n for n in variants if n != "full"] + ["full"]:
             fn = getattr(ctypes.CDLL(str(dirs[kernel, name] / f"lib{module}.so")), module)
             fn.argtypes = cuda_build.SIGNATURES[module]
             fn.restype = ctypes.c_int
             cuda_build._ENTRIES[module] = fn
             rows, line = unit_times(kernel, SPLIT_BATCH, SPLIT_STATE)
-            out.append({"variant": name, "cut": VARIANTS[name] or "ITEM_CUT_NONE",
+            out.append({"variant": name, "cut": variants[name] or "ITEM_CUT_NONE",
                         "points_ms": [r["ms"] for r in rows], **line})
         cuda_build._ENTRIES.pop(module, None)
     return out
@@ -238,7 +263,7 @@ def main(argv=None):
     ap.add_argument("--tree", default=None,
                     help="the checkout whose evflow_torch to time (default: this one)")
     ap.add_argument("--split", action="store_true",
-                    help="time K7's and K5's variant builds (VARIANTS) instead, at B=2, "
+                    help="time the kernels' variant builds (variants_of) instead, at B=2, "
                          "bf16 state")
     args = ap.parse_args(argv)
     root = Path(args.tree).resolve() if args.tree else Path(__file__).resolve().parents[2]

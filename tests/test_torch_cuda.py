@@ -181,17 +181,18 @@ def test_wholenet_kernels_agree_bitwise(cuda, dtype):
             assert all(torch.equal(m, r) for m, r in zip(mems, rmems)), name
 
 
-def random_wholenet(cuda, mask: str, hard: bool, seed: int):
+def random_wholenet(cuda, mask: str, hard: bool, seed: int, head: int = 16):
     """WholeNetWeights of random units, recurrent where ``mask`` says
     ``T`` (unit 0 feedforward): packed bf16 weights of the kernels' widths
-    (16 channels for the head, 32, 64 recurrent), random parameters."""
+    (``head`` channels for the head, 16 or 32; 32, 64 recurrent), random
+    parameters."""
     from evflow_torch.ops.fused_net import WholeNetWeights
 
     rng = np.random.default_rng(seed)
     rec = tuple(m == "T" for m in mask)
     wk = tuple(torch.tensor(rng.uniform(-1, 1, (32, 9 * ck)) / np.sqrt(9 * ck), device=cuda,
                             dtype=torch.float32).to(torch.bfloat16)
-               for ck in (16 if l == 0 else (64 if r else 32) for l, r in enumerate(rec)))
+               for ck in (head if l == 0 else (64 if r else 32) for l, r in enumerate(rec)))
     params = np.stack([np.stack([rng.normal(0.2, 0.3, 32), rng.uniform(0, 1, 32),
                                  rng.uniform(0.01, 0.8, 32)]) for _ in rec])
     return WholeNetWeights(
@@ -214,9 +215,11 @@ BATCH_CASES = {  # id: (B, H, W, mask, state dtype, hard reset)
     "B2-L7-recurrent": (2, 256, 256, "FTTTTTT", torch.float32, False),
     "B3-L7-feedforward": (3, 40, 17, "FFFFFFF", torch.bfloat16, True),
 }
-# the item kernels: K7 walks items in persistent CTAs, K5 and K4 launch one
-# CTA an item; K4 takes only the unit layouts it compiles
-ITEM_KERNELS = {"batch": "fused_net_batch", "loop2": "fused_net_loop2", "loop": "fused_net_loop"}
+# the item kernels: K7 walks items in persistent CTAs, K5, K4 and K3 launch
+# one CTA an item, K6 runs the items a unit at a time in a cooperative grid
+# of two CTAs an SM; K4 takes only the unit layouts it compiles
+ITEM_KERNELS = {"batch": "fused_net_batch", "loop2": "fused_net_loop2", "loop": "fused_net_loop",
+                "fused_net": "fused_net", "lgrid": "fused_net_lgrid"}
 
 
 def compiled_by_k4(mask):
@@ -229,16 +232,16 @@ def compiled_by_k4(mask):
     (k, c) for k in ITEM_KERNELS for c, v in BATCH_CASES.items()
     if k != "loop" or compiled_by_k4(v[3])])
 def test_batch_writes_every_owned_element(cuda, kernel, case):
-    """K7, K5 and K4 launched into NaN-filled membranes, spikes of every
-    unit (K5's slot 2, the last feedforward unit's, among them) and flow,
-    against ``firenet_step_plain`` under ``check_against_plain``'s bar:
-    every element is written (no NaN left) and agrees, at B = 1, 2, 3, 8,
-    ragged H and W, L = 1..7 units under several recurrent masks (two
+    """K7, K5, K4, K3 and K6 launched into NaN-filled membranes, spikes of
+    every unit (K5's slot 2, the last feedforward unit's, among them) and
+    flow, against ``firenet_step_plain`` under ``check_against_plain``'s
+    bar: every element is written (no NaN left) and agrees, at B = 1, 2, 3,
+    8, ragged H and W, L = 1..7 units under several recurrent masks (two
     recurrent units in a row; every unit after the head recurrent), both
     state dtypes and both reset modes, with fewer (b, tile) items than SMs
     and more (B=8 at 80x64: 160 items of 16 x 16; B=2 at 256x256: 512). K4
-    runs the layouts it compiles; its grid, as K5's, is a CTA an item, K7's
-    one CTA an SM at most."""
+    runs the layouts it compiles; its grid, as K5's and K3's, is a CTA an
+    item, K7's one CTA an SM at most, K6's two CTAs an SM at most."""
     from evflow_torch.ops.fused_net_item import item_count
 
     B, H, W, mask, dtype, hard = BATCH_CASES[case]
@@ -258,7 +261,8 @@ def test_batch_writes_every_owned_element(cuda, kernel, case):
     torch.cuda.synchronize()
     items = item_count(B, H, W)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert launch_wholenet.grid == (min(items, sms) if kernel == "batch" else items)
+    per_sm = {"batch": 1, "lgrid": 2}.get(kernel)
+    assert launch_wholenet.grid == (items if per_sm is None else min(items, per_sm * sms))
     pflow, pmems, pspikes = firenet_step_plain(x, mems, prevs, weights)
     for l in range(L):
         assert not bool(mem_outs[l].isnan().any()) and not bool(spk_outs[l].isnan().any()), l
@@ -268,13 +272,55 @@ def test_batch_writes_every_owned_element(cuda, kernel, case):
     assert ((flow - pflow).abs() > 1e-4).float().mean() <= 1e-5
 
 
+HEAD32_CASES = {  # id: (B, H, W, Cin, mask, state dtype)
+    "2ff-cin32": (2, 40, 17, 32, "FF", torch.bfloat16),
+    "L7-firenet-cin20": (2, 48, 40, 20, "FTFFTFF", torch.float32),
+    "L7-recurrent-cin32": (1, 40, 40, 32, "FTTTTTT", torch.bfloat16),
+    "L3-cin17": (3, 17, 33, 17, "FTF", torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEAD32_CASES))
+@pytest.mark.parametrize("kernel", ["fused_net", "loop2", "batch", "lgrid"])
+def test_head_of_32_channels(cuda, kernel, case):
+    """A head of 17..32 input channels (packed to 32, ``packed_channels``):
+    K3, K5, K7 and K6 launched into NaN-filled outputs against
+    ``firenet_step_plain`` under ``check_against_plain``'s bar, among the
+    nets ``probe_wholenet_bisect4.py``'s two feedforward units at Cin = 32
+    and seven units with the event tile (30 x 30 pixels) running into the
+    recurrent spike tile, with the first recurrent unit right after the
+    head."""
+    B, H, W, cin, mask, dtype = HEAD32_CASES[case]
+    weights = random_wholenet(cuda, mask, True, seed=cin, head=32)
+    rng = np.random.default_rng(cin)
+    L = len(mask)
+    x = torch.tensor(rng.poisson(0.3, (B, H, W, cin)).astype(np.float32), device=cuda)
+    mems = [torch.tensor(rng.normal(0, 0.5, (B, 32, H, W)), device=cuda).to(dtype)
+            for _ in range(L)]
+    prevs = [torch.tensor(rng.random((B, 32, H, W)) < 0.3, device=cuda).to(dtype) if r else None
+             for r in weights.recurrent]
+    mem_outs = [torch.full_like(m, float("nan")) for m in mems]
+    spk_outs = [torch.full_like(m, float("nan")) for m in mems]
+    flow = torch.full((B, H, W, 2), float("nan"), device=cuda)
+    launch_wholenet(ITEM_KERNELS[kernel], x, mems, prevs, weights.wk, weights, mem_outs, spk_outs,
+                    flow=flow)
+    torch.cuda.synchronize()
+    pflow, pmems, pspikes = firenet_step_plain(x, mems, prevs, weights)
+    for l in range(L):
+        bad = ((mem_outs[l].float() - pmems[l].float()).abs() > 1e-4) | (spk_outs[l] != pspikes[l])
+        assert not bool(mem_outs[l].isnan().any()) and bad.float().mean() <= 1e-5, l
+    assert bool(torch.isfinite(flow).all())
+    assert ((flow - pflow).abs() > 1e-4).float().mean() <= 1e-5
+    assert 0.02 < float(pspikes[0].float().mean()) < 0.98  # the head fires, not everywhere
+
+
 def test_lgrid_grid_fills_the_card(cuda):
-    """K6 at B=2, 256x256: more (b, tile) items than resident CTAs, so the
-    cooperative grid is as large as the card holds at once and each CTA
-    walks several items between grid barriers."""
+    """K6 at B=2, 256x256: more (b, 16 x 16 tile) items than resident CTAs,
+    so the cooperative grid is as large as the card holds at once and each
+    CTA walks several items between grid barriers."""
     runner = LayerGridFireNet(seeded_fused(cuda), torch.float32)
     check_against_plain(runner, fused_firenet_step_lgrid, cuda, B=2, H=256, W=256, windows=2)
-    items = 2 * (256 // 8) * (256 // 32)
+    items = 2 * (256 // 16) * (256 // 16)
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert sms <= launch_wholenet.grid < items
 
@@ -306,6 +352,9 @@ def test_unrolled_loop_refuses_what_it_cannot_take(cuda):
     narrow = UnrolledLoopFireNet(seeded_fused(cuda, C=8), torch.float32)
     with pytest.raises(ValueError, match="C=32"):
         narrow.step(x, narrow.init_states(1, 16, 16))
+    wide = random_wholenet(cuda, "FTFFTFF", True, seed=0, head=32)
+    with pytest.raises(ValueError, match="head of 16"):
+        fused_firenet_step_loop(torch.zeros(1, 16, 16, 32, device=cuda), mems, slots, w, wide)
     assert fused_firenet_step_loop.launches == before
 
 
@@ -1014,8 +1063,9 @@ def test_wholenet_bisect_matches_plain(cuda, shape, index):
 def test_wholenet_bisect_refuses_what_it_cannot_take(cuda):
     """C other than the kernel's 32, an operand 2 bytes past a 16-byte
     boundary and operands on two devices are refused before any launch; the
-    entry point itself refuses H not a multiple of 16. The port's K3 launch
-    refuses ``probe_wholenet_bisect4.py``'s Cin = 32."""
+    entry point itself refuses H not a multiple of 16. The port's K3 runs
+    ``probe_wholenet_bisect4.py``'s Cin = 32 (two feedforward units), held
+    against its plain version, and refuses Cin = 33 before any launch."""
     from evflow_torch.ops.fused_net import WholeNetWeights
     from evflow_torch.probes import wholenet_bisect as M
     from evflow_torch.probes._harness import launch
@@ -1037,9 +1087,21 @@ def test_wholenet_bisect_refuses_what_it_cannot_take(cuda):
                         body=M.KA, B=1, H=8, W=16)
     with pytest.raises(RuntimeError, match="cudaError_t"):
         launch("probe_wholenet_bisect", args, x.device)
-    zeros = torch.zeros(32, 9 * 32, device=cuda, dtype=torch.bfloat16)
-    weights = WholeNetWeights((False, False), (zeros, zeros), torch.zeros(2, 3, 32, device=cuda),
-                              torch.zeros(32, 2, device=cuda), torch.zeros(2, device=cuda), True)
-    mems = tuple(torch.zeros(1, 32, 4, 4, device=cuda) for _ in range(2))
-    with pytest.raises(ValueError, match="Cin <= 16"):
-        fused_firenet_step(torch.zeros(1, 4, 4, 32, device=cuda), mems, (), weights)
+    weights = random_wholenet(cuda, "FF", True, seed=32, head=32)
+    mems = tuple(torch.tensor(rng.normal(0, 0.5, (2, 32, 24, 40)), dtype=torch.float32,
+                              device=cuda) for _ in range(2))
+    xw = torch.tensor(rng.normal(0, 1, (2, 24, 40, 32)), dtype=torch.float32, device=cuda)
+    before = fused_firenet_step.launches
+    flow, m2, _ = fused_firenet_step(xw, mems, (), weights)
+    assert fused_firenet_step.launches == before + 1
+    pflow, pmems, _ = firenet_step_plain(xw, mems, [None, None], weights)
+    torch.cuda.synchronize()
+    assert ((flow - pflow).abs() > 1e-4).float().mean() <= 1e-5
+    for km, pm in zip(m2, pmems):
+        assert ((km - pm).abs() > 1e-4).float().mean() <= 1e-5
+    wide = WholeNetWeights(weights.recurrent, (torch.zeros(32, 9 * 48, device=cuda,
+                                                           dtype=torch.bfloat16),
+                                               weights.wk[1]), *weights[2:])
+    with pytest.raises(ValueError, match="Cin <= 32"):
+        fused_firenet_step(torch.zeros(2, 24, 40, 33, device=cuda), mems, (), wide)
+    assert fused_firenet_step.launches == before + 1

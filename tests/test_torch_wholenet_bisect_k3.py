@@ -4,15 +4,16 @@ call the JAX K3 ``fused_firenet_step`` (``benchmarks/pallas_archive/
 fused_net.py``) with cut layer lists. The port's K3 ``fused_firenet_step``
 (plain version on the CPU) is held against it, in interpret mode, for
 ``bisect2.py``'s lists (1 ff, 2 ff, 1 ff + 1 rec, 7 ff, the full net) at
-Cin 2 and 8, C = 8, H = 32, W = 16, TH = 16, B = 2, bf16 state, on
-operands that make every sum exact.
+Cin 2 and 8 and for ``bisect4.py``'s (2 ff at Cin 32, 8 and 2), C = 8,
+H = 32, W = 16, TH = 16, B = 2, bf16 state, on operands that make every
+sum exact.
 
 The JAX K3 never zeros the rows outside the image, so, as
 ``tests/test_torch_wholenet.py`` does, unit k is compared on rows
 [k, H - k) and the flow on [L - 1, H - L + 1): membranes and spikes equal,
-the flow within 1e-5 (two tanh implementations). ``bisect4.py`` also runs
-K3 at Cin = 32, which the port's K3 launch refuses (it packs the head to 16
-input channels): ``test_port_k3_launch_refuses_cin_above_16``.
+the flow within 1e-5 (two tanh implementations). The port's K3 launch
+takes a head of up to 32 input channels (packed to 16 or 32) and refuses a
+wider one before any build: ``test_port_k3_launch_refuses_cin_above_32``.
 """
 
 import jax.numpy as jnp
@@ -31,6 +32,7 @@ LAYERS = {  # probe_wholenet_bisect2.py:39-43
     "1ff": [False], "2ff": [False, False], "1ff+1rec": [False, True], "7ff": [False] * 7,
     "full": [False, True, False, False, True, False, False],
 }
+BISECT4 = {"2ff cin32": 32, "2ff cin8": 8, "2ff cin2 again": 2}  # probe_wholenet_bisect4.py:38-40
 
 
 def operands(recs, cin, seed=0):
@@ -93,13 +95,10 @@ def port_weights(recs, cin, ws, params, pw, pb, c=C):
         pred_b=torch.tensor(pb[:, 0], dtype=torch.float32), hard_reset=True)
 
 
-@pytest.mark.parametrize("cin", [2, 8])
-@pytest.mark.parametrize("name", list(LAYERS))
-def test_port_k3_matches_jax_k3_on_bisect2_layer_lists(name, cin):
+def check_parity(recs, cin):
     """One window through the port's K3 (plain version) and the JAX K3
     (interpret mode): unit k's membrane and a recurrent unit's spikes equal
     on rows [k, H - k), the flow within 1e-5 on rows [L - 1, H - L + 1)."""
-    recs = LAYERS[name]
     x, mems, spks, ws, params, pw, pb = operands(recs, cin)
     jflow, jmems, jspks = run_jax(recs, x, mems, spks, ws, params, pw, pb)
     weights = port_weights(recs, cin, ws, params, pw, pb)
@@ -124,17 +123,33 @@ def test_port_k3_matches_jax_k3_on_bisect2_layer_lists(name, cin):
     assert float(np.abs(jmems[-1]).mean()) > 0.05  # the last unit's state moved
 
 
-def test_port_k3_launch_refuses_cin_above_16():
-    """``probe_wholenet_bisect4.py:38`` runs the JAX K3 at Cin = 32 (``2ff
-    cin32``). The port's K3 launch packs the head to 16 input channels and
-    refuses a wider window with a ValueError before any build or launch; the
-    plain version (CPU) computes it."""
+@pytest.mark.parametrize("cin", [2, 8])
+@pytest.mark.parametrize("name", list(LAYERS))
+def test_port_k3_matches_jax_k3_on_bisect2_layer_lists(name, cin):
+    """``bisect2.py``'s layer lists, as ``check_parity`` holds them."""
+    check_parity(LAYERS[name], cin)
+
+
+@pytest.mark.parametrize("name", list(BISECT4))
+def test_port_k3_matches_jax_k3_on_bisect4_layer_lists(name):
+    """``bisect4.py``'s two feedforward units at Cin 32, 8 and 2, as
+    ``check_parity`` holds them: the port's K3 takes the head packed to 32
+    input channels as well as to 16."""
+    check_parity([False, False], BISECT4[name])
+
+
+def test_port_k3_launch_refuses_cin_above_32():
+    """The port's K3 launch takes a head of at most 32 input channels
+    (``pack_weights`` packs Cin = 33 to 48) and refuses a wider window with
+    a ValueError before any build or launch; the plain version (CPU)
+    computes it."""
     recs = [False, False]
-    weights = port_weights(recs, 32, [np.zeros((32, 9 * 32))] * 2, [np.zeros((32, 3))] * 2,
-                           np.zeros((2, 32)), np.zeros((2, 1)), c=32)
-    xw = torch.zeros(1, 4, 4, 32)
+    weights = port_weights(recs, 33, [np.zeros((32, 9 * 33)), np.zeros((32, 9 * 32))],
+                           [np.zeros((32, 3))] * 2, np.zeros((2, 32)), np.zeros((2, 1)), c=32)
+    assert weights.wk[0].shape == (32, 9 * 48)
+    xw = torch.zeros(1, 4, 4, 33)
     mem = [torch.zeros(1, 32, 4, 4) for _ in recs]
-    with pytest.raises(ValueError, match="Cin <= 16"):
+    with pytest.raises(ValueError, match="Cin <= 32"):
         launch_wholenet("fused_net", xw, mem, [None] * 2, weights.wk, weights, mem, [None] * 2)
     flow, _, _ = fused_firenet_step(xw, mem, (), weights)
     assert tuple(flow.shape) == (1, 4, 4, 2)

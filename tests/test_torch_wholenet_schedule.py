@@ -1,16 +1,19 @@
-"""The item schedule of K4, K5 and K7 (``csrc/fused_net_item.cuh``) as its
-Python mirror in ``evflow_torch.ops.fused_net_item`` states it, on the CPU:
-every owned pixel of every (b, tile) item written once per unit, the last
-unit's extent the owned tile, the shared memory within a CTA's for every
-unit count and recurrent mask and for each of K4's compiled layouts, the
-mirror's constants those of the header, ``chip_smoke.issued_flops``'s count
-of the three kernels' mma work on the shrinking extent, and the parts that
-``probes/wholenet_slope.py --split`` takes out declared and tested in the
-header that K7's and K5's sources run."""
+"""The item schedule of K3, K4, K5 and K7 (``csrc/fused_net_item.cuh``) and
+K6's tiles (``csrc/fused_net_lgrid.cu``) as their Python mirror in
+``evflow_torch.ops.fused_net_item`` states them, on the CPU: every owned
+pixel of every (b, tile) item written once per unit, the last unit's extent
+the owned tile, the shared memory within a CTA's for every unit count,
+recurrent mask and head width (16 or 32 packed channels) and for each of
+K4's compiled layouts, two K6 CTAs within an SM's, the mirror's constants
+those of the sources, ``chip_smoke.issued_flops``'s count of the kernels'
+mma work (the shrinking extent; K6's tiles without a halo), and the parts
+that ``probes/wholenet_slope.py --split`` takes out declared and tested in
+the header (K6's own in its source) that the four split kernels run."""
 
 import ctypes
 import itertools
 import re
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -24,7 +27,9 @@ from evflow_torch.probes import wholenet_slope as S
 
 CSRC = Path(I.__file__).resolve().parents[1] / "csrc"
 SMEM_LIMIT = 232448  # shared memory of one CTA on an H100
+SM_SMEM, CTA_RESERVED = 233472, 1024  # an H100 SM's shared memory; the runtime's share a CTA
 L_MAX = 7
+LIFFIRENET = (False, True, False, False, True, False, False)
 
 
 def owned_writes(B, H, W, L):
@@ -79,8 +84,45 @@ def test_shared_memory_fits_every_mask(L):
         worst = max(worst, I.item_smem(rec))
         assert I.item_smem(rec) + ctypes.sizeof(WholeNetArgs) <= SMEM_LIMIT
     if L == L_MAX:
-        assert I.item_smem((False, True, False, False, True, False, False)) == 228_504
+        assert I.item_smem(LIFFIRENET) == 228_504
         assert worst == 228_504
+
+
+@pytest.mark.parametrize("L", range(1, L_MAX + 1))
+def test_shared_memory_fits_a_32_channel_head(L):
+    """With a head of 32 packed channels (Cin 17..32) the event tile (unit
+    0's extent and a pixel a side, 40 bf16 a pixel) outgrows spike tile B
+    and runs into tile P: every recurrent mask and the feedforward net of L
+    units still fit an H100 CTA's 232,448 bytes with the ``WholeNetArgs``
+    copy, LIFFireNet's at the 228,504 bytes of its 16-channel head, the
+    seven feedforward units at 156,632."""
+    eh, ew, _ = I.item_extent(0, L)
+    tile, events = eh * ew * 40 * 2, (eh + 2) * (ew + 2) * 40 * 2
+    assert events > tile  # the event tile outgrows tile B
+    for mask in itertools.product((False, True), repeat=L - 1):
+        rec = (False,) + mask
+        smem = I.item_smem(rec, head=32)
+        assert I.item_smem(rec) <= smem
+        assert smem + ctypes.sizeof(WholeNetArgs) <= SMEM_LIMIT
+        assert tile + events <= smem  # tile A, then the event tile
+    if L == L_MAX:
+        assert I.item_smem(LIFFIRENET, head=32) == 228_504
+        assert I.item_smem((False,) * L, head=32) == 156_632
+
+
+@pytest.mark.parametrize("head", [16, 32])
+@pytest.mark.parametrize("L", range(1, L_MAX + 1))
+def test_two_lgrid_ctas_share_an_sm(L, head):
+    """K6's CTA (an 18 x 18 input tile, the last unit's 16 x 16 spike tile,
+    an 18 x 18 previous-spike tile in a recurrent net, the weights of the
+    widest unit) takes at most 112,664 bytes, so that two CTAs, each with
+    its ``WholeNetArgs`` copy and the runtime's 1 KB, share an H100 SM's
+    233,472 bytes for every recurrent mask and head width."""
+    for mask in itertools.product((False, True), repeat=L - 1):
+        smem = I.lgrid_smem((False,) + mask, head)
+        assert smem <= 112_664
+        assert 2 * (smem + ctypes.sizeof(WholeNetArgs) + CTA_RESERVED) <= SM_SMEM
+    assert I.lgrid_smem(LIFFIRENET) == 112_664
 
 
 @pytest.mark.parametrize("units,rec_units", LAYOUTS)
@@ -94,8 +136,9 @@ def test_unrolled_layouts_fit_the_card(units, rec_units):
 
 def test_mirror_constants_match_the_source():
     """The owned tile is the header's ``ITEM_TH`` x ``ITEM_TW``, the row
-    padding ``PAD`` that of the conv+LIF header, and the item layout's
-    pieces are the ones ``item_smem`` counts."""
+    padding ``PAD`` that of the conv+LIF header, and the item layout's and
+    K6's layout's pieces are the ones ``item_smem`` and ``lgrid_smem``
+    count."""
     src = (CSRC / "fused_net_item.cuh").read_text()
     th, tw = re.search(r"constexpr int ITEM_TH = (\d+), ITEM_TW = (\d+);", src).groups()
     assert (int(th), int(tw)) == I.ITEM_TILE
@@ -103,31 +146,48 @@ def test_mirror_constants_match_the_source():
     assert int(pad.group(1)) == 8
     layout = re.search(r"inline ItemLayout item_layout\(.*?\n\}", src, re.S).group(0)
     for piece in ("s.tile = extent_h(0, a.L) * extent_w(0, a.L) * SPITCH * 2;",
-                  "s.wbuf = s.spk + (any_rec ? s.tile : 0);",
+                  "s.spk = 2 * s.tile;",
+                  "(extent_h(0, a.L) + 2) * (extent_w(0, a.L) + 2) * (a.ck[0] + PAD) * 2;",
+                  "const int tiles = s.spk + (any_recurrent(a) ? s.tile : 0);",
+                  "place_after_tiles(a, tiles > s.tile + events ? tiles : s.tile + events, s);"):
+        assert piece in layout
+    after = re.search(r"inline void place_after_tiles\(.*?\n\}", src, re.S).group(0)
+    for piece in ("s.wbuf = tiles;",
                   "s.prm = s.wbuf + C * (9 * ck_max + PAD) * 2;",
                   "s.bars = s.prm + (a.L * 3 * C + 2 * C + 2) * 4;",
                   "s.total = s.bars + 16;"):
+        assert piece in after
+    lgrid = (CSRC / "fused_net_lgrid.cu").read_text()
+    assert "constexpr int LG_IN = ITEM_TH + 2;" in lgrid
+    layout = re.search(r"inline ItemLayout lgrid_layout\(.*?\n\}", lgrid, re.S).group(0)
+    for piece in ("s.tile = LG_IN * LG_IN * SPITCH * 2;",
+                  "s.spk = s.tile + ITEM_TH * ITEM_TW * SPITCH * 2;",
+                  "place_after_tiles(a, s.spk + (any_recurrent(a) ? s.tile : 0), s);"):
         assert piece in layout
 
 
-@pytest.mark.parametrize("kernel", sorted(S.KERNELS))
-@pytest.mark.parametrize("variant", sorted(set(S.VARIANTS) - {"full"}))
+@pytest.mark.parametrize("kernel,variant", [
+    (k, v) for k in sorted(S.KERNELS) for v in sorted(set(S.variants_of(k)) - {"full"})])
 def test_split_variant_has_its_hook(kernel, variant):
     """Each variant of ``wholenet_slope --split`` takes out a part that the
-    item header declares (``enum ItemCut``) and tests (``item_keeps``), and
-    the kernel's source (K7's, K5's) runs that header, so that its build
-    times the kernel without that part; the full build takes out nothing,
-    and no declared part lacks a variant."""
+    item header declares (``enum ItemCut``) and tests (``item_keeps``; K6's
+    own parts in its source), and the kernel's source (K7's, K5's, K3's,
+    K6's) runs that header, so that its build times the kernel without that
+    part; the full build takes out nothing, and no declared part lacks a
+    variant."""
     src = (CSRC / S.ITEM_HEADER).read_text()
     declared = re.findall(r"^\s+(ITEM_CUT_\w+),", re.search(r"enum ItemCut \{(.*?)\};", src, re.S)
                           .group(1), re.M)
-    cut = S.VARIANTS[variant]
-    assert cut in declared and f"item_keeps({cut})" in src
-    assert S.VARIANTS["full"] is None and declared[0] == "ITEM_CUT_NONE"
-    assert sorted(declared[1:]) == sorted(c for c in S.VARIANTS.values() if c)
     module = S.KERNELS[kernel][0]
     kernel_src = (CSRC / f"{module}.cu").read_text()
-    assert f'#include "{S.ITEM_HEADER}"' in kernel_src and "run_item<" in kernel_src
+    cut = S.variants_of(kernel)[variant]
+    assert cut in declared
+    assert f"item_keeps({cut})" in (src if variant in S.VARIANTS else kernel_src)
+    assert S.VARIANTS["full"] is None and declared[0] == "ITEM_CUT_NONE"
+    assert sorted(declared[1:]) == sorted(
+        c for c in {**S.VARIANTS, **S.OWN_VARIANTS}.values() if c)
+    assert f'#include "{S.ITEM_HEADER}"' in kernel_src
+    assert "run_item<" in kernel_src or "conv_lif_unit<" in kernel_src
     assert S.missing_hooks(CSRC.parents[1]) == []
 
 
@@ -138,15 +198,21 @@ def test_split_refuses_a_tree_without_the_hooks(tmp_path):
     before the shared item body): ``missing_hooks`` names each."""
     csrc = tmp_path / "evflow_torch" / "csrc"
     csrc.mkdir(parents=True)
-    for name in ("fused_net_batch.cu", "fused_net_loop2.cu", S.ITEM_HEADER):
+    sources = [f"{module}.cu" for module, _, _ in S.KERNELS.values()]
+    for name in sources + [S.ITEM_HEADER]:
         (csrc / name).write_text((CSRC / name).read_text())
     assert S.missing_hooks(tmp_path) == []
     header = (CSRC / S.ITEM_HEADER).read_text()
     (csrc / S.ITEM_HEADER).write_text(header.replace("item_keeps(ITEM_CUT_FLOW)", "true"))
     assert S.missing_hooks(tmp_path) == ["no_pred"]
+    lgrid = (CSRC / "fused_net_lgrid.cu").read_text()
+    (csrc / "fused_net_lgrid.cu").write_text(
+        lgrid.replace("item_keeps(ITEM_CUT_GRID_BARRIER)", "true"))
+    assert S.missing_hooks(tmp_path) == ["no_pred", "K6/no_grid_barrier"]
     (csrc / S.ITEM_HEADER).unlink()
     (csrc / "fused_net_loop2.cu").write_text('#include "fused_net_common.cuh"\n')
-    assert S.missing_hooks(tmp_path) == [v for v in S.VARIANTS if v != "full"] + ["K5"]
+    assert S.missing_hooks(tmp_path) == ([v for v in S.VARIANTS if v != "full"]
+                                         + ["K6/no_grid_barrier", "K5"])
     with pytest.raises(RuntimeError, match="cannot be split"):
         S.build_variants(tmp_path)
 
@@ -154,9 +220,10 @@ def test_split_refuses_a_tree_without_the_hooks(tmp_path):
 def test_item_kernels_are_gated():
     """Every item kernel instantiation the entry points can launch is in
     ``chip_smoke.REDESIGNED`` under the name ptxas's mangled one gives
-    (``cuda_build.kernel_name``): K7's and K5's for both state dtypes, K4's
-    for each layout it compiles (``fused_net_loop.LAYOUTS``: units and the
-    recurrent-unit mask) and both state dtypes; phase ``build`` fails on a
+    (``cuda_build.kernel_name``): K7's, K5's and K6's for both state
+    dtypes, K4's for each layout it compiles (``fused_net_loop.LAYOUTS``:
+    units and the recurrent-unit mask) and K3's for each unit count it
+    launches (1..7), each in both state dtypes; phase ``build`` fails on a
     missing one."""
     import chip_smoke
     from evflow_torch.ops.cuda_build import kernel_name
@@ -170,9 +237,16 @@ def test_item_kernels_are_gated():
     mangled = [f"_ZN6evflow8wholenet21fused_net_loop_kernelILi{n}ELj{m}E{t}EEvNS0_12WholeNetArgsE"
                for n, m in layouts for t, _ in states]
     assert chip_smoke.REDESIGNED["fused_net_loop"] == tuple(kernel_name(x) for x in mangled)
-    for source in ("fused_net_batch", "fused_net_loop2"):
+    for source in ("fused_net_batch", "fused_net_loop2", "fused_net_lgrid"):
         assert chip_smoke.REDESIGNED[source] == tuple(
             f"{source}_kernel<{name}>" for _, name in states)
+    text = (CSRC / "fused_net.cu").read_text()
+    units = [int(n) for n, m in re.findall(r"case (\d): return go\(fused_net_kernel<(\d), S>\);",
+                                           text) if n == m]
+    assert units == list(range(1, L_MAX + 1))
+    mangled = [f"_ZN6evflow8wholenet16fused_net_kernelILi{n}E{t}EEvNS0_12WholeNetArgsE"
+               for n in units for t, _ in states]
+    assert chip_smoke.REDESIGNED["fused_net"] == tuple(kernel_name(x) for x in mangled)
 
 
 def runner_of(mask):
@@ -187,7 +261,7 @@ def runner_of(mask):
 
 
 def test_issued_flops_counts_the_shrinking_extent():
-    """K4, K5 and K7 run the same item body: each unit's own extent in
+    """K3, K4, K5 and K7 run the same item body: each unit's own extent in
     16-pixel fragments (3,536 pixels an item of 16 x 16 at L=7: 39.94 GFLOP
     a window at B=2, 256x256, where K4 and K5 issued 92.4 on the uniform
     extent of 8 x 16 tiles before they took the item body)."""
@@ -202,6 +276,33 @@ def test_issued_flops_counts_the_shrinking_extent():
     expected = sum(2 * p * items * 32 * 9 * k for p, k in zip(per_item, ck))
     assert expected == 39_938_162_688
     for kname in ("fused_firenet_step_batch", "fused_firenet_step_loop2",
-                  "fused_firenet_step_loop"):
+                  "fused_firenet_step_loop", "fused_firenet_step"):
         assert chip_smoke.issued_flops(kname, net, 2) == expected, kname
         assert chip_smoke.issued_flops(kname, net, 8) == 4 * expected, kname
+
+
+def test_issued_flops_counts_k6_tiles_without_halo():
+    """K6 runs every unit over the 16 x 16 tiles alone, no halo recomputed:
+    256 pixels x 512 tiles x 2 x 32 x 9 x the packed input channels summed
+    over the units (272 for LIFFireNet) = 20.54 GFLOP a window at B=2,
+    256x256, about half of the item kernels' 39.94."""
+    import chip_smoke
+
+    net = runner_of("FTFFTFF")
+    assert sum(t.shape[1] // 9 for t in net.weights.wk) == 272
+    expected = 256 * I.item_count(2, 256, 256) * 2 * 32 * 9 * 272
+    assert expected == 20_535_312_384
+    assert chip_smoke.issued_flops("fused_firenet_step_lgrid", net, 2) == expected
+    assert chip_smoke.issued_flops("fused_firenet_step_lgrid", net, 8) == 4 * expected
+
+
+def test_split_old_refuses_a_tree_with_the_item_body(tmp_path):
+    """``probes/wholenet_split_old.py`` patches the text of K3 and K6 as
+    they were before they ran the item body; on this tree, whose K3 and K6
+    run it, the first patch whose text is missing refuses the tree before
+    any build."""
+    from evflow_torch.probes import wholenet_split_old as old
+
+    shutil.copytree(CSRC, tmp_path / "evflow_torch" / "csrc")
+    with pytest.raises(RuntimeError, match="not the ones this script patches"):
+        old.patched_sources(tmp_path)
