@@ -9,7 +9,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 1. ``build``: compile the hand-written CUDA kernels from ``evflow_torch/csrc``
    (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
    and print ptxas's registers, stack and spill bytes of the redesigned
-   kernels (K7's two ``fused_net_batch_kernel`` instantiations, K5's two
+   kernels (K1's and K2's four ``conv_lif_kernel`` instantiations each, one
+   a padded output width of 16, 32, 48 or 64 channels, K7's two ``fused_net_batch_kernel`` instantiations, K5's two
    ``fused_net_loop2_kernel``, K4's eight ``fused_net_loop_kernel``, K3's
    14 ``fused_net_kernel`` (L = 1..7) and K6's two ``fused_net_lgrid_kernel``
    ones, the in-kernel dot's 12 ``probe_kernel`` instantiations, k2's
@@ -19,8 +20,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k8), failing if ptxas reports any of them not at all, or with a stack
    or spills.
 2. ``kernels``: every kernel against its plain PyTorch version on the card at
-   full width (B=2, 256x256, C=32): head (Cin=2), feedforward, recurrent and
-   subtract reset, in both layouts. mem' within 1e-4 where the spikes agree
+   full width (C=32): head (Cin=2), feedforward, recurrent and subtract
+   reset, and a feedforward and a recurrent unit of C=24 (padded to 32
+   output channels), in both layouts, each at B=2, 256x256 (16 x 16 tiles)
+   and at B=1, 128x128 (``evaluate``'s shape: 8 x 16 tiles). mem' within 1e-4 where the spikes agree
    (f32 sums in another order than cuDNN's, bf16 operands), spikes equal
    wherever |u - theta| > 1e-4, and at most 1e-5 of the elements differ.
 3. ``model``: LIFFireNet (32 channels, 7 units, seeded weights) over 8
@@ -33,9 +36,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
    past a rollover, once per layout; each run sets the launch counters to 0
    just before and reads them just after (7 launches per window). AEE per
    file within 2% of ``evaluate(fused=False)`` (f32 convs).
-5. ``times``: CUDA-event times of every phase-2 case, its plain version and
-   cuDNN's bf16 conv alone, beside the case's bound; then FusedFireNet
-   windows/s over a long scan at B=2, 256x256, cnt input ~5% active.
+5. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
+   256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
+   and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
+   the sums of a window's 7 launches at each shape; then FusedFireNet
+   windows/s over a long scan at B=2, 256x256, cnt input ~5% active, and
+   over 7 rounds of 50 steps enqueued while the card sleeps: the host's
+   enqueue time a step and the card's time a step, medians of the rounds
+   (the scan is the larger of the two).
 6. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
    ``fused_net_loop``, K5 ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7
    ``fused_net_batch``) at full width, 256x256, at B=2 over 8 windows and
@@ -157,8 +165,9 @@ result.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
-import math
+import statistics
 import sys
 import tempfile
 import time
@@ -167,10 +176,11 @@ PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes"
           "unitloop", "loopdyn", "mosaicops", "bisect")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
-# (case, Cin, recurrent, hard reset)
-CASES = (("head", 2, False, True), ("ff", 32, False, True),
-         ("rec", 32, True, True), ("soft", 32, False, False))
-PER_WINDOW = {"head": 1, "ff": 4, "rec": 2}  # LIFFireNet launches per window
+# K1's and K2's cases (case, Cin, recurrent, hard reset), their launches a
+# LIFFireNet window and the shapes they are timed at (the bench's, B=2,
+# 256x256, and evaluate's, B=1, 128x128) are evflow_torch.probes.conv_lif_times';
+# phase 2 also runs these at a width the kernels pad to 32 output channels
+CASES_24 = (("ff24", 24, False, True), ("rec24", 24, True, True))
 KERNELS = (  # name, layout, source, the TPU kernel's pallas_call
     ("fused_conv_lif", "nhwc", "evflow_torch/csrc/conv_lif.cu",
      "evflow/ops/pallas/conv_lif.py:151"),
@@ -212,36 +222,6 @@ def kernel_fns(layout):
     return fused_conv_lif_cmajor, conv_lif_cmajor_plain
 
 
-def make_case(cin, recurrent, layout, seed):
-    """Operands of one unit at the bench shape, on the card: counts for the
-    head, binary spikes for the other units, kernels in the flax init range
-    scaled by a BN gain, per-channel bias / beta / theta."""
-    import numpy as np
-    import torch
-
-    from evflow_torch.ops.conv_lif import pack_weights
-
-    rng = np.random.default_rng(seed)
-    B, H, W, C = B_BENCH, H_BENCH, W_BENCH, C_BENCH
-    x = rng.poisson(0.3, (B, H, W, cin)) if cin == 2 else rng.random((B, H, W, cin)) < 0.2
-    g = rng.uniform(0.5, 2.0, C)
-    w = rng.uniform(-1, 1, (3, 3, cin, C)) * math.sqrt(1.0 / cin) * g
-    w_rec = rng.uniform(-1, 1, (3, 3, C, C)) * math.sqrt(1.0 / C) * g if recurrent else None
-    arrays = dict(x=x, mem=rng.normal(0, 0.5, (B, H, W, C)), bias=rng.normal(0, 0.3, C),
-                  beta=rng.uniform(0, 1, C), theta=rng.uniform(0.01, 0.8, C),
-                  prev_spk=(rng.random((B, H, W, C)) < 0.2) if recurrent else None)
-    t = {k: None if v is None else torch.tensor(np.asarray(v, np.float32), device="cuda")
-         for k, v in arrays.items()}
-    if layout == "cmajor":
-        for k in ("x", "mem", "prev_spk"):
-            if t[k] is not None:
-                t[k] = t[k].permute(0, 3, 1, 2).contiguous()
-    t["wk"] = pack_weights(*(None if a is None else torch.tensor(a.astype(np.float32),
-                                                               device="cuda")
-                             for a in (w, w_rec)))
-    return t
-
-
 def conv_input(t, layout):
     """``[x | prev_spk]`` as NCHW, the input of the case's conv."""
     import torch
@@ -270,21 +250,6 @@ def pre_spike(t, layout, hard):
 def call(fn, t, hard):
     return fn(t["x"], t["mem"], t["wk"], t["bias"], t["beta"], t["theta"],
               prev_spk=t["prev_spk"], hard_reset=hard)
-
-
-def bound(cin, recurrent):
-    """Least time of one unit at the bench shape: each input read once and
-    each output written once at the HBM rate, against its bf16 conv and f32
-    LIF operations at the peak rates. Returns (ms, "bytes"|"operations")."""
-    from evflow_torch.device import BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S
-
-    px = B_BENCH * H_BENCH * W_BENCH
-    C = C_BENCH
-    k_in = cin + (C if recurrent else 0)
-    nbytes = 4 * px * (k_in + 3 * C) + 2 * C * 9 * k_in + 4 * 3 * C
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * px * C * 9 * k_in / BF16_FLOP_PER_S + 10 * px * C / F32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def seeded_firenet(compute_dtype=None):
@@ -384,7 +349,8 @@ def phase_build(state):
         raise SystemExit(f"a redesigned kernel has a stack frame or spills: {redesigned}")
 
 
-# the kernels redesigned for the card's speed, per source: the K7, K5 and
+# the kernels redesigned for the card's speed, per source: K1's and K2's for
+# each padded output width (conv_lif_layer.cuh's launch), the K7, K5 and
 # K6 instantiations (f32 and bf16 state), K4's for each compiled unit layout
 # (units, recurrent mask) and state, K3's for each unit count and state,
 # every instantiation
@@ -392,6 +358,8 @@ def phase_build(state):
 # k7, every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3
 # and k11 and the bulk store of k4 and k8
 REDESIGNED = {
+    "conv_lif": tuple(f"conv_lif_kernel<{ch},1>" for ch in (16, 32, 48, 64)),
+    "conv_lif_cmajor": tuple(f"conv_lif_kernel<{ch},0>" for ch in (16, 32, 48, 64)),
     "fused_net_batch": ("fused_net_batch_kernel<float>", "fused_net_batch_kernel<__nv_bfloat16>"),
     "fused_net_loop2": ("fused_net_loop2_kernel<float>", "fused_net_loop2_kernel<__nv_bfloat16>"),
     "fused_net_loop": tuple(f"fused_net_loop_kernel<{layout},{s}>"
@@ -415,11 +383,16 @@ REDESIGNED = {
 def phase_kernels(state):
     import torch
 
+    from evflow_torch.probes.conv_lif_times import CASES, SHAPES, make_case
+
     for kname, layout, _, _ in KERNELS:
         fused, plain = kernel_fns(layout)
         worst = 0.0
-        for seed, (case, cin, rec, hard) in enumerate(CASES):
-            t = make_case(cin, rec, layout, seed=seed)
+        # the bench's 16 x 16 tiles and evaluate's 8 x 16 ones (B=1, 128x128)
+        for (seed, (case, cin, rec, hard)), (B, H, W) in itertools.product(
+                enumerate(CASES + CASES_24), SHAPES):
+            t = make_case(cin, rec, layout, seed=seed, B=B, H=H, W=W,
+                          c=24 if (case, cin, rec, hard) in CASES_24 else C_BENCH)
             spk_k, mem_k = call(fused, t, hard)
             spk_p, mem_p = call(plain, t, hard)
             torch.cuda.synchronize()
@@ -434,12 +407,14 @@ def phase_kernels(state):
             ok = (far == 0 and err <= 1e-4 and mismatches <= 1e-5 * n
                   and bool(torch.isfinite(mem_k).all()))
             worst = max(worst, err)
-            emit({"phase": "kernels", "kernel": kname, "case": case, "max_abs_err": err,
+            emit({"phase": "kernels", "kernel": kname, "case": case, "B": B, "H": H, "W": W,
+                  "max_abs_err": err,
                   "mismatches": mismatches, "spike_flips_near_threshold": int(flips.sum()) - far,
                   "spike_flips_far": far, "elements": n, "spike_rate": float(spk_k.mean()),
                   "ok": ok})
             if not ok:
-                raise SystemExit(f"{kname}/{case} disagrees with its plain version")
+                raise SystemExit(f"{kname}/{case} at B={B}, {H}x{W} disagrees with its plain "
+                                 "version")
         state.setdefault("max_abs_err", {})[kname] = worst
 
 
@@ -546,33 +521,39 @@ def phase_times(state):
 
     name = card()
 
+    from evflow_torch.probes.conv_lif_times import CASES, PER_WINDOW, SHAPES, bound, make_case
+
     sums = {}
     for kname, layout, _, _ in KERNELS:
         fused, plain = kernel_fns(layout)
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by=set())
-        for case, cin, rec, hard in CASES:
-            t = make_case(cin, rec, layout, seed=7)
-            # cuDNN's bf16 conv of the same input and weights, the conv alone
-            fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
-            xb = conv_input(t, layout).to(torch.bfloat16).contiguous(memory_format=fmt)
-            c, n_in = t["wk"].shape[0], xb.shape[1]
-            wb = (t["wk"].reshape(c, 3, 3, -1)[..., :n_in].permute(0, 3, 1, 2)
-                  .contiguous(memory_format=fmt))
-            ms = device_ms(lambda: call(fused, t, hard))
-            plain_ms = device_ms(lambda: call(plain, t, hard))
-            lib_ms = device_ms(lambda: F.conv2d(xb, wb, padding=1))
-            bms, by = bound(cin, rec)
-            emit({"phase": "times", "kernel": kname, "case": case, "ms": ms,
-                  "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
-                  "bound_by": by, "card": name})
-            w = PER_WINDOW.get(case, 0)
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
-                           ("library_ms", lib_ms)):
-                tot[key] += w * v
-            if w:
-                tot["bound_by"].add(by)
-        tot["bound_by"] = "bytes" if tot["bound_by"] == {"bytes"} else "operations"
-        sums[kname] = tot
+        for B, H, W in SHAPES:
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, bound_by=set())
+            for case, cin, rec, hard in CASES:
+                t = make_case(cin, rec, layout, seed=7, B=B, H=H, W=W)
+                # cuDNN's bf16 conv of the same input and weights, the conv alone
+                fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+                xb = conv_input(t, layout).to(torch.bfloat16).contiguous(memory_format=fmt)
+                c, n_in = t["wk"].shape[0], xb.shape[1]
+                wb = (t["wk"].reshape(c, 3, 3, -1)[..., :n_in].permute(0, 3, 1, 2)
+                      .contiguous(memory_format=fmt))
+                ms = device_ms(lambda: call(fused, t, hard))
+                plain_ms = device_ms(lambda: call(plain, t, hard))
+                lib_ms = device_ms(lambda: F.conv2d(xb, wb, padding=1))
+                bms, by = bound(cin, rec, B, H, W)
+                emit({"phase": "times", "kernel": kname, "case": case, "B": B, "H": H, "W": W,
+                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms,
+                      "bound_by": by, "card": name})
+                w = PER_WINDOW.get(case, 0)
+                for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bms),
+                               ("library_ms", lib_ms)):
+                    tot[key] += w * v
+                if w:
+                    tot["bound_by"].add(by)
+            tot["bound_by"] = "bytes" if tot["bound_by"] == {"bytes"} else "operations"
+            emit({"phase": "times", "kernel": kname, "window": PER_WINDOW, "B": B, "H": H,
+                  "W": W, **tot, "card": name})
+            if (B, H, W) == (B_BENCH, H_BENCH, W_BENCH):
+                sums[kname] = tot
     state["times"] = sums
 
     model = seeded_firenet()
@@ -592,10 +573,27 @@ def phase_times(state):
             _, st = net.step(cnt[i], st)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        # 7 rounds of 50 steps enqueued while the card sleeps: the host's
+        # enqueue time a step, and the card's time a step with the launches
+        # back to back (medians; the host's clock varies by tens of percent)
+        host, dev = [], []
+        for _ in range(7):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(int(5e8))
+            t0 = time.perf_counter()
+            start.record()
+            for i in range(50):
+                _, st = net.step(cnt[i], st)
+            end.record()
+            host.append(1e3 * (time.perf_counter() - t0) / 50)
+            torch.cuda.synchronize()
+            dev.append(start.elapsed_time(end) / 50)
         emit({"phase": "times", "scan": "FusedFireNet", "layout": layout, "batch": B_BENCH,
               "resolution": [H_BENCH, W_BENCH], "active_px": float(active.float().mean()),
               "windows": n_win, "windows_per_s": n_win * B_BENCH / dt,
-              "ms_per_step": 1e3 * dt / n_win, "card": name})
+              "ms_per_step": 1e3 * dt / n_win, "host_enqueue_ms_per_step": statistics.median(host),
+              "host_enqueue_ms_runs": host, "device_ms_per_step": statistics.median(dev),
+              "card": name})
 
 
 def wholenet_fns(kname):

@@ -1,22 +1,12 @@
-// Fused conv3x3 + folded-BN + LIF step, channel-major (NCHW) activations,
-// for sm_90a.
-//
-// Replaces the TPU kernel
-// evflow/ops/pallas/conv_lif_cmajor.py::fused_conv_lif_cmajor (Pallas, body
-// `_kernel`): x [B,Cin,H,W], mem/spk/mem' [B,C,H,W] f32, recurrent units add
-// conv3x3(prev_spk [B,C,H,W]) into the same sum. Same math as conv_lif.cu.
-//
-// Bound on an H100 SXM at the bench shape (B=2, 256x256, C=32): ~67 MB of
-// f32 traffic for a feedforward unit and ~84 MB for a recurrent one, against
-// 2.4 / 4.8 GFLOP of bf16 tensor work, so memory-bound at ~20 / ~25 us
-// (3.35 TB/s). Input rows are read along W (coalesced in this layout),
-// rounded to bf16 and transposed into the same pixel-major shared-memory
-// tile the NHWC kernel uses; the epilogue reads mem and writes spk/mem'
-// along W. The TPU version's materialised overlapping row windows and the
-// H % tile_rows restriction are gone. Kernel body: conv_lif_common.cuh.
-//
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libconv_lif_cmajor.so conv_lif_cmajor.cu
-#include "conv_lif_common.cuh"
+// Fused conv3x3 + folded-BN + LIF step, channel-major (K2), for sm_90a.
+// Replaces the TPU kernel evflow/ops/pallas/conv_lif_cmajor.py::
+// fused_conv_lif_cmajor (Pallas, `_kernel`): x [B,Cin,H,W], mem/spk/mem' and
+// prev_spk [B,C,H,W] f32; conv_lif.cu's function and bound (~20 / ~25 us at
+// B=2, 256x256, C=32 on an H100 SXM: memory-bound). The design
+// (conv_lif_layer.cuh) is one unit of K6 (fused_net_lgrid.cu): each channel
+// plane of the tile's halo read along W into the pixel-major bf16 tile,
+// weights by TMA, spk and mem' stored along W from the fragments. Unlike the
+// TPU kernel: no materialised row windows, any H (no H % tile_rows), C <= 64.
+#include "conv_lif_layer.cuh"
 
-EVFLOW_CONV_LIF_ENTRY(conv_lif_cmajor, true)
+EVFLOW_CONV_LIF_ENTRY(conv_lif_cmajor, false)

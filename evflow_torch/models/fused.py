@@ -130,9 +130,14 @@ class FusedFireNet:
                               hard_reset=self.hard_reset)
             new_states.append(LIFState(mem, spk))
             h = spk
-        hh = h.permute(0, 2, 3, 1) if self.layout == "cmajor" else h
         pred = self.params["pred"]
-        flow = torch.tanh(torch.matmul(hh, pred["w"]) + pred["b"])
+        if self.layout == "cmajor":  # the spikes as a transposed [B, HW, C] view: no copy
+            B, C, H, W = h.shape
+            ff = torch.bmm(h.reshape(B, C, H * W).transpose(1, 2), pred["w"].expand(B, C, 2))
+            ff = ff.reshape(B, H, W, 2)
+        else:
+            ff = torch.matmul(h, pred["w"])
+        flow = torch.tanh(ff + pred["b"])
         return flow, tuple(new_states)
 
     def scan_windows(self, windows: torch.Tensor, states: Sequence[LIFState]):

@@ -13,11 +13,13 @@ raises. The weights come packed by ``pack_weights``: a bf16 ``[C, 9*Ck]``
 matrix over the channel concatenation ``[x | prev_spk]`` padded to
 ``Ck = ceil16(Cin (+ C))`` channels, tap-major (``k = (dy*3 + dx)*Ck + ch``),
 which both layouts' kernels read directly. ``FusedFireNet`` packs once per
-model.
+model. The kernels take any ``C <= 64`` whose unit fits a CTA's shared
+memory (``layer_smem``); the wrapper refuses the rest before launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -31,7 +33,12 @@ __all__ = [
     "pack_weights",
     "fold_bn",
     "packed_channels",
+    "layer_smem",
 ]
+
+SMEM_LIMIT = 232_448  # dynamic shared memory of one CTA on an H100
+MAX_CHANNELS = 64     # output channels the kernels' fragments take
+_TILE, _PAD = 16, 8   # the tile's width (csrc/conv_lif_layer.cuh: LT); bf16 row padding
 
 
 def packed_channels(cin: int, c: int, recurrent: bool) -> int:
@@ -39,6 +46,19 @@ def packed_channels(cin: int, c: int, recurrent: bool) -> int:
     to the kernel's k-step of 16."""
     n = cin + (c if recurrent else 0)
     return -(-n // 16) * 16
+
+
+def layer_smem(cin: int, c: int, recurrent: bool, tile_h: int = _TILE) -> int:
+    """Dynamic shared memory of a K1/K2 CTA (``csrc/conv_lif_layer.cuh::
+    layer_layout``): the input tile, ``tile_h + 2`` by 18 halo pixels of
+    ``Ck + 8`` bf16, the weights ``[CH][9 Ck + 8]`` bf16 with ``CH`` = C
+    rounded up to 16, the parameters ``[3][CH]`` f32 and the weights'
+    mbarrier. The launch refuses a unit whose 16-row tile exceeds
+    ``SMEM_LIMIT``."""
+    ck = packed_channels(cin, c, recurrent)
+    ch = -(-c // 16) * 16
+    return ((tile_h + 2) * (_TILE + 2) * (ck + _PAD) * 2 + ch * (9 * ck + _PAD) * 2
+            + 3 * ch * 4 + 16)
 
 
 def pack_weights(w: torch.Tensor, w_rec: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -103,26 +123,38 @@ def check_and_launch(entry: str, cmajor: bool, x, mem, wk, bias, beta, theta,
         state_shape = (B, H, W, C)
     recurrent = prev_spk is not None
     ck = packed_channels(cin, C, recurrent)
-    operands = {"x": x, "mem": mem, "bias": bias, "beta": beta, "theta": theta}
-    if recurrent:
-        operands["prev_spk"] = prev_spk
-    for name, t in operands.items():
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
-    if tuple(mem.shape) != state_shape or (recurrent and tuple(prev_spk.shape) != state_shape):
+    dev = x.device
+    operands = (x, mem, bias, beta, theta, prev_spk) if recurrent else (x, mem, bias, beta, theta)
+    for name, t in zip(("x", "mem", "bias", "beta", "theta", "prev_spk"), operands):
+        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {dev}")
+    if mem.shape != state_shape or (recurrent and prev_spk.shape != state_shape):
         raise ValueError(f"mem/prev_spk must have shape {state_shape}")
-    if any(tuple(t.shape) != (C,) for t in (bias, beta, theta)):
+    if bias.shape != (C,) or beta.shape != (C,) or theta.shape != (C,):
         raise ValueError(f"bias, beta and theta must have shape ({C},)")
-    if (wk.device != x.device or wk.dtype != torch.bfloat16 or not wk.is_contiguous()
-            or tuple(wk.shape) != (C, 9 * ck)):
+    if (wk.device != dev or wk.dtype != torch.bfloat16 or not wk.is_contiguous()
+            or wk.shape != (C, 9 * ck)):
         raise ValueError(f"wk must be contiguous bfloat16 [{C}, {9 * ck}] on "
                          f"{x.device} (pack_weights)")
-    if C not in (8, 16, 32, 64):
-        raise ValueError(f"the kernel supports C in (8, 16, 32, 64), got {C}")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"the kernel takes C <= {MAX_CHANNELS} channels, got {C}")
+    smem = layer_smem(cin, C, recurrent)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a {'recurrent' if recurrent else 'feedforward'} unit of Cin={cin}, "
+                         f"C={C} needs {smem} bytes of shared memory, over a CTA's "
+                         f"{SMEM_LIMIT}")
+    if max(cin, C) * H * W >= 2 ** 31:
+        raise ValueError(f"max(Cin, C) * H * W = {max(cin, C) * H * W} must stay below 2^31 "
+                         "(32-bit offsets in an image)")
+    if wk.data_ptr() % 16 != 0:
+        raise ValueError("wk must start on a 16-byte boundary (TMA bulk copies)")
     spk = torch.empty_like(mem)
     mem_out = torch.empty_like(mem)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the kernel launches on the current device: switch only where x lies elsewhere
+    on_x = (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+            else torch.cuda.device(dev))
+    with on_x:
+        stream = torch.cuda.current_stream().cuda_stream
         err = entry_point(entry)(
             x.data_ptr(), prev_spk.data_ptr() if recurrent else None,
             mem.data_ptr(), wk.data_ptr(), bias.data_ptr(), beta.data_ptr(),

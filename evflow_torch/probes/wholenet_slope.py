@@ -32,13 +32,15 @@ refused, and a part the header does not declare fails the build. The
 variants compute wrong results: they time, nothing more. The difference
 of a variant's slope from the full kernel's is what that part costs a
 unit. Each kernel's full build is timed first and last, so drift shows.
+Then K1 and K2, one unit a launch, need no slope: ``conv_lif_times.split``
+times each of their cases at both of its shapes in their own variant builds.
 
 It calls the runners alone, so it times the kernels of any checkout that
 has them, for instance an earlier commit unpacked with ``git archive``:
 
     python -m evflow_torch.probes.wholenet_slope             # this checkout
     python evflow_torch/probes/wholenet_slope.py --tree DIR  # the package under DIR
-    python -m evflow_torch.probes.wholenet_slope --split     # the four kernels' variants
+    python -m evflow_torch.probes.wholenet_slope --split     # the variants, and K1's and K2's
 
 Each run prints one JSON line per point and one per fit, with the card's
 name and power limit; it needs a CUDA card.
@@ -283,7 +285,9 @@ def main(argv=None):
         return 1
     card = describe_card()
     if args.split:
-        for r in split(root):
+        from evflow_torch.probes import conv_lif_times
+
+        for r in split(root) + conv_lif_times.split(root):
             print(json.dumps({"tree": str(root), **r, "card": card}), flush=True)
         return 0
     for kernel in KERNELS:

@@ -57,14 +57,19 @@ def operands(cuda, layout, cin, recurrent, B=2, H=20, W=40, C=32, seed=0):
 
 
 @pytest.mark.parametrize("layout", sorted(KERNELS))
-@pytest.mark.parametrize("cin,recurrent,hard", [(2, False, True), (32, False, True),
-                                                (32, True, True), (32, False, False)])
-def test_kernel_matches_plain_on_ragged_tiles(cuda, layout, cin, recurrent, hard):
-    """H=20, W=40 leave partial 8x32 tiles: the border masking and the
-    ragged edge are exercised. mem' within 1e-4 where spikes agree; spikes
-    differ on at most 1e-5 of the elements (f32 sums in another order)."""
+@pytest.mark.parametrize("cin,recurrent,hard,C", [
+    (2, False, True, 32), (32, False, True, 32), (32, True, True, 32), (32, False, False, 32),
+    (8, False, True, 8), (8, True, True, 8), (24, False, True, 24), (24, True, True, 24),
+    (48, False, True, 48), (48, True, True, 48)])
+def test_kernel_matches_plain_on_ragged_tiles(cuda, layout, cin, recurrent, hard, C):
+    """H=20, W=40 at B=2 leave partial tiles (8 x 16 ones: the 16 x 16 grid
+    would leave SMs idle): the border masking and the ragged edge are
+    exercised, at LIFFireNet's 32 channels and at widths
+    the kernel pads to 16 (8), 32 (24) and 48 output channels. mem' within
+    1e-4 where spikes agree; spikes differ on at most 1e-5 of the elements
+    (f32 sums in another order)."""
     kernel, plain = KERNELS[layout]
-    op = operands(cuda, layout, cin, recurrent)
+    op = operands(cuda, layout, cin, recurrent, C=C)
     before = kernel.launches
     s, m = kernel(**op, hard_reset=hard)
     assert kernel.launches == before + 1
@@ -75,15 +80,67 @@ def test_kernel_matches_plain_on_ragged_tiles(cuda, layout, cin, recurrent, hard
     assert float((m - pm).abs()[agree].max()) <= 1e-4
 
 
-def test_kernel_refuses_what_it_cannot_take(cuda):
-    op = operands(cuda, "nhwc", 32, False)
-    with pytest.raises(ValueError):
-        fused_conv_lif(**dict(op, mem=op["mem"].double()))
-    with pytest.raises(ValueError):
-        fused_conv_lif(**dict(op, wk=op["wk"].float()))
+@pytest.mark.parametrize("layout", sorted(KERNELS))
+@pytest.mark.parametrize("B,H,W,C,recurrent", [(1, 17, 33, 32, True), (2, 20, 40, 24, False),
+                                                (3, 9, 50, 8, True), (1, 128, 128, 32, False),
+                                                (2, 33, 7, 48, True), (3, 100, 190, 24, True),
+                                                (2, 130, 140, 32, False),
+                                                (2, 130, 140, 8, False), (2, 130, 140, 48, True),
+                                                (2, 130, 140, 56, True), (2, 130, 140, 64, False),
+                                                (2, 130, 140, 5, True), (2, 130, 140, 33, False)])
+def test_kernel_writes_every_element(cuda, layout, B, H, W, C, recurrent):
+    """Launched through its entry point into NaN-filled spk and mem', the
+    kernel writes every element of both, equal to what the wrapper returns
+    and to the plain version (test_kernel_matches_plain_on_ragged_tiles's
+    bars), at ragged H and W: on 8 x 16 tiles where 16 x 16 ones would
+    leave SMs idle (the first five), on 16 x 16 tiles (the rest): two tile
+    rows a warp at C <= 32 (8 and 5 padded to 16), one at 33..64 (padded
+    to 48 and 64, the widest recurrent unit that fits, 56, and a
+    feedforward one of 64); odd C stores its channels one by one."""
+    from evflow_torch.ops.conv_lif import packed_channels
+    from evflow_torch.ops.cuda_build import entry_point
+
+    kernel, plain = KERNELS[layout]
+    op = operands(cuda, layout, C, recurrent, B=B, H=H, W=W, C=C)
+    spk, mem_out = (torch.full_like(op["mem"], float("nan")) for _ in range(2))
+    entry = "conv_lif_cmajor" if layout == "cmajor" else "conv_lif"
+    prev = op["prev_spk"]
+    err = entry_point(entry)(
+        op["x"].data_ptr(), prev.data_ptr() if recurrent else None, op["mem"].data_ptr(),
+        op["wk"].data_ptr(), op["bias"].data_ptr(), op["beta"].data_ptr(),
+        op["theta"].data_ptr(), spk.data_ptr(), mem_out.data_ptr(), B, H, W, C, C,
+        packed_channels(C, C, recurrent), 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    ws, wm = kernel(**op)
+    torch.cuda.synchronize()
+    assert not spk.isnan().any() and not mem_out.isnan().any()
+    assert torch.equal(spk, ws) and torch.equal(mem_out, wm)
+    ps, pm = plain(**op)
+    agree = spk == ps
+    assert (~agree).float().mean() <= 1e-5
+    assert float((mem_out - pm).abs()[agree].max()) <= 1e-4
 
 
-def test_fused_evaluate_launches_every_unit(cuda, tmp_path):
+@pytest.mark.parametrize("layout", sorted(KERNELS))
+def test_kernel_refuses_what_it_cannot_take(cuda, layout):
+    """A wrong dtype, unpacked weights, C = 65 and the recurrent units whose
+    shared memory exceeds a CTA's (C = 57..64) raise ``ValueError`` before
+    any launch."""
+    kernel, _ = KERNELS[layout]
+    op = operands(cuda, layout, 32, False)
+    before = kernel.launches
+    with pytest.raises(ValueError):
+        kernel(**dict(op, mem=op["mem"].double()))
+    with pytest.raises(ValueError):
+        kernel(**dict(op, wk=op["wk"].float()))
+    for C, recurrent in ((65, False), (65, True), (57, True), (64, True)):
+        with pytest.raises(ValueError, match="channels|bytes"):
+            kernel(**operands(cuda, layout, C, recurrent, B=1, H=8, W=8, C=C))
+    assert kernel.launches == before
+
+
+@pytest.mark.parametrize("channels", [8, 24])
+def test_fused_evaluate_launches_every_unit(cuda, tmp_path, channels):
     from evflow_torch.data.synthetic import make_dataset
     from evflow_torch.eval import evaluate
 
@@ -91,7 +148,7 @@ def test_fused_evaluate_launches_every_unit(cuda, tmp_path):
                  events_per_sec=30000, duration=0.4, fmt="npz")
     cfg = {"data": {"path": str(tmp_path), "mode": "gtflow_dt1", "window": 1},
            "model": {"name": "LIFFireNet", "encoding": "cnt", "num_bins": 2,
-                     "base_num_channels": 8},
+                     "base_num_channels": channels},
            "loader": {"resolution": [32, 32], "batch_size": 1},
            "metrics": {"name": ["AEE"], "flow_scaling": 128}}
     for layout, kernel in (("nhwc", fused_conv_lif), ("cmajor", fused_conv_lif_cmajor)):

@@ -57,10 +57,10 @@ def test_atanspike_snn_backward_matches_jax_grad():
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg), atol=1e-6)
 
 
-@pytest.fixture
-def layer():
-    rng = np.random.default_rng(0)
-    B, H, W, C = 2, 16, 16, 8
+def draw_layer(C, seed=0):
+    """One unit's operands at B=2, 16x16 with C channels, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    B, H, W = 2, 16, 16
     return dict(
         x=rng.normal(size=(B, H, W, C)).astype(np.float32),
         x2=rng.normal(size=(B, H, W, 2)).astype(np.float32),
@@ -73,6 +73,25 @@ def layer():
         theta=rng.uniform(0.1, 0.8, C).astype(np.float32),
         prev=(rng.uniform(size=(B, H, W, C)) > 0.5).astype(np.float32),
     )
+
+
+@pytest.fixture
+def layer():
+    return draw_layer(8)
+
+
+@pytest.fixture
+def layer24():
+    """A width the kernels pad to 32 output channels (and a recurrent
+    unit's [x | prev_spk] of 48 channels, not a multiple of 32)."""
+    return draw_layer(24, seed=1)
+
+
+@pytest.fixture
+def layer5():
+    """An odd width: the kernels pad it to 16 output channels and store its
+    channel pairs element by element."""
+    return draw_layer(5, seed=2)
 
 
 CASES = {
@@ -89,6 +108,26 @@ def test_conv_lif_plain_matches_pallas(layer, case, layout):
     """The plain version a CPU tensor runs against the TPU kernel in
     interpret mode: spikes equal, mem within 1e-5 (f32 sums in another
     order)."""
+    check_plain_against_pallas(layer, case, layout)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "cmajor"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_conv_lif_plain_matches_pallas_at_24_channels(layer24, case, layout):
+    """As ``test_conv_lif_plain_matches_pallas`` at C = 24, a width the
+    kernels take since they pad the output channels to 16."""
+    check_plain_against_pallas(layer24, case, layout)
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "cmajor"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_conv_lif_plain_matches_pallas_at_odd_width(layer5, case, layout):
+    """As ``test_conv_lif_plain_matches_pallas`` at C = 5, an odd width the
+    kernels take."""
+    check_plain_against_pallas(layer5, case, layout)
+
+
+def check_plain_against_pallas(layer, case, layout):
     c = CASES[case]
     x, w = (layer["x2"], layer["w2"]) if c["head"] else (layer["x"], layer["w"])
     prev = layer["prev"] if c["recurrent"] else None

@@ -10,6 +10,7 @@ mma work (the shrinking extent; K6's tiles without a halo), and the parts
 that ``probes/wholenet_slope.py --split`` takes out declared and tested in
 the header (K6's own in its source) that the four split kernels run."""
 
+import contextlib
 import ctypes
 import itertools
 import re
@@ -306,3 +307,127 @@ def test_split_old_refuses_a_tree_with_the_item_body(tmp_path):
     shutil.copytree(CSRC, tmp_path / "evflow_torch" / "csrc")
     with pytest.raises(RuntimeError, match="not the ones this script patches"):
         old.patched_sources(tmp_path)
+
+
+LAYER = "conv_lif_layer.cuh"
+
+
+def test_layer_mirror_matches_the_source():
+    """``ops/conv_lif.py::layer_smem`` counts the pieces of K1's and K2's
+    ``layer_layout`` (``csrc/conv_lif_layer.cuh``), with its tile width,
+    channel limit and the card's shared memory."""
+    from evflow_torch.ops import conv_lif as K
+
+    src = (CSRC / LAYER).read_text()
+    assert f"constexpr int LT = 16, MAX_CH = 64, SMEM_MAX = {SMEM_LIMIT};" in src
+    assert (K._TILE, K.MAX_CHANNELS, K.SMEM_LIMIT) == (16, 64, SMEM_LIMIT)
+    layout = re.search(r"inline LayerLayout layer_layout\(.*?\n\}", src, re.S).group(0)
+    for piece in ("s.wbuf = (th + 2) * (LT + 2) * (ck + PAD) * 2;",
+                  "s.prm = s.wbuf + ch * (9 * ck + PAD) * 2;",
+                  "s.bar = s.prm + 3 * ch * 4;",
+                  "s.total = s.bar + 16;"):
+        assert piece in layout
+    assert "layer_layout(a.Ck, ch, LT).total > SMEM_MAX" in src  # the launch's refusal
+    # a recurrent LIFFireNet unit: 324 halo pixels x 72 bf16, 32 x 584 bf16 of weights
+    assert K.layer_smem(32, 32, True) == 324 * 72 * 2 + 32 * 584 * 2 + 3 * 32 * 4 + 16 == 84432
+
+
+@pytest.mark.parametrize("recurrent", [False, True])
+def test_layer_smem_fits_every_width(recurrent):
+    """Every unit of C = 1..64 channels (Cin = C, and the 2-channel head)
+    fits a CTA's 232,448 bytes but the recurrent ones of C > 56, whose
+    [x | prev_spk] packs to 128 channels: those the launch refuses. Two
+    CTAs of a LIFFireNet unit (C = 32) share an SM."""
+    from evflow_torch.ops.conv_lif import layer_smem
+
+    over = [c for c in range(1, 65) if layer_smem(c, c, recurrent) > SMEM_LIMIT]
+    assert over == (list(range(57, 65)) if recurrent else [])
+    assert all(layer_smem(2, c, False) <= SMEM_LIMIT for c in range(1, 65))
+    assert 2 * (layer_smem(32, 32, recurrent) + CTA_RESERVED) <= SM_SMEM
+
+
+def test_layer_refuses_before_launch(monkeypatch):
+    """The wrapper's checks run before the kernel's entry point is looked
+    up: C = 65 and the recurrent units that do not fit raise ``ValueError``
+    (naming the bytes) without a launch; the widths that fit reach the
+    launch with their packed channel count."""
+    from evflow_torch.ops import conv_lif as K
+    from evflow_torch.ops import cuda_build
+
+    launched = []
+
+    def entry_point(name):
+        def launch(*args):
+            launched.append((name, args[-5], args[-4], args[-3]))  # Cin, C, Ck
+            return 0
+        return launch
+
+    monkeypatch.setattr(cuda_build, "entry_point", entry_point)
+    # CPU tensors stand in for the card's: no device or stream to enter
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+
+    def run(cin, c, recurrent, cmajor):
+        shape = (1, c, 4, 5) if cmajor else (1, 4, 5, c)
+        x = torch.zeros((1, cin, 4, 5) if cmajor else (1, 4, 5, cin))
+        mem = torch.zeros(shape)
+        wk = K.pack_weights(torch.zeros(3, 3, cin, c), torch.zeros(3, 3, c, c) if recurrent
+                            else None)
+        vec = torch.zeros(c)
+        return K.check_and_launch("conv_lif_cmajor" if cmajor else "conv_lif", cmajor, x, mem,
+                                  wk, vec, vec, vec, torch.zeros(shape) if recurrent else None,
+                                  True)
+
+    for cmajor in (False, True):
+        for c, recurrent in ((65, False), (65, True), (57, True), (64, True)):
+            with pytest.raises(ValueError, match="channels|bytes"):
+                run(c, c, recurrent, cmajor)
+        assert not launched
+        with pytest.raises(ValueError, match="237392 bytes"):
+            run(64, 64, True, cmajor)
+        for cin, c, recurrent in ((2, 24, False), (24, 24, True), (56, 56, True), (64, 64, False),
+                                  (3, 5, True)):
+            spk, mem_out = run(cin, c, recurrent, cmajor)
+            assert spk.shape == mem_out.shape
+            assert launched.pop() == ("conv_lif_cmajor" if cmajor else "conv_lif", cin, c,
+                                      K.packed_channels(cin, c, recurrent))
+
+
+def test_layer_kernels_are_gated():
+    """Every K1 and K2 instantiation the launch can choose (one a padded
+    output width: 16, 32, 48, 64) is in ``chip_smoke.REDESIGNED`` under the
+    name ptxas's mangled one gives; phase ``build`` fails on a missing one,
+    a stack frame or a spill."""
+    import chip_smoke
+    from evflow_torch.ops.cuda_build import kernel_name
+
+    src = (CSRC / LAYER).read_text()
+    widths = [int(n) for n, m in re.findall(r"case (\d+): return launch_ch<(\d+), PIXEL>", src)
+              if n == m]
+    widths += [int(n) for n in re.findall(r"default: return launch_ch<(\d+), PIXEL>", src)]
+    assert "const auto kernel = conv_lif_kernel<CH, PIXEL>;" in src
+    assert widths == [16, 32, 48, 64]
+    for source, pixel in (("conv_lif", 1), ("conv_lif_cmajor", 0)):
+        assert f"EVFLOW_CONV_LIF_ENTRY({source}, {'true' if pixel else 'false'})" in (
+            CSRC / f"{source}.cu").read_text()
+        mangled = [f"_ZN6evflow5layer15conv_lif_kernelILi{w}ELb{pixel}EEEvNS0_11ConvLIFArgsE"
+                   for w in widths]
+        assert chip_smoke.REDESIGNED[source] == tuple(kernel_name(m) for m in mangled)
+
+
+def test_conv_lif_split_variants_have_their_hooks():
+    """Each variant of ``conv_lif_times`` (``wholenet_slope --split``'s K1
+    and K2) takes out a part that the item header declares and that K1's and
+    K2's header tests (``item_keeps``), and both sources include
+    ``conv_lif_layer.cuh``."""
+    from evflow_torch.probes import conv_lif_times as T
+
+    declared = re.search(r"enum ItemCut \{(.*?)\};", (CSRC / S.ITEM_HEADER).read_text(),
+                         re.S).group(1)
+    text = (CSRC / LAYER).read_text()
+    for cut in filter(None, T.VARIANTS.values()):
+        assert cut in declared and f"item_keeps({cut})" in text
+    assert T.missing_hooks(CSRC.parents[1]) == []
+
