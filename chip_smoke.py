@@ -356,7 +356,7 @@ def phase_build(state):
 # every instantiation
 # probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, k12,
 # k7, every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3
-# and k11 and the bulk store of k4 and k8
+# and k11 and the bulk store of k4 and k8, and the unit loop's K8i and K8j
 REDESIGNED = {
     "conv_lif": tuple(f"conv_lif_kernel<{ch},1>" for ch in (16, 32, 48, 64)),
     "conv_lif_cmajor": tuple(f"conv_lif_kernel<{ch},0>" for ch in (16, 32, 48, 64)),
@@ -377,6 +377,8 @@ REDESIGNED = {
     "probe_loop_dyn": ("load_dot_f32_kernel", "load_dot_bf16_kernel", "store_kernel<float>",
                        "store_kernel<__nv_bfloat16>", "store_bulk_kernel", "conv_sum_kernel"),
     "probe_staging": tuple(f"layer_grid_kernel<{mf}>" for mf in (1, 2, 3, 4)),
+    "probe_unit_loop": tuple(f"unit_loop_kernel<{v},{fpw}>" for v in (
+        "1,1,0", "1,0,0", "0,1,0", "0,0,0", "1,1,1") for fpw in (2, 4)),  # <LIF, DYN, SLOTS, FPW>
 }
 
 

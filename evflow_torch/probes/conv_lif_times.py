@@ -125,20 +125,19 @@ def missing_hooks(root: Path):
                       if f'#include "{LAYER_HEADER}"' not in (csrc / f"{src}.cu").read_text()]
 
 
-def build_variants(root: Path):
-    """Each kernel's library in each variant, one ``nvcc`` each, all
-    started together: {(kernel, variant): library}."""
+def compile_variants(root: Path, subdir: str, modules, flags):
+    """Each kernel's source (``modules``: kernel -> ``csrc`` module) in each
+    variant (``flags``: variant -> extra ``nvcc`` flags), one ``nvcc``
+    (``cuda_build.NVCC_FLAGS``) each, all started together, into
+    ``evflow_torch/_build/<subdir>/<kernel>/<variant>/lib<module>.so`` with
+    its ptxas report beside it as ``ptxas.txt``: {(kernel, variant):
+    library}. Raises on a failed build."""
     from evflow_torch.ops.cuda_build import NVCC_FLAGS, nvcc_path
 
-    missing = missing_hooks(root)
-    if missing:
-        raise RuntimeError(f"K1 and K2 cannot be split for {missing}: no item_keeps "
-                           f"test, or the source does not include {LAYER_HEADER}")
     src = root / "evflow_torch" / "csrc"
-    flags = {name: [] if cut is None else [f"-DITEM_CUT={cut}"] for name, cut in VARIANTS.items()}
-    out = root / "evflow_torch" / "_build" / "split_k12"
+    out = root / "evflow_torch" / "_build" / subdir
     libs, procs = {}, {}
-    for kernel, (module, _, _) in KERNELS.items():
+    for kernel, module in modules.items():
         for name, f in flags.items():
             d = out / kernel / name
             shutil.rmtree(d, ignore_errors=True)
@@ -157,6 +156,28 @@ def build_variants(root: Path):
     if failed:
         raise RuntimeError(f"variant builds failed: {failed}")
     return libs
+
+
+def load_entry(lib: Path, module: str):
+    """``lib``'s entry point in place of ``module``'s for the wrappers that
+    launch it (``cuda_build.entry_point``)."""
+    from evflow_torch.ops import cuda_build
+
+    fn = getattr(ctypes.CDLL(str(lib)), module)
+    fn.argtypes = cuda_build.SIGNATURES[module]
+    fn.restype = ctypes.c_int
+    cuda_build._ENTRIES[module] = fn
+
+
+def build_variants(root: Path):
+    """Each kernel's library in each variant (``compile_variants``):
+    {(kernel, variant): library}."""
+    missing = missing_hooks(root)
+    if missing:
+        raise RuntimeError(f"K1 and K2 cannot be split for {missing}: no item_keeps "
+                           f"test, or the source does not include {LAYER_HEADER}")
+    flags = {name: [] if cut is None else [f"-DITEM_CUT={cut}"] for name, cut in VARIANTS.items()}
+    return compile_variants(root, "split_k12", {k: m for k, (m, _, _) in KERNELS.items()}, flags)
 
 
 def split(root: Path):
@@ -178,10 +199,7 @@ def split(root: Path):
                  for shape in SHAPES for case, cin, rec, _ in CASES}
         full = {}
         for name in names:
-            fn = getattr(ctypes.CDLL(str(libs[kernel, name])), module)
-            fn.argtypes = cuda_build.SIGNATURES[module]
-            fn.restype = ctypes.c_int
-            cuda_build._ENTRIES[module] = fn
+            load_entry(libs[kernel, name], module)
             for shape in SHAPES:
                 for case, _, _, hard in CASES:
                     t = cases[shape, case]

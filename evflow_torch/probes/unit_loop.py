@@ -27,9 +27,13 @@ recurrent input read at the runtime layer index:
   never outputs; ``spike_slots=True`` returns it too, ``[3, C, TH, W]``.
 
 Each is one launch of ``evflow_torch/csrc/probe_unit_loop.cu`` (see the
-source's note). The plain versions sum in float64, round each conv once to
-f32 and run the LIF in f32 as the kernel does. CPU tensors run the plain
-version; CUDA tensors launch the kernel or raise.
+source's note): CTAs of 8 columns by a few output rows, each layer computed
+on its cone only, the copies through a ring of stages. ``launch_layout``
+mirrors the launch's geometry (grid, threads, shared bytes, ring), and the
+wrappers refuse with a ``ValueError`` before any launch what it does not
+take. The plain versions sum in float64, round each conv once to f32 and
+run the LIF in f32 as the kernel does. CPU tensors run the plain version;
+CUDA tensors launch the kernel or raise.
 
 A case's bound counts what its function needs (``nbytes``, ``flops``): the
 outputs depend only on a cone of rows (layer l's conv on rows 8 - (L-1-l)
@@ -37,13 +41,24 @@ outputs depend only on a cone of rows (layer l's conv on rows 8 - (L-1-l)
 and issues over its whole window is counted apart (``staged_bytes``,
 ``issued_flops``).
 
-    python -m evflow_torch.probes.unit_loop   # one line per case, needs CUDA
+    python -m evflow_torch.probes.unit_loop           # one line per case, needs CUDA
+    python -m evflow_torch.probes.unit_loop --split   # the time split by part
+
+``--split`` times every case in variant builds of the source, each with one
+part taken out (``SPLIT_VARIANTS``: a ``keeps(UL_CUT_<part>)`` test in the
+source, built with ``-DUL_CUT=UL_CUT_<part>``), and in builds that fix the
+owned rows of a CTA (``-DUL_ROWS=n``), the full build first and last, by
+``conv_lif_times``' variant-build driver; what a part costs is the full
+time less the variant's (the parts overlap). A line a (variant, case) with
+the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
@@ -56,7 +71,7 @@ from evflow_torch.probes._harness import Case, bound, card_device, launch, on_ca
 __all__ = [
     "unit_loop", "unit_loop_plain", "unit_loop_dma", "unit_loop_dma_plain", "slot_of",
     "unit_loop_bytes", "probe_cases", "bound", "tolerance", "run_all", "WRAPPERS",
-    "last_launch",
+    "last_launch", "launch_layout", "SPLIT_VARIANTS", "split", "split_missing",
 ]
 
 # the probes' shapes (probe_loop_dyn4.py:14, probe_loop_dyn5.py:13-14), C
@@ -64,6 +79,67 @@ __all__ = [
 # the files' literal 8
 L, C, E, W, TH = 4, 32, 24, 256, 8
 R0 = 8
+
+# the launch's constants (csrc/probe_unit_loop.cu)
+TW, TMAX, FPW = 8, 8, 4  # owned columns, most owned rows, m16 fragments a warp
+MIN_WARPS, MAX_WARPS = 8, 16
+SMEM_LIMIT = 232448
+SPITCH, WPITCH = C + 8, 18 * C + 8  # bf16 per staged pixel, per staged weight row
+PBYTES = C * 3 * 4
+SMS = 132  # an H100 SXM's SMs
+
+
+def _up(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+def _ceil8(v: int) -> int:
+    return (v + 7) // 8 * 8
+
+
+DATA_OFF = _up(C * WPITCH * 2) + _up(PBYTES)  # a ring stage's boxes after its weights, parameters
+
+
+def _fill(layers, e, w, t, stages, alias, slots):
+    hr, hc = min(t + 2 * layers, e + 2), TW + 2 * layers  # the h buffer's rows and columns
+    bx = TW + 2 * _ceil8(layers)
+    mr, bm = min(t + 2 * (layers - 1), e), TW + 2 * _ceil8(layers - 1)
+    xbytes, mbytes = C * hr * bx * 2, C * mr * bm * 2
+    area = max(_up(xbytes), _up(mbytes))
+    stage = DATA_OFF + area + (_up(xbytes) if slots and not alias else 0)
+    hbytes = _up(hr * hc * SPITCH * 2)
+    tile, stile = _up(C * t * TW * 4), _up(C * t * TW * 2)
+    total = (128 + hbytes * (2 if slots else 1) + stages * stage + 2 * tile
+             + (2 * stile if slots else 0))
+    frags = -(-mr * min(w, TW + 2 * (layers - 1)) // 16)  # layer 0's cone, the largest
+    fpw = 2 if frags <= 2 * MIN_WARPS else FPW  # the kernel compiled for 2 or 4 fragments a warp
+    warps = MIN_WARPS if fpw == 2 else MAX_WARPS
+    fits = (total <= SMEM_LIMIT and frags <= FPW * warps and hr <= 256 and bx <= 256
+            and bm <= 256)
+    return fits, {"t": t, "stages": stages, "alias": alias, "threads": 32 * warps,
+                  "smem": total, "frags": frags, "fpw": fpw}
+
+
+def launch_layout(layers: int, e: int, th: int, w: int, slots: bool = False, sms: int = SMS):
+    """The launch's geometry (``make_layout`` in the source) for L, E, TH, W
+    (K8j's where ``slots``) on a card of ``sms`` SMs, or None where the
+    kernel cannot take it: CTAs of TW = 8 columns by t output rows, t the
+    rows that let the grid cover the SMs once (at most TMAX), shrunk until
+    the layout fits; a ring of two stages, else one, K8j's slot box apart
+    from the membrane's, else sharing its area. A dict with the grid,
+    threads, shared bytes, owned rows t, ring stages, whether the slot
+    shares (``alias``), layer 0's fragments and the kernel's fragments a
+    warp (``fpw``)."""
+    n_ct = w // TW
+    n_rt = min(th, max(-(-th // TMAX), sms // n_ct))
+    for t in range(-(-th // n_rt), 0, -1):
+        for stages, alias in ((2, 0), (2, 1), (1, 0), (1, 1)):
+            if alias and not slots:
+                continue
+            fits, lay = _fill(layers, e, w, t, stages, alias, slots)
+            if fits:
+                return {"grid": n_ct * -(-th // t), **lay}
+    return None
 
 
 class UnitLoopArgs(ctypes.Structure):
@@ -105,12 +181,16 @@ def _shape(name, x, w, p, mem, th):
     return layers, c, e, wd
 
 
-def _check_card(name, c, wd):
+def _check_card(name, device, layers, c, e, wd, th, slots):
     if c != C:
         raise ValueError(f"{name}: the kernel takes C={C}, got {c}")
     if wd % 8:
         raise ValueError(f"{name}: a row of W={wd} bf16 must be a multiple of 16 bytes "
                          f"(the tensor copy's unit)")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if launch_layout(layers, e, th, wd, slots, sms) is None:
+        raise ValueError(f"{name}: L={layers}, E={e}, TH={th}, W={wd}: the cone's layout does "
+                         f"not fit a CTA ({SMEM_LIMIT} bytes, {FPW * MAX_WARPS} fragments)")
 
 
 # --- plain versions ------------------------------------------------------------
@@ -197,10 +277,10 @@ def unit_loop(x, w, p, mem, with_lif: bool = True, dyn_out: bool = True,
     """K8i: the unit body in a runtime layer loop, ``[L, C, th, W]`` f32 (see
     the module's note)."""
     cuda = on_card("unit_loop", x, w, p, mem, align=16)
-    layers, c, _, wd = _shape("unit_loop", x, w, p, mem, th)
+    layers, c, e, wd = _shape("unit_loop", x, w, p, mem, th)
     if not cuda:
         return unit_loop_plain(x, w, p, mem, with_lif, dyn_out, th)
-    _check_card("unit_loop", c, wd)
+    _check_card("unit_loop", x.device, layers, c, e, wd, th, False)
     out = torch.empty(layers, c, th, wd, device=x.device, dtype=torch.float32)
     _launch(x, w, p, mem, None, out, None, with_lif, dyn_out, th)
     unit_loop.launches += 1
@@ -213,10 +293,10 @@ def unit_loop_dma(x, mem, spk, w, p, th: int = TH, spike_slots: bool = False):
     stored slots ``[3, C, th, W]`` bf16, written by the kernel on a branch
     that the other launches skip."""
     cuda = on_card("unit_loop_dma", x, mem, spk, w, p, align=16)
-    layers, c, _, wd = _dma_shape(x, mem, spk, w, p, th)
+    layers, c, e, wd = _dma_shape(x, mem, spk, w, p, th)
     if not cuda:
         return unit_loop_dma_plain(x, mem, spk, w, p, th, spike_slots)
-    _check_card("unit_loop_dma", c, wd)
+    _check_card("unit_loop_dma", x.device, layers, c, e, wd, th, True)
     out = torch.empty(layers, c, th, wd, device=x.device, dtype=torch.float32)
     slots = (torch.zeros(3, c, th, wd, device=x.device, dtype=torch.bfloat16)
              if spike_slots else None)
@@ -357,13 +437,81 @@ def run_all(device: Optional[str] = None, seed: int = 0, repeats: int = 3) -> Li
     return run_cases(probe_cases(card_device(device), seed), repeats, row)
 
 
+# the split's builds: name -> nvcc flags, a part taken out (a keeps(UL_CUT_<part>)
+# test in the source) or the owned rows of a CTA fixed
+SPLIT_VARIANTS = {
+    "full": [],
+    "no_x_stage": ["-DUL_CUT=UL_CUT_X_STAGE"],        # x's copy and transposition
+    "no_slot_stage": ["-DUL_CUT=UL_CUT_SLOT_STAGE"],  # K8j's slot copies and transpositions
+    "no_ring": ["-DUL_CUT=UL_CUT_RING"],              # weight, parameter, membrane copies
+    "no_mma": ["-DUL_CUT=UL_CUT_MMA"],
+    "no_loads": ["-DUL_CUT=UL_CUT_LOADS"],            # the epilogue's parameters, membranes
+    "no_stores": ["-DUL_CUT=UL_CUT_STORES"],          # the output and slot tiles, their stores
+    "rows1": ["-DUL_ROWS=1"],
+    "rows4": ["-DUL_ROWS=4"],
+    "rows8": ["-DUL_ROWS=8"],
+}
+
+
+def split_missing(root: Path) -> List[str]:
+    """The split's variants that ``root``'s source has no hook for (a build
+    of them would time the full kernel)."""
+    src = (root / "evflow_torch" / "csrc" / "probe_unit_loop.cu").read_text()
+    hooks = {f[0][len("-DUL_CUT="):]: f"keeps({f[0][len('-DUL_CUT='):]})"
+             for f in SPLIT_VARIANTS.values() if f and f[0].startswith("-DUL_CUT=")}
+    missing = [name for name, f in SPLIT_VARIANTS.items()
+               if f and f[0].startswith("-DUL_CUT=") and hooks[f[0][9:]] not in src]
+    if "#ifdef UL_ROWS" not in src:
+        missing += [name for name, f in SPLIT_VARIANTS.items() if f and "UL_ROWS" in f[0]]
+    return missing
+
+
+def split(root: Path, seed: int = 0) -> List[dict]:
+    """Every case in every build of ``SPLIT_VARIANTS`` (all ``nvcc`` at
+    once, ``conv_lif_times.compile_variants``), the full build first and
+    last, each timed by ``wholenet_slope.device_ms``: a row per (variant,
+    case) with its ms, the part's ms (the full time less the variant's) and
+    the launch's CTAs, threads and shared bytes."""
+    from evflow_torch.ops import cuda_build
+    from evflow_torch.probes.conv_lif_times import compile_variants, load_entry
+    from evflow_torch.probes.wholenet_slope import device_ms
+
+    missing = split_missing(root)
+    if missing:
+        raise RuntimeError(f"the unit loop cannot be split for {missing}: "
+                           "csrc/probe_unit_loop.cu has no hook for them")
+    libs = compile_variants(root, "split_unit_loop", {"unit_loop": "probe_unit_loop"},
+                            SPLIT_VARIANTS)
+    cases = probe_cases(card_device(None), seed)
+    full, rows = {}, []
+    for name in list(SPLIT_VARIANTS) + ["full"]:
+        load_entry(libs["unit_loop", name], "probe_unit_loop")
+        for case in cases:
+            ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=50)
+            full.setdefault(case.name, ms if name == "full" else None)
+            base = full[case.name]
+            rows.append({"variant": name, "flags": SPLIT_VARIANTS[name], "case": case.name,
+                         "ms": ms, "part_ms": None if name == "full" else base - ms,
+                         "ctas": last_launch["grid"], "threads": last_launch["threads"],
+                         "smem": last_launch["smem"]})
+    cuda_build._ENTRIES.pop("probe_unit_loop", None)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Unit-loop probes on the card.")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--split", action="store_true",
+                    help="time every case in the variant builds of SPLIT_VARIANTS")
     args = ap.parse_args(argv)
-    rows = run_all(seed=args.seed, repeats=args.repeats)
     card = describe_card()
+    if args.split:
+        rows = split(Path(__file__).resolve().parents[2], args.seed)
+        for r in rows:
+            print(json.dumps({**r, "card": card}), flush=True)
+        return rows
+    rows = run_all(seed=args.seed, repeats=args.repeats)
     for r in rows:
         print(f"{r['wrapper']} {r['name']}: {r['ms']:.6f} ms -> {r['gbps']:.1f} GB/s, "
               f"{r['tflops']:.2f} TF/s needed, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "

@@ -745,15 +745,38 @@ def test_staging_refuses_what_it_cannot_take(cuda):
     assert (S.row_window_copy.launches, S.layer_grid.launches) == before
 
 
-@pytest.mark.parametrize("shape", [(4, 32, 24, 256, 8), (4, 32, 20, 40, 6), (2, 32, 16, 24, 8)],
-                         ids=["full", "ragged", "two-layers"])
-@pytest.mark.parametrize("index", range(4), ids=["13", "14", "15", "dma"])
+# (shape, cases): L=10 over E=20 clips every layer's cone at both edges of
+# the window; W=264 at TH=7 leaves the last row tile one row (33 x 4 tiles
+# of 8 columns by 2 rows). Case 14's integer draw grows by ~24x a layer, so
+# at L=10 its sums are not exact in f32: it runs up to L=4.
+UNIT_LOOP_SHAPES = [("full", (4, 32, 24, 256, 8), range(4)),
+                    ("ragged", (4, 32, 20, 40, 6), range(4)),
+                    ("two-layers", (2, 32, 16, 24, 8), range(4)),
+                    ("clipped-cone", (10, 32, 20, 48, 4), (0, 2, 3)),
+                    ("ragged-rows", (4, 32, 22, 264, 7), range(4))]
+UNIT_LOOP_IDS = ("13", "14", "15", "dma")
+
+
+def unit_loop_layout(U, case, cuda):
+    """The launch ``launch_layout`` mirrors for ``case`` on this card."""
+    x = case.args[0]
+    layers = case.args[1].shape[0] if case.fn is U.unit_loop else case.args[3].shape[0]
+    e, w = x.shape[-2:]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return U.launch_layout(layers, e, case.kwargs["th"], w, case.fn is U.unit_loop_dma, sms)
+
+
+@pytest.mark.parametrize("shape,index", [
+    pytest.param(shape, i, id=f"{UNIT_LOOP_IDS[i]}-{name}")
+    for name, shape, cases in UNIT_LOOP_SHAPES for i in cases])
 def test_unit_loop_matches_plain(cuda, shape, index):
     """Each unit-loop case against its plain version: at the JAX probes'
-    shapes, at W=40 (three tiles of 16 columns, the last one of 8) with E=20
-    and TH=6, and at L=2 over W=24: equal, case 14 too (every sum exact,
-    ``unit_loop.tolerance``); one launch each, and K8j's stored spike slots
-    equal to the plain slots."""
+    shapes, at W=40 with E=20 and TH=6, at L=2 over W=24, at L=10 over E=20
+    (every cone clipped at rows 0 and E) and at W=264, TH=7 (a last row tile
+    of one row): equal, case 14 too (every sum exact,
+    ``unit_loop.tolerance``); one launch each, its grid, threads and shared
+    bytes those of ``launch_layout``, and K8j's stored spike slots equal to
+    the plain slots."""
     from evflow_torch.probes import unit_loop as U
     from evflow_torch.probes._harness import compare
 
@@ -761,7 +784,8 @@ def test_unit_loop_matches_plain(cuda, shape, index):
     before = case.fn.launches
     out = case.fn(*case.args, **case.kwargs)
     assert case.fn.launches == before + 1
-    assert U.last_launch["grid"] == -(-shape[3] // 16)
+    lay = unit_loop_layout(U, case, cuda)
+    assert U.last_launch == {k: lay[k] for k in ("grid", "threads", "smem")}
     ref = case.plain(*case.args, **case.kwargs)
     torch.cuda.synchronize()
     res = compare(out, ref, U.tolerance(case, ref))
@@ -773,6 +797,36 @@ def test_unit_loop_matches_plain(cuda, shape, index):
         torch.cuda.synchronize()
         assert torch.equal(out2, out) and torch.equal(slots, ref_slots)
         assert 0 < float(ref_slots.float().mean()) < 1
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 21, 264, 7), (3, 32, 19, 40, 5)],
+                         ids=["33x4-tiles", "5x5-tiles"])
+@pytest.mark.parametrize("index", range(4), ids=["13", "14", "15", "dma"])
+def test_unit_loop_writes_every_element(cuda, shape, index):
+    """The kernel's outputs (and K8j's three slots, each written by some
+    layer at L >= 3) filled with NaN before the launch, at E and W whose
+    tiles are ragged (the last row tile short): every element is written,
+    and equal to the plain version's."""
+    from evflow_torch.probes import unit_loop as U
+
+    case = U.probe_cases(cuda, seed=index, shape=shape)[index]
+    layers, c, e, w, th = shape
+    out = torch.full((layers, c, th, w), float("nan"), device=cuda)
+    dma = case.fn is U.unit_loop_dma
+    slots = torch.full((3, c, th, w), float("nan"), device=cuda, dtype=torch.bfloat16)
+    if dma:
+        x, mem, spk, wt, p = case.args
+        U._launch(x, wt, p, mem, spk, out, slots, True, True, th)
+        ref, ref_slots = case.plain(*case.args, **case.kwargs, spike_slots=True)
+    else:
+        x, wt, p, mem = case.args
+        U._launch(x, wt, p, mem, None, out, None, case.kwargs["with_lif"],
+                  case.kwargs["dyn_out"], th)
+        ref = case.plain(*case.args, **case.kwargs)
+    torch.cuda.synchronize()
+    assert not bool(out.isnan().any()) and torch.equal(out, ref)
+    if dma:
+        assert not bool(slots.isnan().any()) and torch.equal(slots, ref_slots)
 
 
 def test_unit_loop_refuses_what_it_cannot_take(cuda):

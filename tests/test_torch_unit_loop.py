@@ -16,6 +16,9 @@ sum exact at this size, so the JAX kernel's f32 sums and the plain
 version's float64 sums round to the same values.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,3 +229,151 @@ def test_unit_loop_dma_refuses(bad, match):
     with pytest.raises(ValueError, match=match):
         U.unit_loop_dma(kw["x"], kw["mem"], kw["spk"], kw["w"], kw["p"])
     assert U.unit_loop_dma.launches == before
+
+
+# --- the launch's layout (``launch_layout``, the source's ``make_layout``) ----
+
+CSRC = Path(U.__file__).resolve().parents[1] / "csrc" / "probe_unit_loop.cu"
+
+
+def earlier_launch_took(layers, e, slots):
+    """What the unit-loop kernel took before its cone design (its launch's
+    limits, beyond C = 32, W a multiple of 8 and R0 + TH <= E <= 256): every
+    CTA 16 columns and a halo of L rounded up to 8 on each side, all E rows;
+    at most 16 warps of two 32-pixel pairs over E (16 + 2(L-1)) pixels, a
+    box at most 256 columns wide, and h (K8j: and aux) pixel-major at 40
+    bf16 a pixel, one channel-major box and one layer's weights (584 bf16
+    rows) within 232,448 bytes of shared memory."""
+    halo = -(-layers // 8) * 8
+    bw = 16 + 2 * halo
+    pairs = -(-(e * (16 + 2 * (layers - 1))) // 32)
+    if -(-pairs // 2) > 16 or bw > 256:
+        return False
+    def up(v):
+        return -(-v // 128) * 128
+
+    hbytes = up((e + 2) * bw * 40 * 2)
+    total = 128 + hbytes * (2 if slots else 1) + up(32 * e * bw * 2) + 32 * 584 * 2
+    return total <= 232448
+
+
+@pytest.mark.parametrize("slots", [False, True], ids=["K8i", "K8j"])
+def test_launch_layout_fits_a_cta(slots):
+    """Every layout ``launch_layout`` gives for L in 1..16 and every E up to
+    256 (the first and the last output row count, a narrow and a wide
+    window) fits one CTA: its shared bytes within 232,448, its threads
+    within 16 warps, layer 0's cone (the largest) within the kernel's
+    fragments a warp (2 on 8 warps, else 4 on 16); the probes' shapes take
+    128 CTAs x 256 threads and two ring stages."""
+    taken = 0
+    for layers in range(1, 17):
+        for e in range(9, 257):
+            for th in (1, e - 8):
+                for w in (8, 256):
+                    lay = U.launch_layout(layers, e, th, w, slots)
+                    if lay is None:
+                        continue
+                    taken += 1
+                    assert lay["smem"] <= 232448 and lay["threads"] <= 512
+                    assert lay["frags"] <= 4 * lay["threads"] // 32
+                    assert lay["stages"] in (1, 2) and 1 <= lay["t"] <= min(th, 8)
+                    assert lay["threads"] == (256 if lay["fpw"] == 2 else 512)
+                    assert lay["frags"] <= 2 * lay["threads"] // 32 or lay["fpw"] == 4
+                    assert lay["grid"] == w // 8 * -(-th // lay["t"])
+    assert taken > 1000
+    probe = U.launch_layout(4, 24, 8, 256, slots)
+    assert (probe["grid"], probe["threads"], probe["t"], probe["stages"]) == (128, 256, 2, 2)
+    assert probe["smem"] == (168_832 if slots else 123_264)
+
+
+@pytest.mark.parametrize("slots", [False, True], ids=["K8i", "K8j"])
+def test_launch_layout_takes_what_the_earlier_launch_took(slots):
+    """Every (L, E) the earlier launch took (``earlier_launch_took``, for L up
+    to 60 and every E up to 256), at one, eight and E - 8 output rows and
+    windows of 1, 5, 32 and 132 column tiles: the new layout takes it too,
+    so the wrapper refuses nothing new."""
+    taken = 0
+    for layers in range(1, 61):
+        for e in range(9, 257):
+            if not earlier_launch_took(layers, e, slots):
+                continue
+            for th in sorted({1, min(8, e - 8), e - 8}):
+                for w in (8, 40, 256, 1056):
+                    assert U.launch_layout(layers, e, th, w, slots) is not None, (
+                        layers, e, th, w)
+                    taken += 1
+    assert taken > 1000
+
+
+def test_layout_mirror_constants_match_the_source():
+    """The mirror's constants are the source's, and the source's layout has
+    the pieces ``launch_layout`` counts."""
+    src = CSRC.read_text()
+    for name, value in (("TW", U.TW), ("TMAX", U.TMAX), ("FPW", U.FPW),
+                        ("MIN_WARPS", U.MIN_WARPS), ("MAX_WARPS", U.MAX_WARPS),
+                        ("SMEM_LIMIT", U.SMEM_LIMIT), ("R0", U.R0)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value, name
+    assert (U.SPITCH, U.WPITCH) == (40, 584)
+    fill = re.search(r"inline bool fill_layout\(.*?\n\}", src, re.S).group(0)
+    for piece in ("s.HR = E + 2 < t + 2 * L ? E + 2 : t + 2 * L;",
+                  "s.HC = TW + 2 * L;",
+                  "s.BX = TW + 2 * ceil8(L);",
+                  "s.MR = E < t + 2 * (L - 1) ? E : t + 2 * (L - 1);",
+                  "s.BM = TW + 2 * ceil8(L - 1);",
+                  "s.stage = DATA_OFF + area + (slots && !alias ? up128(s.xbytes) : 0);",
+                  "const int hbytes = up128(s.HR * s.HC * SPITCH * 2);",
+                  "int off = 128;",
+                  "off += stages * s.stage;",
+                  "s.tile = up128(C * t * TW * 4);",
+                  "off += 2 * s.tile;",
+                  "s.stile = up128(C * t * TW * 2);",
+                  "off += slots ? 2 * s.stile : 0;",
+                  "const int frags = (s.MR * cols + 15) / 16;",
+                  "s.fpw = frags <= 2 * MIN_WARPS ? 2 : FPW;",
+                  "s.warps = s.fpw == 2 ? MIN_WARPS : MAX_WARPS;",
+                  "s.total = off;",
+                  "return s.total <= SMEM_LIMIT && frags <= FPW * s.warps && s.HR <= 256 && "
+                  "s.BX <= 256 &&"):
+        assert piece in fill, piece
+    make = re.search(r"inline bool make_layout\(.*?\n\}", src, re.S).group(0)
+    for piece in ("const int rings[4][2] = {{2, 0}, {2, 1}, {1, 0}, {1, 1}};",
+                  "for (int t = t0; t >= 1; --t) {",
+                  "n_rt = n_rt < TH ? n_rt : TH;"):
+        assert piece in make, piece
+    assert "constexpr int DATA_OFF = WREGION + (PBYTES + 127) / 128 * 128;" in src
+    assert U.DATA_OFF == -(-32 * 584 * 2 // 128) * 128 + 384
+
+
+def test_unit_loop_split_variants_have_their_hooks(tmp_path):
+    """Each variant of ``unit_loop --split`` takes out a part that the
+    source tests (``keeps(UL_CUT_<part>)``) or fixes the rows (``UL_ROWS``);
+    a source without those hooks (as before this design) is refused for
+    every variant but the full one."""
+    from pathlib import Path as P
+
+    assert U.split_missing(P(U.__file__).resolve().parents[2]) == []
+    src = CSRC.read_text()
+    for flags in U.SPLIT_VARIANTS.values():
+        if flags and flags[0].startswith("-DUL_CUT="):
+            part = flags[0][len("-DUL_CUT="):]
+            assert f"keeps({part})" in src and f"  {part}," in src
+    csrc = tmp_path / "evflow_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "probe_unit_loop.cu").write_text("// no hooks\n")
+    assert U.split_missing(tmp_path) == [v for v in U.SPLIT_VARIANTS if v != "full"]
+
+
+def test_unit_loop_instantiations_are_gated():
+    """Every ``unit_loop_kernel<LIF, DYN, SLOTS, FPW>`` the entry point can
+    launch (FPW 2 or 4 fragments a warp) is in ``chip_smoke.REDESIGNED``,
+    whose ptxas gate fails on a missing one, a stack frame or spills."""
+    import chip_smoke
+
+    src = CSRC.read_text()
+    launched = re.findall(r"launch<(true|false), (true|false), (true|false)>\(\*a, s\)", src)
+    assert ("s.fpw == 2 ? unit_loop_kernel<LIF, DYN, SLOTS, 2>\n"
+            "                           : unit_loop_kernel<LIF, DYN, SLOTS, 4>;") in src
+    names = {"unit_loop_kernel<" + ",".join("1" if b == "true" else "0" for b in t) + f",{fpw}>"
+             for t in launched for fpw in (2, 4)}
+    assert len(names) == 10
+    assert set(chip_smoke.REDESIGNED["probe_unit_loop"]) == names
