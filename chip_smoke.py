@@ -17,8 +17,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``load_dot_f32_kernel``, k12's ``load_dot_bf16_kernel``, k7's
    ``conv_sum_kernel``, K8e's 4 ``layer_grid_kernel`` instantiations, the
    ``store_kernel`` of k3 and k11 and the ``store_bulk_kernel`` of k4 and
-   k8), failing if ptxas reports any of them not at all, or with a stack
-   or spills.
+   k8, K8i's and K8j's 10 ``unit_loop_kernel`` instantiations, and the
+   bisection probes' 2 ``stack_kernel`` and 9 ``chain_kernel`` ones),
+   failing if ptxas reports any of them not at all, or with a stack or
+   spills.
 2. ``kernels``: every kernel against its plain PyTorch version on the card at
    full width (C=32): head (Cin=2), feedforward, recurrent and subtract
    reset, and a feedforward and a recurrent unit of C=24 (padded to 32
@@ -356,7 +358,8 @@ def phase_build(state):
 # every instantiation
 # probe_kernel<MT, MODE, PIXM, SPLITK> that the launch can choose, k2, k12,
 # k7, every layer_grid_kernel<MF> (K8e, C <= 16 MF), the store kernel of k3
-# and k11 and the bulk store of k4 and k8, and the unit loop's K8i and K8j
+# and k11 and the bulk store of k4 and k8, the unit loop's K8i and K8j, and
+# the bisection probes' K8k (kA, kB) and chain (K8l-K8n)
 REDESIGNED = {
     "conv_lif": tuple(f"conv_lif_kernel<{ch},1>" for ch in (16, 32, 48, 64)),
     "conv_lif_cmajor": tuple(f"conv_lif_kernel<{ch},0>" for ch in (16, 32, 48, 64)),
@@ -379,6 +382,11 @@ REDESIGNED = {
     "probe_staging": tuple(f"layer_grid_kernel<{mf}>" for mf in (1, 2, 3, 4)),
     "probe_unit_loop": tuple(f"unit_loop_kernel<{v},{fpw}>" for v in (
         "1,1,0", "1,0,0", "0,1,0", "0,0,0", "1,1,1") for fpw in (2, 4)),  # <LIF, DYN, SLOTS, FPW>
+    # kA, kB, and the chain's nine variants <LIF, PRM, FLOW, OUT_SPK, SCRATCH>
+    "probe_wholenet_bisect": ("stack_kernel<1>", "stack_kernel<7>") + tuple(
+        f"chain_kernel<{v}>" for v in (
+            "0,0,0,1,1", "0,0,0,1,0", "0,2,2,0,0", "1,2,1,0,0", "1,1,2,0,0", "1,2,2,0,0",
+            "0,0,1,0,0", "2,0,1,0,0", "3,0,1,0,0")),
 }
 
 

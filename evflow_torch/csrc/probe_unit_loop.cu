@@ -56,7 +56,9 @@
 // puts alternate steps on two accumulator sets. K8i's aux half reuses h's
 // A fragments; K8j skips the zero slot's half (its products are exact
 // zeros). Cones of more than 16 fragments (large L) take the kernel of 4
-// fragments a warp on 16 warps, whose loop over the taps is rolled.
+// fragments a warp on 16 warps, whose loop over the taps is rolled. The
+// transposition, the step fold and the tensor store are pixel_conv.cuh's,
+// shared with probe_wholenet_bisect.cu.
 //   Epilogue. After a barrier (every warp has read h), bias, beta and theta
 // in registers from the staged parameters, the membrane from the staged
 // box, the LIF with every rounding explicit (no fused multiply-add), the
@@ -88,6 +90,7 @@
 #include <utility>
 
 #include "fused_net_common.cuh"
+#include "pixel_conv.cuh"
 #include "tma.cuh"
 
 namespace evflow {
@@ -96,6 +99,11 @@ namespace unitloop {
 using wholenet::C;       // 32 channels
 using wholenet::NF;      // n8 fragments of the output channels
 using wholenet::SPITCH;  // bf16 per pixel of a pixel-major buffer
+using pixconv::encode;
+using pixconv::layer_mma;
+using pixconv::mma_n32;
+using pixconv::tensor_store_4d;
+using pixconv::to_pixel_major;
 constexpr int K = 18 * C;          // weights per output channel: h half, aux half
 constexpr int WPITCH = K + PAD;    // bf16 per staged weight row
 constexpr int TW = 8;              // owned columns per CTA
@@ -235,116 +243,7 @@ struct Params {
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ void stsm_x4(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n"
-               ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
-
-// The box [c0 innermost .. c3] of a 4-D tensor map from 128-byte aligned
-// shared memory, in the current bulk async-group; clipped to the tensor.
-__device__ __forceinline__ void tensor_store_4d(const CUtensorMap* map, int c0, int c1, int c2,
-                                                int c3, const void* src) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n"
-      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(src))
-      : "memory");
-}
-
-// A channel-major box [C][HR][BX] -> the pixel-major buffer [HR][HC][SPITCH],
-// box column j landing on buffer column j - sh: per 8 x 8 piece (8 channels
-// by 8 columns of a row) one ldmatrix.trans and one stmatrix, four pieces
-// (the channel groups) a warp instruction; a column outside the buffer goes
-// to the dummy row.
-__device__ __forceinline__ void to_pixel_major(const __nv_bfloat16* box, __nv_bfloat16* buf,
-                                               uint32_t dummy, const Layout& s, int sh) {
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const int cg = lane >> 3, i = lane & 7, per_row = s.BX / 8;
-  for (int task = threadIdx.x >> 5; task < s.HR * per_row; task += nw) {
-    const int r = task / per_row, col = (task - r * per_row) * 8;
-    uint32_t v[4];
-    ldsm_x4_t(v, smem_u32(box + ((cg * 8 + i) * s.HR + r) * s.BX + col));
-    const int bc = col + i - sh;
-    stsm_x4(bc >= 0 && bc < s.HC ? smem_u32(buf + (r * s.HC + bc) * SPITCH + cg * 8) : dummy, v);
-  }
-}
-
 __device__ __forceinline__ int slot_of(int l) { return l == 1 ? 0 : (l == 2 ? 1 : 2); }
-
-// One k16 step of one m16 fragment against the 32 output channels' B
-// fragments `b` (two ldmatrix.x4: channels 0-15, 16-31).
-__device__ __forceinline__ void mma_n32(float (&acc)[NF][4], const uint32_t (&av)[4],
-                                        const uint32_t (&b)[2][4]) {
-  mma_bf16_16816(acc[0], av, b[0][0], b[0][1]);
-  mma_bf16_16816(acc[1], av, b[0][2], b[0][3]);
-  mma_bf16_16816(acc[2], av, b[1][0], b[1][1]);
-  mma_bf16_16816(acc[3], av, b[1][2], b[1][3]);
-}
-
-// One layer's k16 steps for NFRAG of a warp's fragments (acc[f], abase[f]),
-// straight-line (a fold over the step index, so that every register buffer
-// is indexed at compile time): a step is (tap, 16 channels) of h, then
-// (AUX) of aux, B fragments from the weights, A from h (SEPARATE: aux from
-// its own buffer, else h's A again). The next step's fragments are loaded
-// before this step's mma (two register buffers). SPLIT (one fragment): the
-// steps go to two accumulator sets in turn, summed by the caller, so that
-// no mma waits on the one before it.
-template <int NFRAG, bool SPLIT, bool AUX, bool SEPARATE>
-struct LayerMma {
-  static constexpr int NK = AUX ? 36 : 18;
-  float (*acc)[NF][4];
-  const uint32_t* abase;
-  uint32_t hsm, asm_, wbase;
-  int hc;
-  uint32_t b[2][2][4], av[2][NFRAG][4], aa[2][NFRAG][4];  // two steps' fragments
-
-  template <int KS>
-  __device__ __forceinline__ void load() {
-    constexpr int j = AUX ? KS >> 1 : KS, half = AUX ? KS & 1 : 0;
-    constexpr int tap = j >> 1, c16 = j & 1, dy = tap / 3;
-    constexpr uint32_t k0 = (half * 9 * C + tap * C + c16 * 16) * 2;
-    ldsm_x4(b[KS & 1][0], wbase + k0);
-    ldsm_x4(b[KS & 1][1], wbase + 16 * WPITCH * 2 + k0);
-    const uint32_t off = ((dy * hc + tap - 3 * dy) * SPITCH + c16 * 16) * 2;
-#pragma unroll
-    for (int f = 0; f < NFRAG; ++f) {
-      if (half == 0) ldsm_x4(av[j & 1][f], hsm + abase[f] + off);
-      if (half == 1 && SEPARATE) ldsm_x4(aa[j & 1][f], asm_ + abase[f] + off);
-    }
-  }
-
-  template <int KS>
-  __device__ __forceinline__ void step() {
-    if constexpr (KS + 1 < NK) load<KS + 1>();
-    constexpr int j = AUX ? KS >> 1 : KS, half = AUX ? KS & 1 : 0;
-#pragma unroll
-    for (int f = 0; f < NFRAG; ++f) {
-      mma_n32(acc[SPLIT ? (KS & 1) : f],
-              half == 1 && SEPARATE ? aa[j & 1][f] : av[j & 1][f], b[KS & 1]);
-    }
-  }
-
-  template <int... KS>
-  __device__ __forceinline__ void run(std::integer_sequence<int, KS...>) {
-    load<0>();
-    (step<KS>(), ...);
-  }
-};
-
-template <int NFRAG, bool SPLIT, bool AUX, bool SEPARATE>
-__device__ __forceinline__ void layer_mma(float (*acc)[NF][4], const uint32_t* abase, uint32_t hsm,
-                                          uint32_t asm_, uint32_t wbase, int hc) {
-  using M = LayerMma<NFRAG, SPLIT, AUX, SEPARATE>;
-  M m;
-  m.acc = acc;
-  m.abase = abase;
-  m.hsm = hsm;
-  m.asm_ = asm_;
-  m.wbase = wbase;
-  m.hc = hc;
-  m.run(std::make_integer_sequence<int, M::NK>{});
-}
 
 // A warp's `mine` fragments of a layer. The kernel of 2 fragments a warp:
 // both in one straight-line pass, or one on two accumulator sets. The
@@ -356,9 +255,9 @@ __device__ __forceinline__ void warp_mma(int mine, float (&acc)[FPW][NF][4],
                                          uint32_t asm_, uint32_t wbase, int hc) {
   if constexpr (FPW == 2) {
     if (mine == 1) {
-      layer_mma<1, true, AUX, SEPARATE>(acc, abase, hsm, asm_, wbase, hc);
+      layer_mma<1, true, AUX, SEPARATE, WPITCH>(acc, abase, hsm, asm_, wbase, hc);
     } else {
-      layer_mma<2, false, AUX, SEPARATE>(acc, abase, hsm, asm_, wbase, hc);
+      layer_mma<2, false, AUX, SEPARATE, WPITCH>(acc, abase, hsm, asm_, wbase, hc);
     }
   } else {
 #pragma unroll 1
@@ -473,7 +372,7 @@ __global__ void __launch_bounds__(FPW == 2 ? MIN_WARPS * 32 : MAX_WARPS * 32, 1)
   if (keeps(UL_CUT_X_STAGE)) {
     mbar_wait(bar_x, 0);
     to_pixel_major(reinterpret_cast<const __nv_bfloat16*>(stage(s.stages - 1) + DATA_OFF), hb,
-                   dummy, s, ceil8(L) - L);
+                   dummy, s.HR, s.BX, s.HC, ceil8(L) - L);
   }
   fence_proxy_async();  // this thread's reads of x's box before the copies below
   __syncthreads();
@@ -489,7 +388,7 @@ __global__ void __launch_bounds__(FPW == 2 ? MIN_WARPS * 32 : MAX_WARPS * 32, 1)
     if (has_slot(l)) {
       if (keeps(UL_CUT_SLOT_STAGE)) {
         to_pixel_major(reinterpret_cast<const __nv_bfloat16*>(st + DATA_OFF + s.slot_off), ab,
-                       dummy, s, ceil8(L) - L);
+                       dummy, s.HR, s.BX, s.HC, ceil8(L) - L);
       }
       fence_proxy_async();
       __syncthreads();
@@ -659,27 +558,6 @@ __global__ void __launch_bounds__(FPW == 2 ? MIN_WARPS * 32 : MAX_WARPS * 32, 1)
 }
 
 // --- host side ----------------------------------------------------------------
-
-// A map over a dense 4-D tensor (dims innermost first) with the box `box`,
-// zero-filled outside the tensor on loads and clipped to it on stores.
-bool encode(CUtensorMap* map, CUtensorMapDataType type, int esize, const void* base,
-            const int (&dims)[4], const int (&box)[4]) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t gdim[4], strides[3];
-  cuuint32_t boxdim[4];
-  cuuint64_t stride = esize;
-  for (int i = 0; i < 4; ++i) {
-    gdim[i] = static_cast<cuuint64_t>(dims[i]);
-    boxdim[i] = static_cast<cuuint32_t>(box[i]);
-    stride *= gdim[i];
-    if (i < 3) strides[i] = stride;
-  }
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, type, 4, const_cast<void*>(base), gdim, strides, boxdim, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // The card's SM count, asked once a device.
 int sm_count() {

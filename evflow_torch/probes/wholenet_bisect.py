@@ -31,24 +31,42 @@ columns are zero-padded:
   [TH + H, Hp) of o0 and o1 unwritten; the port writes zeros there.
 
 Each call is one launch of ``evflow_torch/csrc/probe_wholenet_bisect.cu``
-(see the source's note): ``stack_kernel`` for kA and kB, ``chain_kernel``
-for the nine chain variants. The plain versions sum in float64 (exact on
-``draw_operands``' values) and round once to f32, then run each file's
-epilogue in f32. CPU tensors run the plain version; CUDA tensors launch the
-kernel or raise.
+(see the source's note): ``stack_kernel`` for kA and kB (CTAs of 8 columns
+by 16 rows, each layer on its cone, wgmma), ``chain_kernel`` for the nine
+chain variants (16 x 16, mma.sync, a warp that issues the TMA copies); x
+staged by the threads' cp.async, outputs stored from shared tiles by
+16-byte stores. On an NVIDIA H100 80GB HBM3 at 700 W a call takes 0.0060
+ms (kA), 0.0232 (kB) and 0.0140-0.0164 (the chain) back to back.
+``launch_layout`` mirrors the launch's geometry (grid, threads, shared
+bytes), and the wrappers refuse with a ``ValueError`` before any launch what
+it does not take (C other than 32, W not a multiple of 8). The plain
+versions sum in float64 (exact on ``draw_operands``' values) and round once
+to f32, then run each file's epilogue in f32. CPU tensors run the plain
+version; CUDA tensors launch the kernel or raise.
 
 A case's bound counts what its function needs (``bisect_bytes``: the rows
 its outputs reach, the outputs once); what the TPU probe stages and issues
 over its windows is counted apart.
 
-    python -m evflow_torch.probes.wholenet_bisect   # one line per case, needs CUDA
+    python -m evflow_torch.probes.wholenet_bisect           # one line per case, needs CUDA
+    python -m evflow_torch.probes.wholenet_bisect --split   # the time split by part
+
+``--split`` times every case in variant builds of the source, each with one
+part taken out (``SPLIT_VARIANTS``: a ``keeps(BI_CUT_<part>)`` test in the
+source, built with ``-DBI_CUT=BI_CUT_<part>``), the full build first and
+last, all built at once by
+``conv_lif_times.compile_variants``; what a part costs is the full time
+less the variant's (the parts overlap). A line a (variant, case) with the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import math
+from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -62,7 +80,8 @@ __all__ = [
     "bisect_a", "bisect_a_plain", "bisect_b", "bisect_b_plain", "bisect3", "bisect3_plain",
     "bisect5", "bisect5_plain", "bisect6", "bisect6_plain", "Variant", "VARIANTS", "BODIES",
     "bisect_bytes", "draw_operands", "probe_cases", "body_of", "outputs", "bound", "tolerance",
-    "run_all", "WRAPPERS", "last_launch",
+    "run_all", "WRAPPERS", "last_launch", "launch_layout", "SPLIT_VARIANTS", "split",
+    "split_missing",
 ]
 
 # the files' shapes (probe_wholenet_bisect.py:7-8, bisect3.py:7-10); TH is
@@ -71,6 +90,82 @@ C, H, W, TH = 32, 64, 256, 16
 E = TH + 16
 B_K8K, B_CHAIN = 1, 2
 KB_LAYERS = 7
+
+# the launch's constants (csrc/probe_wholenet_bisect.cu)
+STACK_TW, CHAIN_TW = 8, 16  # owned columns per CTA of stack_kernel, chain_kernel
+KA_WARPS, KB_WARPS, CHAIN_WARPS = 8, 16, 16
+SMEM_LIMIT = 232448
+SPITCH, WPITCH = C + 8, 9 * C + 8  # bf16 per staged pixel, per staged weight row
+PBYTES, PWBYTES = C * 3 * 4, 2 * C * 2  # a unit's parameters, the pred head's weights
+W_BLOCK, W_BLOCKS = C * 128, -(-9 * C // 64)  # stack_kernel's weights: 64 K values of 32 rows
+
+
+def _up(v: int) -> int:
+    return (v + 127) // 128 * 128
+
+
+def _plane(nbytes: int) -> int:
+    """Bytes from one channel's plane of a staged box or an output tile to
+    the next: 16 past a multiple of 128 (``plane`` in the source)."""
+    return _up(nbytes) + 16
+
+
+def _stack_layout(layers: int) -> dict:
+    """stack_kernel<NL>'s threads, shared bytes and fragments (``Stack`` in
+    the source): the weights as 5 blocks of 64 K values (128-byte swizzled
+    rows, for wgmma), the barriers, buffer 0, and buffer 1 shared by x's box
+    (from a whole 16-byte piece left of the 8 owned columns), the odd
+    layers' spikes and the out tile. ``fpw``: the most m16 fragments a warp
+    takes in a layer (one a quad of 64 pixels its warpgroup takes)."""
+    warps = KA_WARPS if layers == 1 else KB_WARPS
+    halo = -(-layers // 8) * 8
+    hr, hc, bx = TH + 2 * layers, STACK_TW + 2 * layers, STACK_TW + 2 * halo
+    px = (hr - 2) * (hc - 2)  # layer 1's cone, the largest
+    quads = -(-px // 64)
+    buf = hr * hc * SPITCH * 2
+    off_b1 = W_BLOCKS * W_BLOCK + 128 + _up(buf)
+    smem = off_b1 + _up(max(buf if layers > 1 else 0, C * _plane(hr * bx * 2),
+                            C * _plane(TH * STACK_TW * 4)))
+    return {"threads": 32 * warps, "smem": smem, "frags": -(-px // 16),
+            "fpw": -(-quads // (warps // 4))}
+
+
+def _chain_layout() -> dict:
+    """chain_kernel's threads (16 compute warps and one that issues the
+    copies), shared bytes and unit 1's fragments (``Chain`` in the source):
+    both weight matrices, the parameters, x's box (then o0's dense tile
+    and o1's), x pixel-major, m0's dense box of 19 rows by 40 columns (then
+    the flow tile), m1's of 17 by 24, and spk1."""
+    tw = CHAIN_TW
+    xr, xc, xb, u1 = TH + 4, tw + 4, tw + 16, TH + 2
+    otile = C * _plane(TH * tw * 2)
+    smem = (128 + 2 * _up(C * WPITCH * 2) + _up(2 * PBYTES + PWBYTES)
+            + _up(max(C * _plane(xr * xb * 2), C * TH * tw * 2 + otile))
+            + _up(xr * xc * SPITCH * 2)
+            + _up(max(C * (u1 + 1) * (tw + 24) * 2, C * _plane(TH * tw * 4)))
+            + _up(C * (TH + 1) * (tw + 8) * 2) + _up(u1 * u1 * SPITCH * 2))
+    frags = -(-u1 * u1 // 16)
+    return {"threads": 32 * (CHAIN_WARPS + 1), "smem": smem, "frags": frags,
+            "fpw": -(-frags // CHAIN_WARPS)}
+
+
+def launch_layout(body: str, b: int, h: int, w: int) -> Optional[dict]:
+    """The launch's geometry for a body at (B, H, W), or None where the
+    kernels refuse it: H a positive multiple of TH = 16, W a positive
+    multiple of 8 (a row of W bf16 a whole number of 16-byte pieces, as a
+    tensor copy needs), B >= 1. kA and kB (``stack_kernel``): CTAs of 8
+    columns by 16 rows, W/8 x H/16 x B; the chain (``chain_kernel``): 16 x
+    16, ceil(W/16) x H/16 x B. A dict with the grid, threads, shared bytes,
+    the largest layer's m16 fragments and the most a warp takes (``fpw``)."""
+    if b < 1 or h < TH or h % TH or w < 8 or w % 8:
+        return None
+    if body in ("kA", "kB"):
+        lay, grid = _stack_layout(1 if body == "kA" else KB_LAYERS), w // STACK_TW * (h // TH) * b
+    elif body in VARIANTS:
+        lay, grid = _chain_layout(), -(-w // CHAIN_TW) * (h // TH) * b
+    else:
+        raise ValueError(f"no body {body!r}; one of {list(BODIES)}")
+    return {"grid": grid, **lay} if lay["smem"] <= SMEM_LIMIT else None
 
 
 class BisectArgs(ctypes.Structure):
@@ -181,9 +276,12 @@ def _chain_shape(name, v, x, m0, m1, w0, w1, p0, p1, pw, pb):
     return b, cin, c, hp - 2 * TH, wd
 
 
-def _check_card(name, *channels):
+def _check_card(name, wd, *channels):
     if any(c != C for c in channels):
         raise ValueError(f"{name}: the kernel takes C={C} (and Cin={C}), got {channels}")
+    if wd % 8:
+        raise ValueError(f"{name}: a row of W={wd} bf16 must be a multiple of 16 bytes "
+                         f"(W a multiple of 8: the tensor copy's unit)")
 
 
 # --- plain versions ------------------------------------------------------------
@@ -294,7 +392,7 @@ def bisect_a(x, w, p) -> torch.Tensor:
     b, c, h, wd = _a_shape(x, w, p)
     if not cuda:
         return bisect_a_plain(x, w, p)
-    _check_card("bisect_a", c)
+    _check_card("bisect_a", wd, c)
     out = torch.empty(b, c, h, wd, device=x.device, dtype=torch.float32)
     _launch(bisect_a, KA, b, h, wd, out, x, w, p0=p)
     return out
@@ -307,7 +405,7 @@ def bisect_b(xb, w) -> torch.Tensor:
     b, c, h, wd = _b_shape(xb, w)
     if not cuda:
         return bisect_b_plain(xb, w)
-    _check_card("bisect_b", c)
+    _check_card("bisect_b", wd, c)
     out = torch.empty(b, c, h, wd, device=xb.device, dtype=torch.float32)
     _launch(bisect_b, KB, b, h, wd, out, xb, w)
     return out
@@ -319,7 +417,7 @@ def _chain(fn, v: Variant, x, m0, m1, w0, w1, p0=None, p1=None, pw=None, pb=None
     b, cin, c, h, wd = _chain_shape(fn.__name__, v, x, m0, m1, w0, w1, p0, p1, pw, pb)
     if not cuda:
         return _chain_plain(v, x, m0, m1, w0, w1, p0, p1, pw, pb)
-    _check_card(fn.__name__, c, cin)
+    _check_card(fn.__name__, wd, c, cin)
     o0, o1 = torch.empty_like(m0), torch.empty_like(m1)
     flow = torch.empty(b, c if v.flow == "all" else 2, h, wd, device=x.device,
                        dtype=torch.float32)
@@ -461,17 +559,18 @@ def _kwargs(body: str) -> dict:
     return {"bisect3": {"variant": body}, "bisect6": {"mode": body}}.get(f, {})
 
 
-def probe_cases(device, seed: int = 0, shape=(C, H, W)) -> List[Case]:
+def probe_cases(device, seed: int = 0, shape=(C, H, W), batch: Optional[int] = None
+                ) -> List[Case]:
     """The 11 cases (kA, kB, K8l's two, K8m's four, K8n's three) at the JAX
-    files' shapes (B = 1 for K8k, 2 for the chain), operands from
-    ``draw_operands`` with numpy from ``seed``; on ``meta`` only their
-    shapes."""
+    files' shapes (B = 1 for K8k, 2 for the chain, or ``batch`` for every
+    case), operands from ``draw_operands`` with numpy from ``seed``; on
+    ``meta`` only their shapes."""
     c, h, w = shape
     rng = np.random.default_rng(seed)
     meta = torch.device(device).type == "meta"
     cases = []
     for body, (probe, fn, plain, replaces) in BODIES.items():
-        b = B_K8K if body in ("kA", "kB") else B_CHAIN
+        b = batch or (B_K8K if body in ("kA", "kB") else B_CHAIN)
         args = draw_operands(rng if not meta else np.random.default_rng(0), body, b, c, h, w)
         if meta:
             args = tuple(torch.empty_like(t, device="meta") for t in args)
@@ -525,13 +624,72 @@ def run_all(device: Optional[str] = None, seed: int = 0, repeats: int = 3) -> Li
     return run_cases(probe_cases(card_device(device), seed), repeats, row)
 
 
+# the split's builds: name -> nvcc flags, a part taken out (a keeps(BI_CUT_<part>)
+# test in the source)
+SPLIT_VARIANTS = {
+    "full": [],
+    "no_x_stage": ["-DBI_CUT=BI_CUT_X_STAGE"],  # x's copy and transposition
+    "no_w_stage": ["-DBI_CUT=BI_CUT_W_STAGE"],  # the weights' and parameters' copies
+    "no_mma": ["-DBI_CUT=BI_CUT_MMA"],
+    "no_m_loads": ["-DBI_CUT=BI_CUT_M_LOADS"],  # the chain's membranes: copies and reads
+    "no_handoff": ["-DBI_CUT=BI_CUT_HANDOFF"],  # kB's inter-layer spikes, the chain's spk1
+    "no_stores": ["-DBI_CUT=BI_CUT_STORES"],    # the output tiles, their stores, border rows
+}
+
+
+def split_missing(root: Path) -> List[str]:
+    """The split's variants that ``root``'s source has no hook for (a build
+    of them would time the full kernel)."""
+    src = (root / "evflow_torch" / "csrc" / "probe_wholenet_bisect.cu").read_text()
+    return [name for name, f in SPLIT_VARIANTS.items()
+            if f and f"keeps({f[0][len('-DBI_CUT='):]})" not in src]
+
+
+def split(root: Path, seed: int = 0) -> List[dict]:
+    """Every case in every build of ``SPLIT_VARIANTS`` (all ``nvcc`` at
+    once, ``conv_lif_times.compile_variants``), the full build first and
+    last, each timed by ``wholenet_slope.device_ms``: a row per (variant,
+    case) with its ms, the part's ms (the full time less the variant's)
+    and the launch's CTAs, threads and shared bytes."""
+    from evflow_torch.ops import cuda_build
+    from evflow_torch.probes.conv_lif_times import compile_variants, load_entry
+    from evflow_torch.probes.wholenet_slope import device_ms
+
+    missing = split_missing(root)
+    if missing:
+        raise RuntimeError(f"the bisection kernels cannot be split for {missing}: "
+                           "csrc/probe_wholenet_bisect.cu has no hook for them")
+    libs = compile_variants(root, "split_bisect", {"bisect": "probe_wholenet_bisect"},
+                            SPLIT_VARIANTS)
+    cases = probe_cases(card_device(None), seed)
+    full, rows = {}, []
+    for name in list(SPLIT_VARIANTS) + ["full"]:
+        load_entry(libs["bisect", name], "probe_wholenet_bisect")
+        for case in cases:
+            ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=50)
+            full.setdefault(case.name, ms if name == "full" else None)
+            rows.append({"variant": name, "flags": SPLIT_VARIANTS[name], "case": case.name,
+                         "ms": ms, "part_ms": None if name == "full" else full[case.name] - ms,
+                         "ctas": last_launch["grid"], "threads": last_launch["threads"],
+                         "smem": last_launch["smem"]})
+    cuda_build._ENTRIES.pop("probe_wholenet_bisect", None)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Whole-net bisection probes on the card.")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--split", action="store_true",
+                    help="time every case in the variant builds of SPLIT_VARIANTS")
     args = ap.parse_args(argv)
-    rows = run_all(seed=args.seed, repeats=args.repeats)
     card = describe_card()
+    if args.split:
+        rows = split(Path(__file__).resolve().parents[2], args.seed)
+        for r in rows:
+            print(json.dumps({**r, "card": card}), flush=True)
+        return rows
+    rows = run_all(seed=args.seed, repeats=args.repeats)
     for r in rows:
         print(f"{r['wrapper']} {r['name']}: {r['ms']:.6f} ms -> {r['gbps']:.1f} GB/s, "
               f"{r['tflops']:.2f} TF/s needed, bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "

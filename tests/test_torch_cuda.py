@@ -1141,19 +1141,25 @@ def test_mosaic_ops_refuses_what_it_cannot_take(cuda):
         launch("probe_mosaic_ops", args, v.device)
 
 
-@pytest.mark.parametrize("shape", [(32, 64, 256), (32, 32, 40)], ids=["full", "ragged"])
+@pytest.mark.parametrize("shape,batch", [((32, 64, 256), None), ((32, 32, 40), None),
+                                         ((32, 16, 64), None), ((32, 32, 56), 3)],
+                         ids=["full", "ragged", "one_row_tile", "ragged_b3"])
 @pytest.mark.parametrize("index", range(11))
-def test_wholenet_bisect_matches_plain(cuda, shape, index):
+def test_wholenet_bisect_matches_plain(cuda, shape, batch, index):
     """Each of K8k-K8n's 11 cases against its plain version, one launch
-    each, at the JAX files' shapes and at H=32, W=40 (two row tiles, three
-    column tiles, the last of 8 columns): every output equal on the exact
-    draws, the pred flow within ``wholenet_bisect.tolerance``. The outputs'
-    memory held NaN before the call: the kernel writes every element, the
-    zero border rows of o0 and o1 too."""
+    each, at the JAX files' shapes; at H=32, W=40 (two row tiles; the
+    chain's last column tile of 8 columns); at H=16 (one row tile, which
+    writes both border rows); and at H=32, W=56 with B=3 for every case (a
+    W that is a multiple of 8 but not of the chain's 16-column tile): every
+    output equal on the exact draws, the pred flow within
+    ``wholenet_bisect.tolerance``, the launch's grid, threads and shared
+    bytes those of ``launch_layout``. The outputs' memory held NaN before
+    the call: the kernel writes every element, the zero border rows of o0
+    and o1 too."""
     from evflow_torch.probes import wholenet_bisect as M
     from evflow_torch.probes._harness import compare
 
-    case = M.probe_cases(cuda, seed=index, shape=shape)[index]
+    case = M.probe_cases(cuda, seed=index, shape=shape, batch=batch)[index]
     body = M.body_of(case)
     refs = M.outputs(case, case.plain(*case.args, **case.kwargs))
     junk = [torch.full_like(t, float("nan")) for t in refs.values()]
@@ -1161,8 +1167,9 @@ def test_wholenet_bisect_matches_plain(cuda, shape, index):
     before = case.fn.launches
     outs = M.outputs(case, case.fn(*case.args, **case.kwargs))
     assert case.fn.launches == before + 1
-    b = 1 if body in ("kA", "kB") else 2
-    assert M.last_launch["grid"] == -(-shape[2] // 16) * (shape[1] // 16) * b
+    b = batch or (1 if body in ("kA", "kB") else 2)
+    lay = M.launch_layout(body, b, shape[1], shape[2])
+    assert M.last_launch == {k: lay[k] for k in ("grid", "threads", "smem")}
     torch.cuda.synchronize()
     assert list(outs) == list(refs)
     for name, out in outs.items():
@@ -1172,9 +1179,10 @@ def test_wholenet_bisect_matches_plain(cuda, shape, index):
 
 
 def test_wholenet_bisect_refuses_what_it_cannot_take(cuda):
-    """C other than the kernel's 32, an operand 2 bytes past a 16-byte
-    boundary and operands on two devices are refused before any launch; the
-    entry point itself refuses H not a multiple of 16. The port's K3 runs
+    """C other than the kernel's 32, W not a multiple of 8, an operand 2
+    bytes past a 16-byte boundary and operands on two devices are refused
+    before any launch; the entry point itself refuses H not a multiple of
+    16. The port's K3 runs
     ``probe_wholenet_bisect4.py``'s Cin = 32 (two feedforward units), held
     against its plain version, and refuses Cin = 33 before any launch."""
     from evflow_torch.ops.fused_net import WholeNetWeights
@@ -1185,6 +1193,9 @@ def test_wholenet_bisect_refuses_what_it_cannot_take(cuda):
     before = [fn.launches for fn in M.WRAPPERS]
     with pytest.raises(ValueError, match="C=32"):
         M.bisect_a(*M.draw_operands(rng, "kA", 1, 16, 16, 16, device=cuda))
+    for body, fn in (("kA", M.bisect_a), ("kB", M.bisect_b), ("two_where", M.bisect6)):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fn(*M.draw_operands(rng, body, 1, 32, 16, 36, device=cuda))
     x, w, p = M.draw_operands(rng, "kA", 1, 32, 16, 16, device=cuda)
     shifted = torch.zeros(w.numel() + 1, device=cuda, dtype=w.dtype)[1:].view(w.shape)
     with pytest.raises(ValueError, match="aligned"):

@@ -253,3 +253,133 @@ def test_module_imports_neither_jax_nor_the_reference():
         assert not imports.search(path.read_text()), path
     assert "probe_wholenet_bisect" in cuda_build.SOURCES
     assert (cuda_build.CSRC_DIR / "probe_wholenet_bisect.cu").exists()
+
+
+# --- the launch's layout (``launch_layout``, ``Stack`` and ``Chain`` in the source) ----
+
+CSRC = ROOT / "evflow_torch" / "csrc" / "probe_wholenet_bisect.cu"
+
+
+@pytest.mark.parametrize("body", list(M.BODIES), ids=lambda b: b.replace(" + ", "-"))
+def test_launch_layout_fits_a_cta(body):
+    """Every body's launch fits one CTA: its shared bytes within 232,448,
+    its threads within 17 warps, its largest layer's m16 fragments within
+    the fragments a warp it compiles times its compute warps; at the files'
+    shapes kA and kB take 128 CTAs of 8 x 16 pixels (256 and 512 threads),
+    the chain 128 of 16 x 16 (512 and a warp that issues the copies)."""
+    b = M.B_K8K if body in ("kA", "kB") else M.B_CHAIN
+    lay = M.launch_layout(body, b, M.H, M.W)
+    assert lay["smem"] <= 232448 and lay["threads"] <= 544
+    warps = lay["threads"] // 32 - (body not in ("kA", "kB"))  # the chain's compute warps
+    assert lay["frags"] <= lay["fpw"] * warps
+    assert lay["fpw"] <= (3 if body == "kB" else 2)
+    expect = {"kA": (128, 256, 64256, 1), "kB": (128, 512, 126336, 3)}.get(
+        body, (128, 544, 213120, 2))
+    assert (lay["grid"], lay["threads"], lay["smem"], lay["fpw"]) == expect
+
+
+def test_launch_layout_takes_the_domain():
+    """Every (B, H, W) with B in 1..3, H a multiple of 16 up to 256 and W a
+    multiple of 8 up to 1,024 is taken by every body, with the grid of its
+    tiles (kA, kB: W/8 x H/16 x B; the chain: ceil(W/16) x H/16 x B); H not
+    a multiple of 16, W not a multiple of 8 (36, 1,020) and B = 0 are
+    refused."""
+    taken = 0
+    for body in M.BODIES:
+        stack = body in ("kA", "kB")
+        for b in (1, 2, 3):
+            for h in range(16, 257, 16):
+                for w in range(8, 1025, 8):
+                    lay = M.launch_layout(body, b, h, w)
+                    tiles = w // 8 if stack else -(-w // 16)
+                    assert lay is not None and lay["grid"] == tiles * (h // 16) * b, (body, b, h, w)
+                    taken += 1
+        for b, h, w in ((1, 64, 36), (1, 64, 1020), (1, 8, 256), (1, 40, 256), (0, 64, 256),
+                        (1, 0, 256), (1, 64, 0)):
+            assert M.launch_layout(body, b, h, w) is None, (body, b, h, w)
+    assert taken == 11 * 3 * 16 * 128
+    with pytest.raises(ValueError, match="no body"):
+        M.launch_layout("kC", 1, 64, 256)
+
+
+def test_layout_mirror_constants_match_the_source():
+    """The mirror's constants are the source's, and the source's layouts
+    have the pieces ``launch_layout`` counts."""
+    src = CSRC.read_text()
+    for name, value in (("STACK_TW", M.STACK_TW), ("CHAIN_TW", M.CHAIN_TW),
+                        ("CHAIN_WARPS", M.CHAIN_WARPS), ("KB_WARPS", M.KB_WARPS),
+                        ("SMEM_LIMIT", M.SMEM_LIMIT), ("TH", M.TH), ("KB_LAYERS", M.KB_LAYERS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value, name
+    assert "constexpr int E = TH + 16;" in src and M.E == M.TH + 16
+    assert (M.SPITCH, M.WPITCH, M.PBYTES, M.PWBYTES) == (40, 296, 384, 128)
+    assert (M.W_BLOCK, M.W_BLOCKS) == (4096, 5)
+    for piece in ("constexpr int WPITCH = 9 * C + PAD;", "constexpr int W_BLOCK = C * 128;",
+                  "constexpr int W_BLOCKS = (9 * C + 63) / 64;",
+                  "constexpr int plane(int bytes) { return up128(bytes) + 16; }"):
+        assert piece in src, piece
+    stack = re.search(r"struct Stack \{.*?\n\};", src, re.S).group(0)
+    for piece in ("HALO = (NL + 7) / 8 * 8;", "HR = TH + 2 * NL;", "HC = TW + 2 * NL;",
+                  "BX = TW + 2 * HALO;", "WARPS = NL == 1 ? 8 : KB_WARPS;",
+                  "QUADS = ((HR - 2) * (HC - 2) + 63) / 64;",
+                  "MAXQ = (QUADS + WARPS / 4 - 1) / (WARPS / 4);", "BUF = HR * HC * SPITCH * 2;",
+                  "XPL = plane(HR * BX * 2);", "OPL = plane(TH * TW * 4);",
+                  "OFF_BAR = W_BLOCKS * W_BLOCK;", "OFF_B0 = OFF_BAR + 128;",
+                  "OFF_B1 = OFF_B0 + up128(BUF);",
+                  "SMEM = OFF_B1 + up128(max3(NL > 1 ? BUF : 0, C * XPL, C * OPL));"):
+        assert piece in stack, piece
+    chain = re.search(r"struct Chain \{.*?\n\};", src, re.S).group(0)
+    for piece in ("XR = TH + 4, XC = TW + 4, XB = TW + 16;", "U1 = TH + 2;",
+                  "M0B = TW + 24, M0R = U1 + 1;", "M1B = TW + 8, M1R = TH + 1;",
+                  "WARPS = CHAIN_WARPS;", "MAXF = ((U1 * U1 + 15) / 16 + WARPS - 1) / WARPS;",
+                  "XPL = plane(XR * XB * 2);", "M0PL = M0R * M0B * 2;",
+                  "M1PL = M1R * M1B * 2;", "O0PL = TH * TW * 2;", "OPL = plane(TH * TW * 2);",
+                  "FPL = plane(TH * TW * 4);", "XT = XR * XC * SPITCH * 2;",
+                  "S1 = U1 * U1 * SPITCH * 2;", "OFF_W0 = 128;",
+                  "OFF_W1 = OFF_W0 + up128(C * WPITCH * 2);",
+                  "OFF_P = OFF_W1 + up128(C * WPITCH * 2);",
+                  "OFF_X = OFF_P + up128(2 * PBYTES + PWBYTES);",
+                  "OFF_XT = OFF_X + up128(max3(C * XPL, C * O0PL + C * OPL, 0));",
+                  "OFF_M0 = OFF_XT + up128(XT);",
+                  "OFF_M1 = OFF_M0 + up128(max3(C * M0PL, C * FPL, 0));",
+                  "OFF_S1 = OFF_M1 + up128(C * M1PL);", "SMEM = OFF_S1 + up128(S1);"):
+        assert piece in chain, piece
+    assert "dim3(a.W / G::TW, a.H / TH, a.B)" in src
+    assert "dim3((a.W + G::TW - 1) / G::TW, a.H / TH, a.B)" in src
+    assert "a.W < 8 ||\n      a.W % 8 != 0" in src
+
+
+def test_split_variants_have_their_hooks(tmp_path):
+    """Each variant of ``wholenet_bisect --split`` takes out a part that the
+    source declares and tests (``keeps(BI_CUT_<part>)``); a source without
+    those hooks (as before this design) is refused for every variant but
+    the full one."""
+    assert M.split_missing(ROOT) == []
+    src = CSRC.read_text()
+    parts = [flags[0][len("-DBI_CUT="):] for flags in M.SPLIT_VARIANTS.values() if flags]
+    assert all(flags[0].startswith("-DBI_CUT=") for flags in M.SPLIT_VARIANTS.values() if flags)
+    for part in parts:
+        assert f"keeps({part})" in src and f"  {part}," in src
+    declared = re.findall(r"^  (BI_CUT_\w+),", src, re.M)
+    assert sorted(declared[1:]) == sorted(parts)
+    csrc = tmp_path / "evflow_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "probe_wholenet_bisect.cu").write_text("// no hooks\n")
+    assert M.split_missing(tmp_path) == [v for v in M.SPLIT_VARIANTS if v != "full"]
+
+
+def test_instantiations_are_gated():
+    """Every ``stack_kernel<NL>`` and ``chain_kernel<LIF, PRM, FLOW, OUT_SPK,
+    SCRATCH>`` the entry point can launch is in ``chip_smoke.REDESIGNED``,
+    whose ptxas gate fails on a missing one, a stack frame or spills."""
+    import chip_smoke
+
+    src = CSRC.read_text()
+    values = {"SIMPLE": 0, "REAL": 1, "ONE_WHERE": 2, "TWO_WHERE": 3, "NO_PARAMS": 0, "HALF": 1,
+              "PER_CHANNEL": 2, "ALL_CHANNELS": 0, "TWO_CHANNELS": 1, "PRED": 2, "true": 1,
+              "false": 0}
+    chains = re.findall(r"launch_chain<(\w+), (\w+), (\w+), (\w+), (\w+)>\(\*a, s\)", src)
+    names = {"chain_kernel<" + ",".join(str(values[v]) for v in t) + ">" for t in chains}
+    assert len(chains) == len(names) == len(M.VARIANTS)
+    assert re.findall(r"launch_stack<(\w+)>\(\*a, s\)", src) == ["1", "KB_LAYERS"]
+    names |= {"stack_kernel<1>", f"stack_kernel<{M.KB_LAYERS}>"}
+    assert set(chip_smoke.REDESIGNED["probe_wholenet_bisect"]) == names
