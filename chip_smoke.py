@@ -33,11 +33,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
    unfused port FireNet with bf16 convs (|dflow| > 0.05 on < 2% of the
    pixels, head spike agreement > 0.999, every unit > 0.95; layouts within
    1e-5), and every unit's spike rate within 0.1%..60%.
-4. ``protocol``: ``evaluate(config, fused=True)`` with the settings of
-   ``configs/eval_MVSEC.yml`` on a 2-sequence synthetic 256x256 dataset,
-   past a rollover, once per layout; each run sets the launch counters to 0
-   just before and reads them just after (7 launches per window). AEE per
-   file within 2% of ``evaluate(fused=False)`` (f32 convs).
+4. ``protocol``: the evaluation protocol with the settings of
+   ``configs/eval_MVSEC.yml`` (32 channels, cnt, 256x256 pooled to 128x128,
+   B=1, seeded weights) on 2 synthetic sequences of 80 windows, in five
+   modes: per window, ``chunk=8`` (one CUDA graph replay a chunk) and
+   ``chunk=8`` with ``device_metrics``, each fused in both layouts, and the
+   unfused per-window path. Each mode runs over the whole set for windows/s
+   and launches (counters 0 just before, read just after: 7 a window), then
+   over its first 64 windows for the host split of a window (each part
+   between syncs: waiting on the prefetcher, encode+upload, enqueue, device
+   ms by CUDA events, metric sync plus host math, and the first chunk's
+   eager run and capture); the device's idle share is 1 - the split's
+   device ms a window over the first run's wall ms a window.
+   Chunked results within 1e-6 of per-window, device metrics within 1e-5
+   of the host's, every fused AEE within 2% of the unfused (f32 convs).
+   Then ``python3 -m evflow_torch.eval_flow`` in a subprocess on a seeded
+   ``.pth`` with ``--fused --chunk 8 --device_metrics``: its
+   ``metrics_0.yml`` equal to the in-process results.
 5. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
    256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
    and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
@@ -289,15 +301,15 @@ def eval_config(root):
 
 
 def dataset(state):
-    """The phase-3/4 dataset: 2 synthetic sequences of 10 windows at 256x256,
-    written once per run into a temporary directory (as numpy archives: the
-    GPU host need not have h5py)."""
+    """The phase-3/4 dataset: 2 synthetic sequences of 80 windows at
+    256x256 (20 chunks of 8), written once per run into a temporary
+    directory (as numpy archives: the GPU host need not have h5py)."""
     if "root" not in state:
         from evflow_torch.data.synthetic import make_dataset
 
         state["tmp"] = tempfile.TemporaryDirectory(prefix="evflow_smoke_")
         state["root"] = state["tmp"].name
-        make_dataset(state["root"], num_sequences=2, seed=0, duration=1.0,
+        make_dataset(state["root"], num_sequences=2, seed=0, duration=8.0,
                      resolution=(256, 256), events_per_sec=50_000, fmt="npz")
     return state["root"]
 
@@ -479,48 +491,138 @@ def phase_model(state):
                          "is silent or saturated")
 
 
-def phase_protocol(state):
-    import numpy as np
+SPLIT_WINDOWS = 64  # windows of a host-split run: 8 chunks of 8
+PROTOCOL_MODES = (  # name, evaluate's keywords: fused runs in both layouts, then unfused
+    ("window", dict()),
+    ("chunk8", dict(chunk=8)),
+    ("chunk8_dm", dict(chunk=8, device_metrics=True)),
+)
 
+
+def protocol_run(cfg, model, wrappers, **kw):
+    """One evaluate run with the launch counters set to 0 just before and
+    read just after, then the first SPLIT_WINDOWS windows again with the
+    host split measured (a sync between the parts); returns (results,
+    record)."""
     from evflow_torch.eval import evaluate
+
+    for w in wrappers.values():
+        w.launches = 0
+    stats = {}
+    results = evaluate(cfg, model=model, debug=True, stats=stats, **kw)
+    launches = {kn: w.launches for kn, w in wrappers.items()}
+    split = {"split": True}
+    evaluate(cfg, model=model, debug=True, stats=split, max_windows=SPLIT_WINDOWS, **kw)
+    wall_ms = 1e3 * stats["seconds"]
+    dev = split["split_ms"]["device"]
+    rec = {"windows": stats["windows"], "seconds": stats["seconds"],
+           "windows_per_s": stats["windows"] / stats["seconds"],
+           "ms_per_window": wall_ms / stats["windows"],
+           "split_windows": split["windows"], "split_ms_per_window": split["split_ms"],
+           "split_slow_enqueues": split["slow_enqueues"],
+           "device_idle_share": 1.0 - dev * stats["windows"] / wall_ms,
+           "launches": launches,
+           "launches_per_window": {kn: n / stats["windows"] for kn, n in launches.items()}}
+    return results, rec
+
+
+def phase_protocol(state):
+    """The evaluation protocol as users run it (configs/eval_MVSEC.yml's
+    settings, seeded weights, 2 sequences of 80 windows): per window,
+    chunks of 8 as CUDA graph replays, and chunks of 8 with the metrics on
+    the device, in both layouts, and the unfused per-window path; then the
+    eval CLI in a subprocess."""
+    import numpy as np
 
     cfg = eval_config(dataset(state))
     model = seeded_firenet()
     wrappers = {kn: kernel_fns(lay)[0] for kn, lay, _, _ in KERNELS}
-    results = {}
-    launches = {}
+    name = card()
+    from evflow_torch.eval import evaluate
+
+    for _, layout, _, _ in KERNELS:  # loads the kernels and cuBLAS: not measured
+        evaluate(cfg, model=model, fused=True, layout=layout, debug=True, max_windows=2)
+    results, launches = {}, {}
+    fails = []
     for kname, layout, _, _ in KERNELS:
-        # the counters of this path: 0 just before, read just after
-        for w in wrappers.values():
-            w.launches = 0
-        stats = {}
-        results[layout] = evaluate(cfg, model=model, fused=True, layout=layout, stats=stats)
-        counts = {kn: w.launches for kn, w in wrappers.items()}
-        launches[kname] = counts[kname]
-        ok = (counts[kname] == 7 * stats["windows"] and stats["windows"] > 0
-              and sum(counts.values()) == counts[kname])
-        emit({"phase": "protocol", "fused": True, "layout": layout,
-              "windows": stats["windows"], "seconds": stats["seconds"],
-              "launches": counts, "metrics": results[layout], "ok": ok})
-        if not ok:
-            raise SystemExit(f"evaluate(fused=True, layout={layout!r}) launched "
-                             f"{counts} for {stats['windows']} windows")
-    stats = {}
-    results["unfused"] = evaluate(cfg, model=model, fused=False, stats=stats)
-    emit({"phase": "protocol", "fused": False, "windows": stats["windows"],
-          "seconds": stats["seconds"], "metrics": results["unfused"]})
+        for mode, kw in PROTOCOL_MODES:
+            res, rec = protocol_run(cfg, model, wrappers, fused=True, layout=layout, **kw)
+            results[(layout, mode)] = res
+            counts = rec["launches"]
+            ok = (counts[kname] == 7 * rec["windows"] and rec["windows"] >= 160
+                  and sum(counts.values()) == counts[kname])
+            if mode == "chunk8_dm":
+                launches[kname] = counts[kname]
+            emit({"phase": "protocol", "fused": True, "layout": layout, "mode": mode, **kw,
+                  **rec, "metrics": res, "card": name, "ok": ok})
+            if not ok:
+                fails.append(f"{layout} {mode}: {counts} launches for {rec['windows']} windows")
+    res, rec = protocol_run(cfg, model, wrappers, fused=False)
+    results["unfused"] = res
+    emit({"phase": "protocol", "fused": False, "mode": "window", **rec, "metrics": res,
+          "card": name})
+
+    def rel_diff(a, b):
+        return max(abs(float(a[m][f]) / float(v) - 1.0) if float(v) else abs(float(a[m][f]))
+                   for m, per_file in b.items() for f, v in per_file.items())
+
     ref = results["unfused"]["AEE"]
-    rel = {layout: {f: abs(float(results[layout]["AEE"][f]) / float(v) - 1.0)
-                    for f, v in ref.items()}
-           for layout in ("nhwc", "cmajor")}
+    checks = {}
+    for _, layout, _, _ in KERNELS:
+        base = results[(layout, "window")]
+        checks[f"{layout}_chunk8_vs_window"] = rel_diff(results[(layout, "chunk8")], base)
+        checks[f"{layout}_dm_vs_window"] = rel_diff(results[(layout, "chunk8_dm")], base)
+        for mode, _ in PROTOCOL_MODES:
+            checks[f"{layout}_{mode}_aee_vs_unfused"] = rel_diff(
+                {"AEE": results[(layout, mode)]["AEE"]}, {"AEE": ref})
     values = [float(v) for r in results.values() for m in r.values() for v in m.values()]
-    ok = (len(ref) == 2 and all(set(results[lay]["AEE"]) == set(ref) for lay in rel)
-          and max(max(d.values()) for d in rel.values()) <= 0.02
-          and bool(np.isfinite(values).all()))
-    emit({"phase": "protocol", "aee_rel_diff_fused_vs_unfused": rel, "ok": ok})
+    ok = (len(ref) == 2 and bool(np.isfinite(values).all())
+          and all(set(r) == set(results["unfused"]) for r in results.values())
+          and all(v <= (1e-6 if k.endswith("chunk8_vs_window") else
+                        1e-5 if k.endswith("dm_vs_window") else 0.02)
+                  for k, v in checks.items()))
+    emit({"phase": "protocol", "rel_diffs": checks, "ok": ok})
     if not ok:
-        raise SystemExit("the fused protocol's AEE is not within 2% of the unfused one")
+        fails.append("chunked results beyond 1e-6 of per-window, device metrics beyond 1e-5 "
+                     "of the host's, or a fused AEE beyond 2% of the unfused one")
+    cli = protocol_cli(cfg, model, results[("nhwc", "chunk8_dm")])
+    if not cli:
+        fails.append("the eval CLI's metrics_0.yml differs from the in-process results")
+    if fails:
+        raise SystemExit("; ".join(fails))
     state["launches"] = launches
+
+
+def protocol_cli(cfg, model, expected) -> bool:
+    """``python3 -m evflow_torch.eval_flow <seeded .pth> --fused --chunk 8
+    --device_metrics`` in a subprocess, on the phase's config written as
+    YAML; its metrics_0.yml against the in-process results."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    import torch
+    import yaml
+
+    with tempfile.TemporaryDirectory(prefix="evflow_cli_") as d:
+        ckpt, cfg_path, out = Path(d) / "seeded.pth", Path(d) / "eval.yml", Path(d) / "results"
+        torch.save(model.state_dict(), ckpt)
+        cfg_path.write_text(yaml.safe_dump(cfg))
+        cmd = [sys.executable, "-m", "evflow_torch.eval_flow", str(ckpt), "--config",
+               str(cfg_path), "--fused", "--chunk", "8", "--device_metrics",
+               "--path_results", str(out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        metrics_file = out / "seeded.pth" / "metrics_0.yml"
+        got = yaml.safe_load(metrics_file.read_text()) if metrics_file.exists() else {}
+    runid = got.pop("runid", None)
+    ok = proc.returncode == 0 and runid == "seeded.pth" and got == expected
+    emit({"phase": "protocol", "cli": " ".join(["python3", *cmd[1:]]), "rc": proc.returncode,
+          "seconds": seconds, "metrics_0": got, "equal_to_in_process": got == expected,
+          "stderr_tail": proc.stderr[-2000:] if proc.returncode else "", "ok": ok})
+    return ok
 
 
 def phase_times(state):

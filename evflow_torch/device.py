@@ -22,15 +22,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     """``device`` as a ``torch.device``; ``None`` means the GPU.
 
     Entry points run on ``cuda`` unless the caller asks for another device
-    (the tests pass ``"cpu"``). Without CUDA and without an explicit device
-    this raises instead of silently running on the CPU.
+    (the tests pass ``"cpu"``). Without CUDA, a CUDA device (the default or
+    one asked for) raises instead of silently running on the CPU.
     """
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return dev
 
 
 def describe_card() -> str:

@@ -1,5 +1,4 @@
-"""Ground-truth evaluation loop (port of the per-window host-metric path of
-``evflow/eval.py::evaluate``).
+"""Ground-truth evaluation loop (port of ``evflow/eval.py::evaluate``).
 
 Protocol, as in the reference package:
 
@@ -11,28 +10,53 @@ Protocol, as in the reference package:
   scaling becomes ``base * (model_res / 128) / 2``;
 * the AEE cadence: a slot advances its counter only on windows with
   ``dt_gt > 0`` and is scored every ``round(1 / window)`` such windows;
-* results accumulate per HDF5 file (value and outlier percent).
+* results accumulate per sequence file (value and outlier percent) and,
+  unless ``debug``, go to ``<path_results>/<runid>/metrics_N.yml`` beside
+  the config as ``eval_N.yml`` (and the heat maps, with
+  ``metrics.heat_map``).
 
-Counts cross to the device as uint8 (uint16 past 255) when they are exact
-integers (no downsampling), and become f32 there. The chunked dispatch,
-on-device metrics, visualisation, activity logs and results files of the
-reference loop come with later slices.
+Dispatch. Counts cross to the device as uint8 (uint16 past 255, sticky)
+when they are exact integers (no downsampling), and become f32 there.
+``chunk=1`` runs one step a window and fetches its flow; the host metric
+protocol runs on the CPU over the fetched flows. ``chunk=K`` runs K
+windows as one dispatch (``evflow_torch.chunk.ChunkProgram``: one CUDA
+graph replay on the card) and fetches the K flows in one copy.
+``device_metrics`` also computes every metric's ``[K, B]`` values and the
+heat-map sums inside that dispatch, and fetches only the values, one chunk
+behind (depth-1 pipelining). Chunks flush at sequence rollovers, at the end
+of the data and at ``max_windows``; a partial chunk runs the per-window
+program, and ``max_windows`` may be overshot by up to ``chunk - 1``
+windows. Visualisation and activity logs (``vis.*``) are not ported yet
+and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from evflow_torch import registry
+from evflow_torch.chunk import ChunkProgram
 from evflow_torch.data.h5_stream import H5EventStream, Prefetcher
 from evflow_torch.device import resolve_device
+from evflow_torch.loss import metrics as M
 from evflow_torch.ops.iwe import upsample_flow
 
-__all__ = ["evaluate", "reset_slot_states"]
+__all__ = ["evaluate", "reset_slot_states", "SPLIT_PARTS"]
+
+# the parts of a window's time that ``stats={"split": True}`` measures:
+# "capture" is the host time of the dispatches that run a chunk program's
+# first chunk eagerly and capture it (their device time is not counted)
+SPLIT_PARTS = ("prefetch", "encode_upload", "enqueue", "device", "metrics", "capture")
+_HEATMAP_METRICS = ("AEE", "AAE", "NAAE")
+# the card sleeps this many cycles before a timed dispatch, so that the
+# events time its work back to back (~10 ms at the H100's 1.98 GHz)
+_SLEEP_CYCLES = 20_000_000
 
 
 def reset_slot_states(states, state_model, flags, batch: int, height: int, width: int):
@@ -47,27 +71,144 @@ def reset_slot_states(states, state_model, flags, batch: int, height: int, width
                  for old, new in zip(states, fresh))
 
 
+def _window_metric_values(criteria, names, flow, gtflow, event_mask, dt_gt, dt_input,
+                         want_heatmaps: bool):
+    """Every metric of one window on the tensors' device, with no sync:
+    the value rows (``[B]`` each: a metric's value, then its percent where
+    it has one) and, for AEE, AAE and NAAE with ``want_heatmaps``, the
+    batch-summed ``(error * mask, mask)`` maps, gated as the host protocol
+    gates its criterion calls (AEE only on a window where a slot has
+    ``dt_gt > 0``: exact at cadence 1)."""
+    rows, hmaps = [], []
+    for name, crit in zip(names, criteria):
+        args = (flow, gtflow, event_mask, dt_gt, dt_input, crit.flow_scaling)
+        hm = None
+        if name == "AEE":
+            v, p, err, mask = M.aee(*args)
+            rows += [v, p]
+            hm = (err, mask, (dt_gt > 0.0).any())
+        elif name == "NEE":
+            rows += list(M.nee(*args)[:2])
+        elif name == "AAE":
+            v, p, err, mask = M.aae(*args, crit.strict)
+            rows += [v, p]
+            hm = (err, mask, None)
+        elif name == "NAAE":
+            v, err, mask = M.naae(*args)
+            rows.append(v)
+            hm = (err, mask, None)
+        elif name == "AE_ofMeans":
+            rows.append(M.ae_of_means(*args))
+        elif name == "AAE_Weighted":
+            rows.append(M.aae_weighted(*args))
+        elif name == "AAE_Filtered":
+            rows.append(M.aae_filtered(*args, crit.mag_threshold))
+        else:  # the registry holds the set above; fail loudly if it grows
+            raise NotImplementedError(f"device metric {name!r}")
+        if want_heatmaps and hm is not None:
+            err, mask, gate = hm
+            e, c = (err * mask).sum(dim=0), mask.sum(dim=0)
+            if gate is not None:
+                g = gate.to(e.dtype)
+                e, c = e * g, c * g
+            hmaps += [e, c]
+    return rows, hmaps
+
+
+class _Split:
+    """Per-part host time of the loop (``SPLIT_PARTS``), each part between
+    two syncs of the device, and the device time of each dispatch by CUDA
+    events with the card asleep while the host enqueues. Off, every part is
+    a no-op."""
+
+    def __init__(self, device: torch.device, on: bool):
+        self.on = on
+        self.cuda = device.type == "cuda"
+        self.ms = {p: 0.0 for p in SPLIT_PARTS}
+        self.slow = 0  # dispatches whose enqueue took over 5 ms
+
+    def _sync(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        if not self.on:
+            yield
+            return
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.ms[name] += 1e3 * (time.perf_counter() - t0)
+
+    @contextlib.contextmanager
+    def dispatch(self, program: Optional[ChunkProgram] = None):
+        if not self.on:
+            yield
+            return
+        self._sync()
+        if self.cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(_SLEEP_CYCLES)
+            start.record()
+        t0 = time.perf_counter()
+        yield
+        host = 1e3 * (time.perf_counter() - t0)
+        if self.cuda:
+            end.record()
+            self._sync()
+        if program is not None and program.captured:
+            self.ms["capture"] += host
+            return
+        self.ms["enqueue"] += host
+        if self.cuda:
+            self.ms["device"] += start.elapsed_time(end)
+            self.slow += host > 5.0
+
+
+def _widen(x: torch.Tensor) -> torch.Tensor:
+    """The wire's counts as f32: uint16 counts cross as int16 bits (torch
+    has no uint16 arithmetic)."""
+    if x.dtype == torch.int16:
+        return (x.to(torch.int32) & 0xFFFF).float()
+    return x.float()
+
+
 @torch.no_grad()
 def evaluate(
     config: Dict[str, Any],
+    checkpoint: Optional[str] = None,
     variables: Optional[Dict[str, Any]] = None,
     model=None,
     fused: bool = False,
     layout: str = "nhwc",
     device: Optional[Union[str, torch.device]] = None,
+    path_results: str = "results_inference",
+    runid: str = "eval",
+    debug: bool = False,
     max_windows: Optional[int] = None,
+    chunk: int = 1,
+    device_metrics: bool = False,
     stats: Optional[Dict[str, Any]] = None,
 ):
     """Run the evaluation protocol; returns the per-file results dict
     ``{metric: {file: str(value)}, metric + "_percent": {...}}``.
 
-    Weights: ``model`` (a port ``FireNet``, e.g. loaded from a reference
-    ``.pth`` with ``weights.load_checkpoint``), else ``variables`` (flax
-    ``params``/``batch_stats`` as arrays, see ``weights.from_jax_variables``),
-    else the model's own init.
-    ``fused`` runs ``FusedFireNet`` in ``layout`` on the fused kernels.
-    ``device`` defaults to the GPU. ``stats``, if given, receives the
-    number of windows run and the wall seconds of the loop.
+    Weights: ``model`` (a port ``FireNet``), else the config's model; then
+    ``variables`` (flax ``params``/``batch_stats`` as arrays, see
+    ``weights.from_jax_variables``), else ``checkpoint`` (a reference
+    ``.pth``/``.pt``, see ``weights.load_checkpoint``), else the model's own
+    weights. ``fused`` runs ``FusedFireNet`` in ``layout`` on the fused
+    kernels. ``device`` defaults to the GPU. ``chunk`` and
+    ``device_metrics`` as in the module's docstring. ``stats``, if given,
+    receives the windows run and the wall seconds of the loop; with
+    ``stats["split"]`` true the loop syncs between the parts of
+    ``SPLIT_PARTS`` and ``stats["split_ms"]`` receives each part's ms a
+    window of the run (``"device"`` None off the card) and
+    ``stats["slow_enqueues"]`` the dispatches, captures aside, whose
+    enqueue took over 5 ms: their device time may hold the card's wait for
+    the host.
     """
     metrics_cfg = config.get("metrics", {})
     names = metrics_cfg.get("name", [])
@@ -81,15 +222,42 @@ def evaluate(
             raise ValueError("AEE computation not compatible with window > 1")
         if not np.isclose((1.0 / window) % 1.0, 0.0):
             raise ValueError("AEE needs a window whose inverse is an integer")
+    for key in ("enabled", "store", "activity"):
+        if (config.get("vis") or {}).get(key, False):
+            raise NotImplementedError(
+                f"vis.{key} is not ported yet: visualisation and activity logs come with "
+                "the event lists, ROADMAP.md queue 1 item 4")
+    chunk = max(int(chunk), 1)
+    want_heatmaps = bool(metrics_cfg.get("heat_map", False))
+    cadence = int(np.round(1.0 / window)) if window else 1
+    if device_metrics:
+        if chunk <= 1:
+            raise ValueError("device_metrics needs chunk > 1 (per-window "
+                             "dispatch is host-driven)")
+        if not names:
+            raise ValueError("device_metrics without metrics does nothing — "
+                             "drop the flag or configure metrics.name")
+        if want_heatmaps and cadence != 1:
+            raise ValueError("device_metrics with metrics.heat_map needs "
+                             "window == 1 (the AEE criterion-call gate is "
+                             "evaluated in-graph)")
+    if checkpoint and variables is None and not checkpoint.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"checkpoint {checkpoint!r}: only reference .pth/.pt files are read; evflow "
+            "msgpack checkpoints come with ROADMAP.md queue 1 item 6")
 
     device = resolve_device(device)
     model_cfg = config["model"]
     if model is None:
         model = registry.build_model(model_cfg, device=device)
-        if variables is not None:
-            from evflow_torch.weights import from_jax_variables
+    if variables is not None:
+        from evflow_torch.weights import from_jax_variables
 
-            model.load_state_dict(from_jax_variables(variables))
+        model.load_state_dict(from_jax_variables(variables))
+    elif checkpoint:
+        from evflow_torch.weights import load_checkpoint
+
+        model.load_state_dict(load_checkpoint(checkpoint))
     model = model.to(device).eval()
 
     loader = config["loader"]
@@ -103,56 +271,80 @@ def evaluate(
         for c in criteria:
             c.flow_scaling = adjusted
 
+    if not debug:
+        from evflow_torch.utils.tracker import create_model_dir, log_config
+
+        path_results = create_model_dir(path_results, runid)
+        eval_id = log_config(path_results, runid, config)
+
     encoding = model_cfg.get("encoding", "cnt")
+    counted = ()
     if fused:
         from evflow_torch.models.fused import FusedFireNet
+        from evflow_torch.ops.conv_lif import fused_conv_lif
+        from evflow_torch.ops.conv_lif_cmajor import fused_conv_lif_cmajor
 
         net = FusedFireNet.from_firenet(model, layout=layout)
+        counted = (fused_conv_lif, fused_conv_lif_cmajor)
 
-        def step(voxel, cnt, st):
-            return net.step(voxel if encoding == "voxel" else cnt, st)
+        def step(x, st):
+            return net.step(_widen(x), st)
     else:
         net = model
 
-        def step(voxel, cnt, st):
-            out, st2 = model(voxel, cnt, st)
+        def step(x, st):
+            x = _widen(x)
+            out, st2 = model(x, None, st) if encoding == "voxel" else model(None, x, st)
             return out["flow"][-1], st2
     states = net.init_states(B, H, W)
+    n_states = len(states)
 
-    cadence = int(np.round(1.0 / window)) if window else 1
+    def flat(st):
+        return [t for s in st for t in s]
+
+    def unflat(ts):
+        return tuple(type(s)(*ts[2 * i:2 * i + 2]) for i, s in enumerate(states))
+
     idx_aee = np.zeros(B, np.int64)
     std_res = tuple(loader.get("std_resolution", loader["resolution"]))
     compact_wire = tuple(loader["resolution"]) == std_res  # counts not pooled
+    derive_mask = encoding == "cnt" and compact_wire
     wire = {"dtype": np.uint8}
     val_results: Dict[str, Dict[str, Dict[str, float]]] = {}
+    split = _Split(device, bool(stats and stats.get("split")))
+    windows_done = 0
 
-    def upload(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
-
-    def encode_wire(batch):
-        """Host arrays for one window: the encoding the model reads, counts
-        as uint8/uint16 when exact (sticky once widened)."""
+    def encode_wire(batch) -> np.ndarray:
+        """The host array the model reads: voxels, or counts as uint8 /
+        uint16 (as int16 bits) when exact, sticky once widened."""
         if encoding == "voxel":
-            return upload(batch["event_voxel"]), None
+            return np.asarray(batch["event_voxel"], np.float32)
         cnt = batch["event_cnt"]
-        if compact_wire:
-            if wire["dtype"] is np.uint8 and cnt.max() > 255:
-                wire["dtype"] = np.uint16
-            if wire["dtype"] is np.uint16:
-                # torch has no uint16 arithmetic: ship the bits as int16 and
-                # widen on the device
-                bits = upload(cnt.astype(np.uint16).view(np.int16))
-                return None, (bits.to(torch.int32) & 0xFFFF).float()
-            return None, upload(cnt.astype(np.uint8)).float()
-        return None, upload(cnt).float()
+        if not compact_wire:
+            return np.asarray(cnt, np.float32)
+        if wire["dtype"] is np.uint8 and cnt.max() > 255:
+            wire["dtype"] = np.uint16
+        if wire["dtype"] is np.uint16:
+            return cnt.astype(np.uint16).view(np.int16)
+        return cnt.astype(np.uint8)
 
-    def metric_values(i):
-        v = criteria[i]()
-        if isinstance(v, tuple):
-            return tuple(t.cpu().numpy() for t in v)
-        return v.cpu().numpy()
+    scales: Dict[tuple, torch.Tensor] = {}
 
-    def accumulate(batch):
+    def full_res(flow, gh, gw):
+        """The flow nearest-upsampled to the GT's resolution and scaled by
+        the factor (x, y); the factor's tensor is made once a device, as a
+        graph capture cannot copy it up."""
+        ph, pw = flow.shape[1:3]
+        if gh <= ph and gw <= pw:
+            return flow
+        key = (flow.device, gh, gw, ph, pw)
+        if key not in scales:
+            scales[key] = torch.tensor([gw / pw, gh / ph], device=flow.device)
+        return upsample_flow(flow, gh, gw) * scales[key]
+
+    def accumulate_metrics(batch, value_of, post=None):
+        """The cadence and per-file bookkeeping, shared by the host and the
+        device metric paths."""
         dt_gt = np.asarray(batch["dt_gt"], np.float64).reshape(-1)
         for i, mname in enumerate(names):
             if mname == "AEE":
@@ -162,7 +354,7 @@ def evaluate(
                     continue
             else:
                 due = np.ones(B, np.bool_)
-            val = metric_values(i)
+            val = value_of(i)
             if mname == "AEE":
                 idx_aee[due] = 0
             for b in np.flatnonzero(due):
@@ -174,47 +366,196 @@ def evaluate(
                     entry["percent"] += float(val[1][b])
                 else:
                     entry["metric"] += float(val[b])
-            criteria[i].reset()
+            if post is not None:
+                post(i)
 
-    windows_done = 0
+    def host_value(i):
+        v = criteria[i]()
+        return tuple(t.numpy() for t in v) if isinstance(v, tuple) else v.numpy()
+
+    def process_window(batch, flow: torch.Tensor):
+        """The host protocol of one window over its fetched flow (a CPU
+        tensor): upsampling, association, cadence and accumulation."""
+        nonlocal windows_done
+        if names:
+            if keep_gt_full_res and "gtflow" in batch:
+                flow = full_res(flow, *batch["gtflow"].shape[1:3])
+            # contiguous: the GT arrives channel-planar, and strided
+            # elementwise math costs the CPU several times more
+            inputs = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
+                      for k in ("gtflow", "event_mask", "dt_gt", "dt_input")}
+            for c in criteria:
+                c.event_flow_association([flow], inputs)
+            accumulate_metrics(batch, host_value, post=lambda i: criteria[i].reset())
+        windows_done += B
+
+    # each metric's first row in the device path's [R, K, B] values
+    first_row = np.cumsum([0] + [1 + c.has_percent for c in criteria])
+
+    def chunk_body(x, carry):
+        st = unflat(carry[:2 * n_states])
+        flows = []
+        for k in range(x["w"].shape[0]):
+            flow, st = step(x["w"][k], st)
+            flows.append(flow)
+        return {"flow": torch.stack(flows)}, flat(st)
+
+    def metrics_body(x, carry):
+        st = unflat(carry[:2 * n_states])
+        hm = list(carry[2 * n_states:])
+        vals = []
+        for k in range(x["w"].shape[0]):
+            wk = x["w"][k]
+            flow, st = step(wk, st)
+            gt = x["gt"][k]
+            mask = (_widen(wk).sum(-1) > 0).to(torch.uint8) if derive_mask else x["m"][k]
+            if keep_gt_full_res:
+                flow = full_res(flow, *gt.shape[1:3])
+            rows, hmaps = _window_metric_values(criteria, names, flow, gt, mask, x["dtg"][k],
+                                               x["dti"][k], want_heatmaps)
+            vals.append(torch.stack(rows))
+            hm = [a + b for a, b in zip(hm, hmaps)]
+        return {"vals": torch.stack(vals, dim=1)}, flat(st) + hm
+
+    program = None
+    if chunk > 1:
+        program = ChunkProgram(metrics_body if device_metrics else chunk_body, device, counted)
+    hm_dev: Optional[List[torch.Tensor]] = None
+    pending: list = []
+    inflight: list = []  # (batches, values on their way to the host, event)
+    fetch_bufs: List[torch.Tensor] = []
+
+    def drain_inflight(keep=0):
+        """Accumulate dispatched device-metric chunks in stream order,
+        leaving at most ``keep`` in flight: with ``keep=1`` the newest
+        chunk computes while the host stages the next."""
+        nonlocal windows_done
+        while len(inflight) > keep:
+            batches, vals, done = inflight.pop(0)
+            with split.part("metrics"):
+                if done is not None:
+                    done.synchronize()
+                v = vals.numpy()
+                for k, b in enumerate(batches):
+                    def value_of(i, _k=k):
+                        r0 = first_row[i]
+                        return tuple(v[r0:r0 + 2, _k]) if criteria[i].has_percent else v[r0, _k]
+
+                    accumulate_metrics(b, value_of)
+            windows_done += B * len(batches)
+
+    def fetch_async(vals: torch.Tensor):
+        """Start the values' copy to the host; returns (host tensor, event)."""
+        if device.type != "cuda":
+            return vals, None
+        # two buffers in turns: a chunk's values are read one chunk on
+        if len(fetch_bufs) < 2:
+            buf = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+        else:
+            buf = fetch_bufs.pop(0)
+        fetch_bufs.append(buf)
+        buf.copy_(vals, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return buf, done
+
+    def run_pending():
+        """Dispatch the buffered windows: one chunk dispatch when there are
+        ``chunk`` of them, the per-window program otherwise."""
+        nonlocal states, hm_dev
+        if not pending:
+            return
+        full = program is not None and len(pending) == chunk
+        if full and device_metrics:
+            with split.part("encode_upload"):
+                inputs = {"w": [encode_wire(p) for p in pending],
+                          "gt": [np.asarray(p["gtflow"], np.float32) for p in pending],
+                          "dtg": [np.asarray(p["dt_gt"], np.float32).reshape(-1)
+                                  for p in pending],
+                          "dti": [np.asarray(p["dt_input"], np.float32).reshape(-1)
+                                  for p in pending]}
+                if not derive_mask:
+                    inputs["m"] = [(np.asarray(p["event_mask"])[..., 0] > 0).astype(np.uint8)
+                                   for p in pending]
+                if hm_dev is None:
+                    # at the metrics' resolution: the GT's (std when
+                    # keep_gt_full_res upsamples, else the model's)
+                    res = inputs["gt"][0].shape[1:3]
+                    n_hm = sum(2 for n in names if n in _HEATMAP_METRICS) if want_heatmaps else 0
+                    hm_dev = [torch.zeros(res, device=device) for _ in range(n_hm)]
+                program.stage(inputs, flat(states) + hm_dev)
+            with split.dispatch(program):
+                out, carry = program.run()
+                vals, done = fetch_async(out["vals"])
+            states, hm_dev = unflat(carry[:2 * n_states]), carry[2 * n_states:]
+            inflight.append((list(pending), vals, done))
+            pending.clear()
+            drain_inflight(keep=1)
+            return
+        # windows processed now must follow the chunks still in flight
+        drain_inflight()
+        if full:
+            with split.part("encode_upload"):
+                program.stage({"w": [encode_wire(p) for p in pending]}, flat(states))
+            with split.dispatch(program):
+                out, carry = program.run()
+            states = unflat(carry)
+            with split.part("metrics"):
+                flows = out["flow"].cpu()  # the chunk's one fetch
+                for k, b in enumerate(pending):
+                    process_window(b, flows[k])
+        else:
+            for b in pending:
+                with split.part("encode_upload"):
+                    x = torch.from_numpy(encode_wire(b)).to(device, non_blocking=True)
+                with split.dispatch():
+                    flow, states = step(x, states)
+                with split.part("metrics"):
+                    process_window(b, flow.cpu())
+        pending.clear()
+
     t0 = time.perf_counter()
     data = H5EventStream(config, model_cfg.get("num_bins", 2),
                          model_cfg.get("round_encoding", False))
     fetch = Prefetcher(data, depth=2)
     try:
         while True:
-            batch = next(fetch)
+            with split.part("prefetch"):
+                batch = next(fetch)
             if batch["epoch_done"]:
+                run_pending()
+                drain_inflight()
                 break
             if batch["new_seq"].any():
+                # flush, so that the carries reset before this window runs
+                # and in-flight chunks accumulate before the cadence resets
+                run_pending()
+                drain_inflight()
                 states = reset_slot_states(states, net, batch["new_seq"], B, H, W)
                 for c in criteria:
                     c.reset(slots=batch["new_seq"])
                 idx_aee[np.asarray(batch["new_seq"])] = 0
-
-            voxel, cnt = encode_wire(batch)
-            flow, states = step(voxel, cnt, states)
-            if keep_gt_full_res and "gtflow" in batch:
-                gh, gw = batch["gtflow"].shape[1:3]
-                ph, pw = flow.shape[1:3]
-                if gh > ph or gw > pw:
-                    scale = torch.tensor([gw / pw, gh / ph], device=device)
-                    flow = upsample_flow(flow, gh, gw) * scale
-            if names:
-                inputs = {k: upload(batch[k]) for k in ("gtflow", "event_mask",
-                                                        "dt_gt", "dt_input")}
-                for c in criteria:
-                    c.event_flow_association([flow], inputs)
-                accumulate(batch)
-
-            windows_done += B
-            if max_windows is not None and windows_done >= max_windows:
-                break
+            pending.append(batch)
+            if len(pending) >= chunk:
+                run_pending()
+            if max_windows is not None:
+                # windows_done lags by the chunk in flight
+                if windows_done + B * sum(len(b) for b, _, _ in inflight) >= max_windows:
+                    drain_inflight()
+                if windows_done >= max_windows:
+                    run_pending()
+                    drain_inflight()
+                    break
     finally:
-        fetch.close()
+        fetch.close()  # join the prefetch thread before closing its files
         data.close()
     if stats is not None:
         stats.update(windows=windows_done, seconds=time.perf_counter() - t0)
+        if split.on:
+            n = max(windows_done, 1)
+            stats["split_ms"] = {p: (None if p == "device" and not split.cuda else v / n)
+                                 for p, v in split.ms.items()}
+            stats["slow_enqueues"] = split.slow
 
     results: Dict[str, Dict[str, str]] = {}
     for i, mname in enumerate(names):
@@ -229,4 +570,26 @@ def evaluate(
             results[mname][fname] = str(v[mname]["metric"] / v[mname]["it"])
             if has_pct:
                 results[mname + "_percent"][fname] = str(v[mname]["percent"] / v[mname]["it"])
+
+    if hm_dev:
+        # fold the device's heat-map sums into the aggregates (partial
+        # chunks accumulated on the host into the same aggregates)
+        it = iter(hm_dev)
+        for i, mname in enumerate(names):
+            if mname in _HEATMAP_METRICS:
+                e, c = next(it), next(it)
+                criteria[i].merge_aggregated(e.cpu().numpy(), c.cpu().numpy())
+
+    if not debug and names:
+        from evflow_torch.utils.tracker import log_results
+
+        log_results(runid, results, path_results, eval_id)
+        if want_heatmaps:
+            heat_dir = os.path.join(path_results, "heatmaps")
+            os.makedirs(heat_dir, exist_ok=True)
+            for i, mname in enumerate(names):
+                if mname in _HEATMAP_METRICS:
+                    criteria[i].save_error_heatmap(
+                        os.path.join(heat_dir, f"{mname}_heatmap.png"),
+                        title=f"Aggregated {mname} Error Distribution")
     return results

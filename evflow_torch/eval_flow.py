@@ -1,0 +1,95 @@
+"""Evaluate a model against ground-truth optical flow (port of the reference
+package's ``eval_flow.py``)::
+
+    python -m evflow_torch.eval_flow model.pth --config configs/eval_MVSEC.yml \\
+        --fused --chunk 8 --device_metrics
+
+The checkpoint is a reference PyTorch ``.pth``. Unless ``--debug``, the
+config and the per-file results go to ``<path_results>/<name of the
+checkpoint file>/eval_N.yml`` and ``metrics_N.yml``. It runs on the GPU
+unless ``--device cpu``. A run id, evflow msgpack checkpoints,
+``--num_devices > 1`` and ``--profile`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Any, Dict, Optional, Sequence
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("checkpoint", help="reference .pth checkpoint")
+    parser.add_argument("--config", default="configs/eval_MVSEC.yml",
+                        help="config file, overwrites training settings")
+    parser.add_argument("--path_runs", default="runs")
+    parser.add_argument("--path_results", default="results_inference/")
+    parser.add_argument("--debug", action="store_true", help="don't save stuff")
+    parser.add_argument("--max_windows", type=int, default=None)
+    parser.add_argument("--fused", action="store_true",
+                        help="run the fused conv+LIF kernels")
+    parser.add_argument("--layout", default="nhwc", choices=("nhwc", "cmajor"),
+                        help="state layout of the fused kernels")
+    parser.add_argument("--num_devices", type=int, default=1)
+    parser.add_argument("--chunk", type=int, default=1,
+                        help="run K windows as one dispatch (one CUDA graph replay)")
+    parser.add_argument("--device_metrics", action="store_true",
+                        help="compute the metrics inside the chunk's dispatch (needs "
+                             "--chunk > 1); only [K, B] values cross to the host")
+    parser.add_argument("--profile", metavar="DIR", default=None)
+    parser.add_argument("--device", default="cuda", help="torch device (cpu for the tests)")
+    return parser.parse_args(argv)
+
+
+def resolve_checkpoint(checkpoint: str, path_runs: str) -> str:
+    """The run id: the checkpoint's file name. Raises for what the port
+    does not read yet: a run id under ``path_runs``, a missing file."""
+    if not os.path.exists(checkpoint):
+        if os.path.isdir(path_runs) and any(
+                os.path.isdir(os.path.join(path_runs, exp, checkpoint))
+                for exp in os.listdir(path_runs)):
+            raise NotImplementedError(
+                f"{checkpoint!r} is a run id under {path_runs}: resolving run ids and "
+                "merging their params comes with ROADMAP.md queue 1 item 6")
+        raise FileNotFoundError(f"no checkpoint file {checkpoint!r}")
+    return os.path.basename(checkpoint.rstrip("/")) or "eval"
+
+
+def run(config: Dict[str, Any], checkpoint: str, runid: str, path_results: str,
+        debug: bool = False, max_windows: Optional[int] = None, fused: bool = False,
+        layout: str = "nhwc", chunk: int = 1, device_metrics: bool = False,
+        device: str = "cuda") -> Dict[str, Dict[str, str]]:
+    """Evaluate ``checkpoint`` under ``config``; print and return the
+    per-file results."""
+    from evflow_torch.eval import evaluate
+
+    results = evaluate(config, checkpoint=checkpoint, path_results=path_results, runid=runid,
+                       debug=debug, max_windows=max_windows, fused=fused, layout=layout,
+                       chunk=chunk, device_metrics=device_metrics, device=device)
+    print()
+    for metric, per_file in results.items():
+        for fname, val in per_file.items():
+            print(f"{metric:16s} {fname:32s} {val}")
+    return results
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, str]]:
+    args = parse_args(argv)
+    if args.num_devices > 1:
+        raise NotImplementedError("--num_devices > 1: the multi-device evaluation comes with "
+                                  "ROADMAP.md queue 1 item 11")
+    if args.profile:
+        raise NotImplementedError("--profile: the device trace comes with the tooling, "
+                                  "ROADMAP.md queue 1 item 10")
+    from evflow_torch.config import load_config
+
+    runid = resolve_checkpoint(args.checkpoint, args.path_runs)
+    return run(load_config(args.config), args.checkpoint, runid, args.path_results,
+               debug=args.debug, max_windows=args.max_windows, fused=args.fused,
+               layout=args.layout, chunk=args.chunk, device_metrics=args.device_metrics,
+               device=args.device)
+
+
+if __name__ == "__main__":
+    main()

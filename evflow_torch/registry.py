@@ -85,10 +85,12 @@ def build_metrics(config: Dict[str, Any], flow_scaling: float) -> List[Callable]
     """Metric objects for ``config["metrics"]["name"]``."""
     from evflow_torch.loss import metrics as M
 
-    table = {"AEE": M.AEE, "AAE": M.AAE, "AE_ofMeans": M.AEofMeans}
+    table = {"AEE": M.AEE, "NEE": M.NEE, "AAE": M.AAE, "NAAE": M.NAAE,
+             "AE_ofMeans": M.AEofMeans, "AAE_Weighted": M.AAEWeighted,
+             "AAE_Filtered": M.AAEFiltered}
     out = []
     for n in config.get("metrics", {}).get("name", []):
         if n not in table:
-            raise KeyError(f"Unknown metric {n!r}. Ported: {sorted(table)}")
+            raise KeyError(f"Unknown metric {n!r}. Registered: {sorted(table)}")
         out.append(table[n](config, flow_scaling=flow_scaling))
     return out

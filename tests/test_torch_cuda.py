@@ -154,9 +154,80 @@ def test_fused_evaluate_launches_every_unit(cuda, tmp_path, channels):
     for layout, kernel in (("nhwc", fused_conv_lif), ("cmajor", fused_conv_lif_cmajor)):
         kernel.launches = 0
         stats = {}
-        results = evaluate(cfg, fused=True, layout=layout, stats=stats)
+        results = evaluate(cfg, fused=True, layout=layout, debug=True, stats=stats)
         assert kernel.launches == 7 * stats["windows"] > 0
         assert all(np.isfinite(float(v)) for v in results["AEE"].values())
+
+
+@pytest.fixture(scope="module")
+def chunk_set(tmp_path_factory):
+    """Two sequences of 20 windows at 64x64, the model at 32x32 (the GT
+    kept at 64x64), and seeded 32-channel weights."""
+    from evflow_torch.data.synthetic import make_dataset
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import seeded_state_dict
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
+    root = str(tmp_path_factory.mktemp("chunk_set"))
+    make_dataset(root, num_sequences=2, resolution=(64, 64), events_per_sec=40000,
+                 duration=2.0, fmt="npz")
+    cfg = {"data": {"path": root, "mode": "gtflow_dt1", "window": 1},
+           "model": {"name": "LIFFireNet", "encoding": "cnt", "num_bins": 2,
+                     "base_num_channels": 32},
+           "loader": {"resolution": [32, 32], "std_resolution": [64, 64],
+                      "keep_gt_full_res": True, "batch_size": 1},
+           "metrics": {"name": ["AEE", "AAE", "NAAE", "AE_ofMeans"], "flow_scaling": 128}}
+    model = build_model(cfg["model"], device="cuda")
+    model.load_state_dict(seeded_state_dict(model, seed=0))
+    return cfg, model
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "cmajor"])
+def test_chunk_graph_matches_per_window(chunk_set, layout):
+    """chunk=8 as CUDA graph replays (and, at chunk=3, partial chunks at
+    every rollover) gives the per-window results bit for bit, and 7
+    launches a window counted through the replays; device_metrics is within
+    1e-5 of the host metrics."""
+    from evflow_torch.eval import evaluate
+
+    cfg, model = chunk_set
+    kernel = KERNELS[layout][0]
+    runs = {}
+    for name, kw in (("window", {}), ("chunk8", dict(chunk=8)), ("chunk3", dict(chunk=3)),
+                     ("device", dict(chunk=8, device_metrics=True))):
+        kernel.launches = 0
+        stats = {}
+        runs[name] = evaluate(cfg, model=model, fused=True, layout=layout, debug=True,
+                              stats=stats, **kw)
+        assert stats["windows"] == 40
+        assert kernel.launches == 7 * stats["windows"], name
+    assert runs["chunk8"] == runs["window"]
+    assert runs["chunk3"] == runs["window"]
+    for metric, per_file in runs["window"].items():
+        for fname, value in per_file.items():
+            np.testing.assert_allclose(float(runs["device"][metric][fname]), float(value),
+                                       rtol=1e-5, atol=1e-7, err_msg=f"{metric} {fname}")
+
+
+def test_chunk_capture_that_cannot_happen_raises(cuda):
+    """A body that syncs the host cannot be captured: the chunk raises and
+    does not run it eagerly instead."""
+    from evflow_torch.chunk import ChunkProgram
+
+    calls = []
+
+    def body(x, carry):
+        calls.append(1)
+        total = float(x["w"].sum())  # a host sync, which a capture refuses
+        return {"out": x["w"] * total}, [c + 1 for c in carry]
+
+    program = ChunkProgram(body, cuda)
+    program.stage({"w": [np.ones(3, np.float32)] * 2}, [torch.zeros(4, device=cuda)])
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        program.run()  # the first chunk runs eagerly, then its capture fails
+    assert len(calls) == 2
+    torch.cuda.synchronize()
 
 
 WHOLENET = {"fused_net": (WholeNetFireNet, fused_firenet_step),
@@ -1227,3 +1298,29 @@ def test_wholenet_bisect_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="Cin <= 32"):
         fused_firenet_step(torch.zeros(2, 24, 40, 33, device=cuda), mems, (), wide)
     assert fused_firenet_step.launches == before + 1
+
+
+def test_chunk_program_captures_once_per_input_signature(cuda):
+    """A new input dtype (the count wire widened to uint16 mid-run) is a new
+    signature: its first chunk runs eagerly, then its own capture; the
+    carry crosses from one graph's static buffers to the other's."""
+    from evflow_torch.chunk import ChunkProgram
+    from evflow_torch.eval import _widen
+
+    def body(x, carry):
+        w = _widen(x["w"])
+        return {"out": w.sum(dim=1)}, [carry[0] + w.sum(dim=(0, 1))]
+
+    program = ChunkProgram(body, cuda)
+    carry = [torch.zeros(3, device=cuda)]
+    rng = np.random.default_rng(0)
+    total = np.zeros(3)
+    for dtype, high in [(np.uint8, 255)] * 3 + [(np.int16, 30000)] * 3:
+        arrs = [rng.integers(0, high, (2, 3)).astype(dtype) for _ in range(4)]
+        program.stage({"w": arrs}, carry)
+        out, carry = program.run()
+        stacked = np.stack(arrs).astype(np.float64)
+        total += stacked.sum(axis=(0, 1))
+        np.testing.assert_array_equal(out["out"].cpu().numpy(), stacked.sum(axis=1))
+        np.testing.assert_array_equal(carry[0].cpu().numpy(), total)
+    assert len(program.graphs) == 2

@@ -45,7 +45,7 @@ def test_evaluate_matches_reference(setup, fused, layout, rel):
                            verbose=False)
     stats = {}
     ours = evaluate(cfg, variables=v, fused=fused, layout=layout, device="cpu",
-                    max_windows=8, stats=stats)
+                    debug=True, max_windows=8, stats=stats)
     assert stats["windows"] == 8
     assert len(ref["AEE"]) == 2  # both sequences were scored
     assert_results_close(ours, ref, rel)
@@ -67,7 +67,7 @@ def test_evaluate_count_wire_past_255_matches_reference(tmp_path):
     stream.close()
     _, v = seeded_flax_firenet(cfg["model"], seed=12)
     ref = jax_evaluate(cfg, variables=v, debug=True, max_windows=3, verbose=False)
-    ours = evaluate(cfg, variables=v, device="cpu", max_windows=3)
+    ours = evaluate(cfg, variables=v, device="cpu", debug=True, max_windows=3)
     assert_results_close(ours, ref, 1e-4)
 
 
@@ -75,10 +75,10 @@ def test_evaluate_rejects_what_the_protocol_cannot_score(setup):
     cfg, _ = setup
     bad = dict(cfg, data=dict(cfg["data"], mode="events"))
     with pytest.raises(ValueError, match="ground-truth"):
-        evaluate(bad, device="cpu")
+        evaluate(bad, device="cpu", debug=True)
     bad = dict(cfg, data=dict(cfg["data"], window=0.3))
     with pytest.raises(ValueError, match="inverse"):
-        evaluate(bad, device="cpu")
+        evaluate(bad, device="cpu", debug=True)
 
 
 def test_entry_points_default_to_the_gpu(setup, monkeypatch):
@@ -87,4 +87,4 @@ def test_entry_points_default_to_the_gpu(setup, monkeypatch):
     cfg, _ = setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        evaluate(cfg, max_windows=1)
+        evaluate(cfg, debug=True, max_windows=1)
