@@ -7,8 +7,10 @@
 Phases, each printing JSON lines; any failure exits non-zero:
 
 1. ``build``: compile the hand-written CUDA kernels from ``evflow_torch/csrc``
-   (one ``nvcc`` per source, started together) into ``evflow_torch/_build``,
-   and print ptxas's registers, stack and spill bytes of the redesigned
+   (one ``nvcc`` per source, started together) and, beside them, the host
+   library of the data path (``csrc/evflow_host.cpp`` with g++, its
+   seconds printed) into ``evflow_torch/_build``, and print ptxas's
+   registers, stack and spill bytes of the redesigned
    kernels (K1's and K2's four ``conv_lif_kernel`` instantiations each, one
    a padded output width of 16, 32, 48 or 64 channels, K7's two ``fused_net_batch_kernel`` instantiations, K5's two
    ``fused_net_loop2_kernel``, K4's eight ``fused_net_loop_kernel``, K3's
@@ -49,7 +51,19 @@ Phases, each printing JSON lines; any failure exits non-zero:
    of the host's, every fused AEE within 2% of the unfused (f32 convs).
    Then ``python3 -m evflow_torch.eval_flow`` in a subprocess on a seeded
    ``.pth`` with ``--fused --chunk 8 --device_metrics``: its
-   ``metrics_0.yml`` equal to the in-process results.
+   ``metrics_0.yml`` equal to the in-process results. Every run prints the
+   stream's encoder (``native_fused``: the host library's one-pass window
+   assembly). Then ``model.temporal_cnt`` (signed counts, crossing as f32)
+   fused nhwc in chunks of 8 with ``device_metrics`` and unfused per window
+   (the fused AEE within 2%); then the visual protocol
+   (``configs/eval_MVSEC_visual.yml``: LIFFireFlowNet, the mask and GT
+   pooled too, AEE and AAE, ``vis.store``) with ``collect_vis``, per window
+   (the IWE on the card) and in chunks of 8 (the IWE on the host), both
+   layouts: each window's IWE equal to the CPU's IWE of the same flow and
+   event list, chunks within 1e-6 of per window, 7 launches a window; and
+   the CLI with ``--fused`` on that config, its ``metrics_0.yml`` equal to
+   the in-process per-window run (a host without cv2 renders the panels and
+   writes none, saying so on stderr).
 5. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
    256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
    and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
@@ -94,7 +108,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    H=2048) through ``run_all`` (launch counters 0 just before, read just
    after; exactly 1 + repeats launches per case), each against its plain
    version (row windows bit-equal, and the sums of their halo rows' words
-   as the kernel read them from shared memory equal to x's; the layer grid
+   as the kernel read them from shared memory equal to x's, and their
+   launch floor: one channel's one tile, one CTA; the layer grid
    within ``2 sqrt(9C L) 2^-24 max|out|``), with device ms, GB/s of what
    the function needs and of what it stages, issued TFLOP/s, the bound
    (the function's bytes over 3.35 TB/s or operations over 989 TFLOP/s) and a
@@ -131,8 +146,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ms, the bound (the function's bytes over 3.35 TB/s, or its operations
    over 67 TFLOP/s f32 or 989 bf16; for k3, k4, k7, k8, k11 and k12 also
    the bound of what the kernel moves through device memory, for k3 and
-   k11 every layer of x and the output, and the launch floor: the same
-   kernel at one CTA, ``loop_dyn.floor_args``), GB/s and TFLOP/s of what
+   k11 every layer of x and the output; for every body the launch floor:
+   the same kernel at one CTA, ``loop_dyn.floor_args``), GB/s and TFLOP/s of what
    it needs, the CTAs, threads and shared bytes, and one PyTorch call for
    the same function as the yardstick: ``x.sum(0)``, ``torch.mul(x[0], 2)``,
    ``torch.mul(x, 3)``, ``torch.tensordot`` of the slot counts [1, 1, 2, 0]
@@ -148,7 +163,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    W=256, bf16 normals) through ``run_all`` (launch counters as in phase
    10), each against its plain version (k_misc and k_roll equal, each bf16
    sum rounded once alike; k_dot3 within ``2 sqrt(K) 2^-24 max|out|``),
-   with device ms, the bound, and the yardstick: ``(torch.roll(v, 1, 2) +
+   with device ms, the launch floor of k_misc and k_roll (one row of v,
+   one CTA), the bound, and the yardstick: ``(torch.roll(v, 1, 2) +
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
    (``out_dtype``), and the kernel's time over the bound and the yardstick.
@@ -266,12 +282,13 @@ def call(fn, t, hard):
               prev_spk=t["prev_spk"], hard_reset=hard)
 
 
-def seeded_firenet(compute_dtype=None):
-    """LIFFireNet at full width on the card, weights from seed 0."""
+def seeded_firenet(compute_dtype=None, name="LIFFireNet"):
+    """A FireNet (LIFFireNet unless ``name``) at full width on the card,
+    weights from seed 0."""
     from evflow_torch.registry import build_model
     from evflow_torch.weights import seeded_state_dict
 
-    cfg = dict(eval_config("")["model"])
+    cfg = dict(eval_config("")["model"], name=name)
     if compute_dtype is not None:
         cfg["compute_dtype"] = compute_dtype
     model = build_model(cfg, device="cuda")
@@ -339,10 +356,29 @@ def device_ms(fn, iters=40):
 # ---------------------------------------------------------------------------
 
 def phase_build(state):
+    import threading
+
+    from evflow_torch.data import native
     from evflow_torch.ops import cuda_build
 
+    # the host library (g++) builds while the nvcc processes run
+    host = {}
+
+    def build_host():
+        try:
+            host["seconds"] = native.build()
+        except Exception as e:  # raised below
+            host["error"] = e
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     t0 = time.perf_counter()
     per_source = cuda_build.build()
+    host_thread.join()
+    if "error" in host:
+        raise SystemExit(f"the host library did not build: {host['error']}")
+    emit({"phase": "build", "host_library": native.library_path().name,
+          "host_seconds": host["seconds"]})
     ptxas = {}
     for name in cuda_build.SOURCES:
         log = cuda_build.BUILD_DIR / f"{name}.ptxas.txt"
@@ -500,22 +536,23 @@ PROTOCOL_MODES = (  # name, evaluate's keywords: fused runs in both layouts, the
 
 
 def protocol_run(cfg, model, wrappers, **kw):
-    """One evaluate run with the launch counters set to 0 just before and
-    read just after, then the first SPLIT_WINDOWS windows again with the
-    host split measured (a sync between the parts); returns (results,
-    record)."""
+    """One evaluate run (``debug`` unless ``kw`` says otherwise) with the
+    launch counters set to 0 just before and read just after, then the
+    first SPLIT_WINDOWS windows again with the host split measured (a sync
+    between the parts); returns (what evaluate returned, record)."""
     from evflow_torch.eval import evaluate
 
+    kw.setdefault("debug", True)
     for w in wrappers.values():
         w.launches = 0
     stats = {}
-    results = evaluate(cfg, model=model, debug=True, stats=stats, **kw)
+    results = evaluate(cfg, model=model, stats=stats, **kw)
     launches = {kn: w.launches for kn, w in wrappers.items()}
     split = {"split": True}
-    evaluate(cfg, model=model, debug=True, stats=split, max_windows=SPLIT_WINDOWS, **kw)
+    evaluate(cfg, model=model, stats=split, max_windows=SPLIT_WINDOWS, **kw)
     wall_ms = 1e3 * stats["seconds"]
     dev = split["split_ms"]["device"]
-    rec = {"windows": stats["windows"], "seconds": stats["seconds"],
+    rec = {"windows": stats["windows"], "seconds": stats["seconds"], "encoder": stats["encoder"],
            "windows_per_s": stats["windows"] / stats["seconds"],
            "ms_per_window": wall_ms / stats["windows"],
            "split_windows": split["windows"], "split_ms_per_window": split["split_ms"],
@@ -540,8 +577,12 @@ def phase_protocol(state):
     name = card()
     from evflow_torch.eval import evaluate
 
-    for _, layout, _, _ in KERNELS:  # loads the kernels and cuBLAS: not measured
+    # loads the kernels and cuBLAS, and warms the host (a process's first
+    # streams and graph captures run slower): not measured
+    for _, layout, _, _ in KERNELS:
         evaluate(cfg, model=model, fused=True, layout=layout, debug=True, max_windows=2)
+        evaluate(cfg, model=model, fused=True, layout=layout, debug=True, max_windows=40,
+                 chunk=8, device_metrics=True)
     results, launches = {}, {}
     fails = []
     for kname, layout, _, _ in KERNELS:
@@ -588,15 +629,136 @@ def phase_protocol(state):
     cli = protocol_cli(cfg, model, results[("nhwc", "chunk8_dm")])
     if not cli:
         fails.append("the eval CLI's metrics_0.yml differs from the in-process results")
+    fails += protocol_temporal(state, wrappers, name)
+    fails += protocol_visual(state, wrappers, name)
     if fails:
         raise SystemExit("; ".join(fails))
     state["launches"] = launches
 
 
-def protocol_cli(cfg, model, expected) -> bool:
+def protocol_temporal(state, wrappers, name) -> list:
+    """``model.temporal_cnt`` (counts of the window's signed pos - neg and
+    the previous window's, crossing as f32) in the users' mode, fused nhwc
+    ``chunk=8`` with ``device_metrics``, and unfused per window: 7 launches
+    a window, finite results, the fused AEE within 2% of the unfused."""
+    import numpy as np
+
+    cfg = eval_config(dataset(state))
+    cfg["model"]["temporal_cnt"] = True
+    model = seeded_firenet()
+    kname, layout = KERNELS[0][:2]
+    fused, rec = protocol_run(cfg, model, wrappers, fused=True, layout=layout, chunk=8,
+                              device_metrics=True)
+    counts = rec["launches"]
+    emit({"phase": "protocol", "temporal_cnt": True, "fused": True, "layout": layout,
+          "mode": "chunk8_dm", **rec, "metrics": fused, "card": name})
+    unfused, rec_u = protocol_run(cfg, model, wrappers, fused=False)
+    emit({"phase": "protocol", "temporal_cnt": True, "fused": False, "mode": "window", **rec_u,
+          "metrics": unfused, "card": name})
+    aee = max(abs(float(fused["AEE"][f]) / float(v) - 1.0) for f, v in unfused["AEE"].items())
+    values = [float(v) for r in (fused, unfused) for m in r.values() for v in m.values()]
+    ok = (counts[kname] == 7 * rec["windows"] and rec["windows"] >= 160
+          and len(unfused["AEE"]) == 2 and set(fused) == set(unfused)
+          and bool(np.isfinite(values).all()) and aee <= 0.02)
+    emit({"phase": "protocol", "temporal_cnt": True, "aee_vs_unfused": aee, "ok": ok})
+    return [] if ok else [f"temporal_cnt: {counts} launches for {rec['windows']} windows, or "
+                          f"the fused AEE {aee:.4f} off the unfused one"]
+
+
+VISUAL_MODES = (("window", dict()), ("chunk8", dict(chunk=8)))
+
+
+def visual_config(root):
+    """configs/eval_MVSEC_visual.yml (LIFFireFlowNet, 32 channels, 256x256
+    pooled to 128x128 with the mask and GT, hot filter, AEE and AAE,
+    ``vis.store`` as videos) on the phase's dataset."""
+    import os
+
+    from evflow_torch.config import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                   "eval_MVSEC_visual.yml"))
+    cfg["data"]["path"] = root
+    return cfg
+
+
+def protocol_visual(state, wrappers, name) -> list:
+    """The visual protocol: ``evaluate(fused=True, collect_vis=True)`` with
+    ``vis.store`` (not debug: the panels render, and a host without cv2
+    writes none) per window (each window's IWE on the card beside the step)
+    and in chunks of 8 (the IWE on the host), both layouts; each window's
+    IWE equal to the CPU's IWE of the same flow over the window's event
+    list (``round_idx`` splats sums of ones: exact), 7 launches a window,
+    chunks equal to per window within 1e-6; then the CLI on the config."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from evflow_torch.data.h5_stream import H5EventStream
+    from evflow_torch.ops.iwe import compute_pol_iwe
+
+    cfg = visual_config(dataset(state))
+    model = seeded_firenet(name="LIFFireFlowNet")
+    stream = H5EventStream(cfg, 2)
+    batches = []
+    while True:
+        b = stream.next_batch()
+        if b["epoch_done"]:
+            break
+        batches.append({k: b[k] for k in ("event_list", "event_list_pol_mask", "event_valid")})
+    stream.close()
+    H, W = cfg["loader"]["resolution"]
+    scaling = cfg["metrics"]["flow_scaling"]
+    fails, results = [], {}
+    with tempfile.TemporaryDirectory(prefix="evflow_vis_") as out:
+        for kname, layout, _, _ in KERNELS:
+            for mode, kw in VISUAL_MODES:
+                (res, frames), rec = protocol_run(cfg, model, wrappers, fused=True, layout=layout,
+                                                  collect_vis=True, debug=False, path_results=out,
+                                                  **kw)
+                results[(layout, mode)] = res
+                t0 = time.perf_counter()
+                iwe_equal = len(frames) == len(batches)
+                for f, b in zip(frames, batches):
+                    pm = torch.from_numpy(b["event_list_pol_mask"])
+                    host = compute_pol_iwe(torch.from_numpy(f["flow"]),
+                                           torch.from_numpy(b["event_list"]), (H, W), pm[..., 0],
+                                           pm[..., 1], flow_scaling=scaling, round_idx=True,
+                                           valid=torch.from_numpy(b["event_valid"]))
+                    iwe_equal &= bool(np.array_equal(f["iwe"], host.numpy()))
+                counts = rec["launches"]
+                ok = (counts[kname] == 7 * rec["windows"] and rec["windows"] >= 160 and iwe_equal
+                      and all(np.isfinite(f["flow"]).all() for f in frames)
+                      and sum(float(f["iwe"].sum()) for f in frames) > 0)
+                emit({"phase": "protocol", "visual": True, "fused": True, "layout": layout,
+                      "mode": mode, **kw, **rec, "metrics": res, "frames": len(frames),
+                      "iwe_equal_to_cpu": iwe_equal,
+                      "cpu_iwe_ms_per_window": 1e3 * (time.perf_counter() - t0) / len(frames),
+                      "files_written": sum(len(fs) for _, _, fs in os.walk(out)),
+                      "card": name, "ok": ok})
+                if not ok:
+                    fails.append(f"visual {layout} {mode}: {counts} launches for "
+                                 f"{rec['windows']} windows, IWE equal to the CPU's: {iwe_equal}")
+        for _, layout, _, _ in KERNELS:
+            a, b = results[(layout, "chunk8")], results[(layout, "window")]
+            diff = max(abs(float(a[m][f]) / float(v) - 1.0) if float(v) else abs(float(a[m][f]))
+                       for m, per_file in b.items() for f, v in per_file.items())
+            emit({"phase": "protocol", "visual": True, "layout": layout,
+                  "chunk8_vs_window": diff, "ok": diff <= 1e-6})
+            if diff > 1e-6:
+                fails.append(f"visual {layout}: chunk8 {diff} off per window")
+    if not protocol_cli(cfg, model, results[("nhwc", "window")], chunked=False):
+        fails.append("the eval CLI's metrics_0.yml on the visual config differs from the "
+                     "in-process results")
+    return fails
+
+
+def protocol_cli(cfg, model, expected, chunked=True) -> bool:
     """``python3 -m evflow_torch.eval_flow <seeded .pth> --fused --chunk 8
-    --device_metrics`` in a subprocess, on the phase's config written as
-    YAML; its metrics_0.yml against the in-process results."""
+    --device_metrics`` (or without chunks: ``--fused`` alone) in a
+    subprocess, on the config written as YAML; its metrics_0.yml against
+    the in-process results."""
     import os
     import subprocess
     from pathlib import Path
@@ -609,8 +771,9 @@ def protocol_cli(cfg, model, expected) -> bool:
         torch.save(model.state_dict(), ckpt)
         cfg_path.write_text(yaml.safe_dump(cfg))
         cmd = [sys.executable, "-m", "evflow_torch.eval_flow", str(ckpt), "--config",
-               str(cfg_path), "--fused", "--chunk", "8", "--device_metrics",
-               "--path_results", str(out)]
+               str(cfg_path), "--fused", "--path_results", str(out)]
+        if chunked:
+            cmd[-2:-2] = ["--chunk", "8", "--device_metrics"]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
                               capture_output=True, text=True, timeout=600)
@@ -621,7 +784,7 @@ def protocol_cli(cfg, model, expected) -> bool:
     ok = proc.returncode == 0 and runid == "seeded.pth" and got == expected
     emit({"phase": "protocol", "cli": " ".join(["python3", *cmd[1:]]), "rc": proc.returncode,
           "seconds": seconds, "metrics_0": got, "equal_to_in_process": got == expected,
-          "stderr_tail": proc.stderr[-2000:] if proc.returncode else "", "ok": ok})
+          "stderr_tail": proc.stderr[-2000:], "ok": ok})
     return ok
 
 
@@ -1209,6 +1372,8 @@ def phase_staging(state):
             res["halo_rows_staged"] = torch.equal(sums, S.halo_sums_plain(*case.args,
                                                                           **case.kwargs))
             res["ok"] = res["ok"] and res["halo_rows_staged"]
+            small, small_kw = S.floor_args(case)  # the launch floor: one CTA
+            res["floor_ms"] = device_ms(lambda: case.fn(*small, **small_kw), iters=20)
         ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
         plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
         lib_ms = device_ms(staging_yardstick(case), iters=20)
@@ -1398,13 +1563,13 @@ def phase_loopdyn(state):
         if body in ("k3", "k4", "k7", "k8", "k11", "k12"):
             # the bound of what the kernel moves through device memory beside
             # the function's (k3 and k11: every layer of x and the output, the
-            # function x[0]; the others each input once, the function's
-            # bytes); the launch floor: the same kernel at one CTA
+            # function x[0]; the others each input once, the function's bytes)
             moved = D.store_kernel_bytes(*case.args[0].shape) if body in ("k3", "k11") else (
                 case.nbytes)
             res["kernel_bound_ms"] = 1e3 * moved / HBM_BYTES_PER_S
-            small, small_kw = D.floor_args(case)
-            res["floor_ms"] = device_ms(lambda: case.fn(*small, **small_kw), iters=20)
+        # the launch floor: the same kernel at one CTA
+        small, small_kw = D.floor_args(case)
+        res["floor_ms"] = device_ms(lambda: case.fn(*small, **small_kw), iters=20)
         if body == "k12":  # the one call with the kernel's f32 output
             stacked, layers3 = stacked_operands(case)
             res["library_f32_ms"] = device_ms(
@@ -1487,6 +1652,9 @@ def phase_mosaicops(state):
         ref = case.plain(*case.args, **case.kwargs)
         torch.cuda.synchronize()
         res = compare(out, ref, M.tolerance(case, ref))
+        if body != "k_dot3":  # the launch floor: the same kernel at one CTA
+            small, small_kw = M.floor_args(case)
+            res["floor_ms"] = device_ms(lambda: case.fn(*small, **small_kw), iters=20)
         ms = device_ms(lambda: case.fn(*case.args, **case.kwargs), iters=20)
         plain_ms = device_ms(lambda: case.plain(*case.args, **case.kwargs), iters=3)
         lib_ms = device_ms(mosaicops_yardstick(case), iters=20)

@@ -26,8 +26,17 @@ heat-map sums inside that dispatch, and fetches only the values, one chunk
 behind (depth-1 pipelining). Chunks flush at sequence rollovers, at the end
 of the data and at ``max_windows``; a partial chunk runs the per-window
 program, and ``max_windows`` may be overshot by up to ``chunk - 1``
-windows. Visualisation and activity logs (``vis.*``) are not ported yet
-and raise.
+windows.
+
+Visualisation (``vis.store``, ``vis.enabled``, ``collect_vis``) needs each
+window's flow on the host and the image of its warped events (IWE, from
+the window's event list): in the per-window program the IWE runs on the
+window's device beside the step and is fetched with the flow; in a chunk it
+runs on the CPU over the fetched flows. ``vis.activity`` logs each layer's
+fraction of nonzero activations through the unfused step (the fused one
+refuses it), fetched with the flows or with the device metrics' values.
+With ``model.temporal_cnt`` the counts cross as f32: their channel 0 is
+signed.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ from evflow_torch.chunk import ChunkProgram
 from evflow_torch.data.h5_stream import H5EventStream, Prefetcher
 from evflow_torch.device import resolve_device
 from evflow_torch.loss import metrics as M
-from evflow_torch.ops.iwe import upsample_flow
+from evflow_torch.ops.iwe import compute_pol_iwe, upsample_flow
 
 __all__ = ["evaluate", "reset_slot_states", "SPLIT_PARTS"]
 
@@ -191,9 +200,12 @@ def evaluate(
     chunk: int = 1,
     device_metrics: bool = False,
     stats: Optional[Dict[str, Any]] = None,
+    collect_vis: bool = False,
 ):
     """Run the evaluation protocol; returns the per-file results dict
-    ``{metric: {file: str(value)}, metric + "_percent": {...}}``.
+    ``{metric: {file: str(value)}, metric + "_percent": {...}}``, and with
+    ``collect_vis`` also a list of each window's ``{"flow", "iwe",
+    "event_cnt", "gtflow"}`` host arrays.
 
     Weights: ``model`` (a port ``FireNet``), else the config's model; then
     ``variables`` (flax ``params``/``batch_stats`` as arrays, see
@@ -208,7 +220,10 @@ def evaluate(
     window of the run (``"device"`` None off the card) and
     ``stats["slow_enqueues"]`` the dispatches, captures aside, whose
     enqueue took over 5 ms: their device time may hold the card's wait for
-    the host.
+    the host. ``stats["encoder"]`` names the stream's encoder
+    (``H5EventStream.encoder``) and, with ``vis.activity``,
+    ``stats["activity"]`` holds the activity log (a list a layer, reset at
+    each rollover).
     """
     metrics_cfg = config.get("metrics", {})
     names = metrics_cfg.get("name", [])
@@ -222,11 +237,12 @@ def evaluate(
             raise ValueError("AEE computation not compatible with window > 1")
         if not np.isclose((1.0 / window) % 1.0, 0.0):
             raise ValueError("AEE needs a window whose inverse is an integer")
-    for key in ("enabled", "store", "activity"):
-        if (config.get("vis") or {}).get(key, False):
-            raise NotImplementedError(
-                f"vis.{key} is not ported yet: visualisation and activity logs come with "
-                "the event lists, ROADMAP.md queue 1 item 4")
+    vis_cfg = config.get("vis") or {}
+    log_activity = bool(vis_cfg.get("activity", False))
+    store_vis = bool(vis_cfg.get("store", False)) and not debug
+    live_vis = bool(vis_cfg.get("enabled", False))
+    if fused and log_activity:
+        raise ValueError("fused backend does not support activity logging")
     chunk = max(int(chunk), 1)
     want_heatmaps = bool(metrics_cfg.get("heat_map", False))
     cadence = int(np.round(1.0 / window)) if window else 1
@@ -237,6 +253,9 @@ def evaluate(
         if not names:
             raise ValueError("device_metrics without metrics does nothing — "
                              "drop the flag or configure metrics.name")
+        if collect_vis or store_vis or live_vis:
+            raise ValueError("device_metrics never fetches flow maps; "
+                             "vis/collect_vis need them — disable one")
         if want_heatmaps and cadence != 1:
             raise ValueError("device_metrics with metrics.heat_map needs "
                              "window == 1 (the AEE criterion-call gate is "
@@ -271,11 +290,21 @@ def evaluate(
         for c in criteria:
             c.flow_scaling = adjusted
 
+    eval_id = -1
     if not debug:
         from evflow_torch.utils.tracker import create_model_dir, log_config
 
         path_results = create_model_dir(path_results, runid)
         eval_id = log_config(path_results, runid, config)
+    vis = None
+    if store_vis or live_vis:
+        from evflow_torch.utils.viz import Visualization
+
+        vis = Visualization(config, eval_id=eval_id,
+                            path_results=path_results if store_vis else None)
+    want_iwe = collect_vis or vis is not None
+    activity_log: Optional[Dict[str, list]] = None
+    act_keys: List[str] = []
 
     encoding = model_cfg.get("encoding", "cnt")
     counted = ()
@@ -288,14 +317,23 @@ def evaluate(
         counted = (fused_conv_lif, fused_conv_lif_cmajor)
 
         def step(x, st):
-            return net.step(_widen(x), st)
+            flow, st2 = net.step(_widen(x), st)
+            return flow, st2, None
     else:
         net = model
 
         def step(x, st):
+            """(flow, states, activity: the layers' nonzero fractions
+            ``[T]`` in ``act_keys`` order, or None)."""
             x = _widen(x)
-            out, st2 = model(x, None, st) if encoding == "voxel" else model(None, x, st)
-            return out["flow"][-1], st2
+            args = (x, None) if encoding == "voxel" else (None, x)
+            out, st2 = model(*args, st, log=log_activity)
+            act = None
+            if log_activity:
+                if not act_keys:
+                    act_keys.extend(out["activity"])
+                act = torch.stack([out["activity"][k] for k in act_keys])
+            return out["flow"][-1], st2, act
     states = net.init_states(B, H, W)
     n_states = len(states)
 
@@ -307,10 +345,13 @@ def evaluate(
 
     idx_aee = np.zeros(B, np.int64)
     std_res = tuple(loader.get("std_resolution", loader["resolution"]))
-    compact_wire = tuple(loader["resolution"]) == std_res  # counts not pooled
+    # counts not pooled, and unsigned (temporal_cnt's channel 0 is signed)
+    compact_wire = (tuple(loader["resolution"]) == std_res
+                    and not bool(model_cfg.get("temporal_cnt", False)))
     derive_mask = encoding == "cnt" and compact_wire
     wire = {"dtype": np.uint8}
     val_results: Dict[str, Dict[str, Dict[str, float]]] = {}
+    vis_frames: List[Dict[str, Any]] = []
     split = _Split(device, bool(stats and stats.get("split")))
     windows_done = 0
 
@@ -373,13 +414,36 @@ def evaluate(
         v = criteria[i]()
         return tuple(t.numpy() for t in v) if isinstance(v, tuple) else v.numpy()
 
-    def process_window(batch, flow: torch.Tensor):
+    def window_iwe(flow: torch.Tensor, batch) -> torch.Tensor:
+        """The window's per-polarity IWE ``[B, H, W, 2]`` on the flow's
+        device, at the model's resolution, before any upsampling."""
+        ev, pm, va = (torch.from_numpy(batch[k]).to(flow.device, non_blocking=True)
+                      for k in ("event_list", "event_list_pol_mask", "event_valid"))
+        return compute_pol_iwe(flow, ev, (H, W), pm[..., 0], pm[..., 1],
+                               flow_scaling=flow_scaling, round_idx=True, valid=va)
+
+    def handle_activity(act):
+        nonlocal activity_log
+        if act is not None:
+            from evflow_torch.utils.viz import vis_activity
+
+            activity_log = vis_activity({k: float(v) for k, v in zip(act_keys, act)},
+                                        activity_log, live=live_vis)
+
+    def process_window(batch, flow: torch.Tensor, act=None, iwe=None):
         """The host protocol of one window over its fetched flow (a CPU
-        tensor): upsampling, association, cadence and accumulation."""
+        tensor): activity, the IWE (on the CPU unless given), upsampling,
+        association, cadence, accumulation and the visualisation."""
         nonlocal windows_done
+        handle_activity(act)
+        if want_iwe and iwe is None:
+            iwe = window_iwe(flow, batch)
+        if keep_gt_full_res and "gtflow" in batch:
+            flow = full_res(flow, *batch["gtflow"].shape[1:3])
+        if collect_vis:
+            vis_frames.append({"flow": flow.numpy(), "iwe": iwe.numpy(),
+                               "event_cnt": batch["event_cnt"], "gtflow": batch.get("gtflow")})
         if names:
-            if keep_gt_full_res and "gtflow" in batch:
-                flow = full_res(flow, *batch["gtflow"].shape[1:3])
             # contiguous: the GT arrives channel-planar, and strided
             # elementwise math costs the CPU several times more
             inputs = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
@@ -387,18 +451,41 @@ def evaluate(
             for c in criteria:
                 c.event_flow_association([flow], inputs)
             accumulate_metrics(batch, host_value, post=lambda i: criteria[i].reset())
+        if vis is not None:
+            store_window(batch, flow.numpy(), iwe.numpy())
         windows_done += B
+
+    def store_window(batch, fl: np.ndarray, iwe: np.ndarray):
+        """Show and store the window's panels: batch slot 0, its flow masked
+        by the events where the resolutions agree, and the first metric's
+        error map of this window, if one was scored."""
+        em = np.asarray(batch["event_mask"])
+        masked = fl * (em > 0) if em.shape[1:3] == fl.shape[1:3] else None
+        err_map, err_is_angle = None, False
+        for i, mname in enumerate(names):
+            em_i = criteria[i].get_error_map()
+            if em_i is not None:
+                err_map, err_is_angle = em_i, mname in ("AAE", "NAAE")
+                break
+        vis.update(batch, fl, iwe=iwe, masked_flow=masked)
+        vis.store(batch, fl, iwe, os.path.splitext(batch["file_names"][0])[0],
+                  masked_flow=masked, ts=float(np.asarray(batch["ts"]).reshape(-1)[0]),
+                  error_map=err_map, error_is_angle=err_is_angle)
 
     # each metric's first row in the device path's [R, K, B] values
     first_row = np.cumsum([0] + [1 + c.has_percent for c in criteria])
 
     def chunk_body(x, carry):
         st = unflat(carry[:2 * n_states])
-        flows = []
+        flows, acts = [], []
         for k in range(x["w"].shape[0]):
-            flow, st = step(x["w"][k], st)
+            flow, st, act = step(x["w"][k], st)
             flows.append(flow)
-        return {"flow": torch.stack(flows)}, flat(st)
+            acts.append(act)
+        out = {"flow": torch.stack(flows)}
+        if log_activity:
+            out["act"] = torch.stack(acts)
+        return out, flat(st)
 
     def metrics_body(x, carry):
         st = unflat(carry[:2 * n_states])
@@ -406,13 +493,15 @@ def evaluate(
         vals = []
         for k in range(x["w"].shape[0]):
             wk = x["w"][k]
-            flow, st = step(wk, st)
+            flow, st, act = step(wk, st)
             gt = x["gt"][k]
             mask = (_widen(wk).sum(-1) > 0).to(torch.uint8) if derive_mask else x["m"][k]
             if keep_gt_full_res:
                 flow = full_res(flow, *gt.shape[1:3])
             rows, hmaps = _window_metric_values(criteria, names, flow, gt, mask, x["dtg"][k],
                                                x["dti"][k], want_heatmaps)
+            if act is not None:  # the window's activity rides as rows of its own
+                rows += list(act[:, None].expand(act.shape[0], B))
             vals.append(torch.stack(rows))
             hm = [a + b for a, b in zip(hm, hmaps)]
         return {"vals": torch.stack(vals, dim=1)}, flat(st) + hm
@@ -437,6 +526,9 @@ def evaluate(
                     done.synchronize()
                 v = vals.numpy()
                 for k, b in enumerate(batches):
+                    if log_activity:
+                        handle_activity(v[first_row[-1]:, k, 0])
+
                     def value_of(i, _k=k):
                         r0 = first_row[i]
                         return tuple(v[r0:r0 + 2, _k]) if criteria[i].has_percent else v[r0, _k]
@@ -502,16 +594,19 @@ def evaluate(
             states = unflat(carry)
             with split.part("metrics"):
                 flows = out["flow"].cpu()  # the chunk's one fetch
+                acts = out["act"].cpu() if log_activity else None
                 for k, b in enumerate(pending):
-                    process_window(b, flows[k])
+                    process_window(b, flows[k], acts[k] if log_activity else None)
         else:
             for b in pending:
                 with split.part("encode_upload"):
                     x = torch.from_numpy(encode_wire(b)).to(device, non_blocking=True)
                 with split.dispatch():
-                    flow, states = step(x, states)
+                    flow, states, act = step(x, states)
+                    iwe = window_iwe(flow, b) if want_iwe else None
                 with split.part("metrics"):
-                    process_window(b, flow.cpu())
+                    process_window(b, flow.cpu(), None if act is None else act.cpu(),
+                                   None if iwe is None else iwe.cpu())
         pending.clear()
 
     t0 = time.perf_counter()
@@ -531,6 +626,7 @@ def evaluate(
                 # and in-flight chunks accumulate before the cadence resets
                 run_pending()
                 drain_inflight()
+                activity_log = None
                 states = reset_slot_states(states, net, batch["new_seq"], B, H, W)
                 for c in criteria:
                     c.reset(slots=batch["new_seq"])
@@ -549,8 +645,17 @@ def evaluate(
     finally:
         fetch.close()  # join the prefetch thread before closing its files
         data.close()
+        if vis is not None:
+            vis.close_videos()
+    if log_activity and activity_log and not debug:
+        from evflow_torch.utils.viz import vis_activity
+
+        vis_activity({}, activity_log, save_path=os.path.join(path_results, "activity.png"))
     if stats is not None:
-        stats.update(windows=windows_done, seconds=time.perf_counter() - t0)
+        stats.update(windows=windows_done, seconds=time.perf_counter() - t0,
+                     encoder=data.encoder)
+        if log_activity:
+            stats["activity"] = activity_log
         if split.on:
             n = max(windows_done, 1)
             stats["split_ms"] = {p: (None if p == "device" and not split.cuda else v / n)
@@ -592,4 +697,6 @@ def evaluate(
                     criteria[i].save_error_heatmap(
                         os.path.join(heat_dir, f"{mname}_heatmap.png"),
                         title=f"Aggregated {mname} Error Distribution")
+    if collect_vis:
+        return results, vis_frames
     return results

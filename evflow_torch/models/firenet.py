@@ -13,7 +13,7 @@ also accepts the PTQ layout, see ``evflow_torch.weights``).
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,7 +22,7 @@ from evflow_torch.models.ann import ConvLayer
 from evflow_torch.models.cells import SNNConvLIF, SNNConvLIFRecurrent
 from evflow_torch.ops.lif import LIFState
 
-__all__ = ["FireNet", "nonzero_normalize"]
+__all__ = ["FireNet", "nonzero_normalize", "activity_fractions"]
 
 
 def nonzero_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -36,11 +36,19 @@ def nonzero_normalize(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask > 0, (x - mean) / torch.clamp(std, min=1e-12), x)
 
 
+def activity_fractions(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each tensor's fraction of nonzero elements (a 0-d f32 tensor)."""
+    return {k: (v != 0).float().mean() for k, v in tensors.items()}
+
+
 class FireNet(nn.Module):
     """FireNet family with snn.Leaky cells (``cell_family="snn"``).
 
-    ``forward(event_voxel, event_cnt, states)`` runs one event window and
-    returns ``({"flow": [flow [B, H, W, 2]]}, new_states)``. ``compute_dtype``
+    ``forward(event_voxel, event_cnt, states, log=False)`` runs one event
+    window and returns ``({"flow": [flow [B, H, W, 2]], "activity": ...},
+    new_states)``; with ``log`` the activity is each layer's fraction of
+    nonzero activations (``activity_fractions`` of the input, every unit's
+    spikes and the flow, keyed ``"<i>:<name>"``), else None. ``compute_dtype``
     (e.g. ``torch.bfloat16``) runs the convolutions in that type while the
     LIF state stays f32.
     """
@@ -113,7 +121,7 @@ class FireNet(nn.Module):
 
     def forward(self, event_voxel: Optional[torch.Tensor],
                 event_cnt: Optional[torch.Tensor],
-                states: Optional[Sequence[Optional[LIFState]]] = None):
+                states: Optional[Sequence[Optional[LIFState]]] = None, log: bool = False):
         x = event_voxel if self.encoding == "voxel" else event_cnt
         if x is None:
             raise ValueError(f"the {self.encoding} input is None")
@@ -123,12 +131,16 @@ class FireNet(nn.Module):
         if states is None:
             states = (None,) * self.num_units
         new_states = []
+        taps = {"0:input": x}
         h = x
-        for name, st in zip(self.unit_names, states):
+        for i, (name, st) in enumerate(zip(self.unit_names, states)):
             h, s = getattr(self, name)(h, st)
             new_states.append(s)
+            taps[f"{i + 1}:{name}"] = h
         flow = self.pred(h)
-        return {"flow": [flow]}, tuple(new_states)
+        taps[f"{self.num_units + 1}:pred"] = flow
+        activity = activity_fractions(taps) if log else None
+        return {"flow": [flow], "activity": activity}, tuple(new_states)
 
     def load_state_dict(self, state_dict: Mapping[str, torch.Tensor],
                         strict: bool = True, assign: bool = False):

@@ -304,14 +304,16 @@ def conv_sum_tile(cta: int, e: int, w: int):
 
 
 def floor_args(case: Case):
-    """The arguments and keywords of ``case``'s body (k3, k4, k7, k8, k11,
-    k12) at the smallest size its kernel takes, one CTA: one layer of 8
-    pixels (k8 a window of one 8-pixel row, k7 and k12 with w[0]; k7's
-    8-pixel row runs two CTAs, one a channel half). Its time is the kernel's
-    launch floor."""
+    """The arguments and keywords of ``case``'s body at the smallest size its
+    kernel takes, one CTA: one layer of 8 pixels (k5 the three layers its
+    slot map reads, k6 an 8-pixel image from p[0], k8 a window of one
+    8-pixel row, the dots k2, k7 and k12 with w[0]; k7's 8-pixel row runs
+    two CTAs, one a channel half). Its time is the kernel's launch floor."""
     body = body_of(case)
-    x = case.args[0][:1, :, :1, :8].contiguous()
-    if body in ("k7", "k12"):
+    if body == "k6":
+        return (case.args[0][:1].contiguous(), 1, 8), dict(case.kwargs)
+    x = case.args[0][:3 if body == "k5" else 1, :, :1, :8].contiguous()
+    if body in DOTS:
         return (x, case.args[1][:1].contiguous()), dict(case.kwargs)
     if body == "k8":
         return (x,), dict(case.kwargs, row0=0, rows=1)

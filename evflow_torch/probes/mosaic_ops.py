@@ -51,7 +51,7 @@ from evflow_torch.probes._harness import Case, bound, card_device, launch, on_ca
 __all__ = [
     "concat_where", "concat_where_plain", "roll_sum", "roll_sum_plain", "dot3", "dot3_plain",
     "mosaic_bytes", "draw_operands", "probe_cases", "body_of", "bound", "tolerance", "run_all",
-    "WRAPPERS", "BODIES", "last_launch",
+    "WRAPPERS", "BODIES", "last_launch", "floor_args",
 ]
 
 # the probe's shapes (probe_mosaic_ops.py:6)
@@ -165,6 +165,14 @@ for _fn in WRAPPERS:
 
 
 # --- the probe's cases -----------------------------------------------------------
+
+def floor_args(case):
+    """An elementwise case's (k_misc, k_roll) arguments at the smallest size
+    its kernel takes, one CTA: one row of v. Its time is the kernel's launch
+    floor."""
+    (v,) = case.args
+    return (v[:1, :1].contiguous(),), dict(case.kwargs)
+
 
 # body: (the file's name for it, wrapper, plain, the TPU pallas_call)
 BODIES = {

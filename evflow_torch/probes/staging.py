@@ -49,7 +49,7 @@ from evflow_torch.probes._harness import Case, bound, card_device, launch, on_ca
 __all__ = [
     "row_window_copy", "row_window_copy_plain", "halo_sums_plain", "layer_grid",
     "layer_grid_plain", "layer_grid_plan", "channels_per_cta", "probe_cases", "run_all",
-    "WRAPPERS", "last_launch",
+    "WRAPPERS", "last_launch", "floor_args",
 ]
 
 # the probes' shapes: probe_manual_dma.py (HALO 6), probe_manual_dma2.py
@@ -232,6 +232,15 @@ for _fn in WRAPPERS:
 
 
 # --- the probes' cases ----------------------------------------------------------
+
+def floor_args(case):
+    """A row-window case's arguments at the smallest size its kernel takes,
+    one CTA: one channel, one tile of ``th`` rows with its halo. Its time is
+    the kernel's launch floor."""
+    (x,) = case.args
+    rows = case.kwargs["th"] + 2 * case.kwargs["halo"]
+    return (x[:, :1, :rows].contiguous(),), dict(case.kwargs)
+
 
 def row_window_bytes(c: int, h: int, w: int, th: int, halo: int, esize: int):
     """(needed, staged): the f32 interior written, and the interior read once

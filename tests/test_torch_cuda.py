@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version at
 shapes that leave ragged tiles, the launch counters, the fused evaluation
-path, the whole-network kernels (K3, K4, K5, K6, K7) against
+path (with the visualisation's IWE on the card), the IWE functions against
+their CPU run, the whole-network kernels (K3, K4, K5, K6, K7) against
 ``firenet_step_plain``, and the in-kernel dot, staging, unit-loop,
 runtime-indexed loop, Mosaic-ops and whole-net bisection probes against
 theirs.
@@ -1324,3 +1325,94 @@ def test_chunk_program_captures_once_per_input_signature(cuda):
         np.testing.assert_array_equal(out["out"].cpu().numpy(), stacked.sum(axis=1))
         np.testing.assert_array_equal(carry[0].cpu().numpy(), total)
     assert len(program.graphs) == 2
+
+
+@pytest.mark.parametrize("round_idx", [True, False])
+def test_iwe_on_card_matches_cpu(cuda, round_idx):
+    """The IWE functions on the card against the same call on the CPU: the
+    gathers, warps, indices and weights equal (elementwise f32, one op at a
+    time on both); the splats, whose ``index_add_`` adds in atomic order on
+    the card, within 1e-5 a pixel (sums of fewer than 100 weights of at
+    most 1), and exact at ``round_idx`` (sums of ones)."""
+    from evflow_torch.ops import iwe
+
+    rng = np.random.default_rng(0)
+    B, N, H, W = 2, 4000, 24, 32
+    ev = np.stack([rng.uniform(0, 1, (B, N)), rng.uniform(0, H, (B, N)),
+                   rng.uniform(0, W, (B, N)), rng.choice([-1.0, 1.0], (B, N))], -1)
+    host = dict(ev=torch.tensor(ev, dtype=torch.float32),
+                fm=torch.tensor(rng.normal(0, 0.03, (B, H, W, 2)), dtype=torch.float32),
+                valid=torch.tensor(rng.uniform(size=(B, N)) > 0.1, dtype=torch.float32))
+    host["pos"], host["neg"] = (host["ev"][..., 3] > 0).float(), (host["ev"][..., 3] < 0).float()
+    card = {k: v.to(cuda) for k, v in host.items()}
+
+    def run(t):
+        flow = iwe.lookup_event_flow(t["fm"], t["ev"])
+        idx, w = iwe.get_interpolation(t["ev"], flow, 1.0, (H, W), 64.0, round_idx, t["valid"])
+        return dict(flow=flow, idx=idx, w=w,
+                    deblur=iwe.deblur_events(t["fm"], t["ev"], (H, W), 64.0, round_idx,
+                                             t["pos"], t["valid"], tref=0.5),
+                    pol=iwe.compute_pol_iwe(t["fm"], t["ev"], (H, W), t["pos"], t["neg"], 64.0,
+                                            round_idx, t["valid"]))
+
+    a, b = run(card), run(host)
+    for k in ("flow", "idx", "w"):
+        assert torch.equal(a[k].cpu(), b[k]), k
+    for k in ("deblur", "pol"):
+        if round_idx:
+            assert torch.equal(a[k].cpu(), b[k]), k
+        else:
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=0, atol=1e-5)
+    assert float(b["pol"].sum()) > 0
+
+
+@pytest.mark.parametrize("layout", ["nhwc", "cmajor"])
+def test_fused_evaluate_collect_vis_matches_cpu(cuda, tmp_path, layout):
+    """``evaluate(fused=True, collect_vis=True)`` with the visual config's
+    settings on the card, per window (the IWE beside the step) and in
+    chunks of 8 (the IWE on the host), against ``device="cpu"`` (the
+    kernels' plain versions): the results within 1%, the flows off by
+    more than 0.05 on under 2% of the pixels (bf16 operands summed in
+    another order can flip a spike), and each window's IWE equal to the
+    CPU's IWE of the card's own flow over the window's event list."""
+    from evflow_torch.data.h5_stream import H5EventStream
+    from evflow_torch.data.synthetic import make_dataset
+    from evflow_torch.eval import evaluate
+    from evflow_torch.ops.iwe import compute_pol_iwe
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import seeded_state_dict
+
+    make_dataset(str(tmp_path), num_sequences=2, resolution=(64, 64), events_per_sec=40000,
+                 duration=1.2, fmt="npz")
+    cfg = {"data": {"path": str(tmp_path), "mode": "gtflow_dt1", "window": 1},
+           "model": {"name": "LIFFireFlowNet", "encoding": "cnt", "num_bins": 2,
+                     "base_num_channels": 32},
+           "loader": {"resolution": [32, 32], "std_resolution": [64, 64], "batch_size": 1},
+           "hot_filter": {"enabled": True},
+           "metrics": {"name": ["AEE", "AAE"], "flow_scaling": 128},
+           "vis": {"store": False}}
+    model = build_model(cfg["model"], device="cpu")
+    model.load_state_dict(seeded_state_dict(model, seed=0))
+    cpu_res, cpu_frames = evaluate(cfg, model=model, fused=True, layout=layout, device="cpu",
+                                   debug=True, collect_vis=True)
+    stream = H5EventStream(cfg, 2)
+    batches = [stream.next_batch() for _ in range(len(cpu_frames))]
+    stream.close()
+    for chunk in (1, 8):
+        res, frames = evaluate(cfg, model=model.to(cuda), fused=True, layout=layout,
+                               debug=True, collect_vis=True, chunk=chunk)
+        model.to("cpu")
+        assert len(frames) == len(cpu_frames) >= 20
+        for metric, per_file in cpu_res.items():
+            for fname, value in per_file.items():
+                np.testing.assert_allclose(float(res[metric][fname]), float(value), rtol=0.01,
+                                           err_msg=f"{metric} {fname} chunk {chunk}")
+        for f, g, b in zip(frames, cpu_frames, batches):
+            assert (np.abs(f["flow"] - g["flow"]) > 0.05).mean() < 0.02
+            np.testing.assert_array_equal(f["event_cnt"], g["event_cnt"])
+            pm = torch.from_numpy(b["event_list_pol_mask"])
+            host_iwe = compute_pol_iwe(torch.from_numpy(f["flow"]),
+                                       torch.from_numpy(b["event_list"]), (32, 32),
+                                       pm[..., 0], pm[..., 1], flow_scaling=128, round_idx=True,
+                                       valid=torch.from_numpy(b["event_valid"]))
+            np.testing.assert_array_equal(f["iwe"], host_iwe.numpy())

@@ -180,3 +180,116 @@ def test_metric_classes_match_reference(metric_inputs, cls):
         assert ta.shape == (24, 20)
         np.testing.assert_allclose(ta, ja, rtol=1e-5, atol=1e-5)  # angle maps, as above
         np.testing.assert_array_equal(tn, jn)
+
+
+# -- every window mode, by every encoder --------------------------------------
+
+ALL_KEYS = ("event_cnt", "event_mask", "event_voxel", "event_list", "event_list_pol_mask",
+            "event_valid", "gtflow", "frames", "hot_mask", "dt_input", "dt_gt", "new_seq", "ts")
+AUGMENT = dict(augment=["Horizontal", "Vertical", "Polarity"], augment_prob=[0.5, 0.5, 0.5])
+MODE_CASES = {  # name: (windows, resolution, config sections to update)
+    "gtflow_pooled": (10, 16, {}),
+    "gtflow_dt4_voxel": (40, 32, dict(data=dict(mode="gtflow_dt4", window=0.25),
+                                      model=dict(encoding="voxel", num_bins=5))),
+    "voxel_round_pooled": (10, 16, dict(model=dict(encoding="voxel", num_bins=3,
+                                                   round_encoding=True),
+                                        loader=dict(keep_gt_full_res=False))),
+    "temporal_cnt": (10, 32, dict(model=dict(temporal_cnt=True))),
+    "augment_b2": (12, 16, dict(loader=dict(batch_size=2, **AUGMENT))),
+    "no_caches_fetch2": (12, 16, dict(loader=dict(batch_size=2, event_cache_bytes=0,
+                                                  ts_cache_bytes=0, fetch_workers=2))),
+    "events": (16, 32, dict(data=dict(mode="events", window=2000), loader=dict(batch_size=2))),
+    "events_filtered": (20, 16, dict(data=dict(mode="events", window=1000),
+                                     loader=dict(batch_size=2, **AUGMENT))),
+    "time": (20, 32, dict(data=dict(mode="time", window=0.05), loader=dict(batch_size=2))),
+    "frames": (12, 16, dict(data=dict(mode="frames", window=1),
+                            loader=dict(batch_size=2, **AUGMENT))),
+}
+
+
+@pytest.fixture(scope="module")
+def frames_dataset(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("port_stream_frames"))
+    make_dataset(root, num_sequences=2, resolution=(32, 32), events_per_sec=30000,
+                 duration=0.8, flows=[(10.0, -5.0), (-6.0, 3.0)], with_frames=True)
+    return root
+
+
+def mode_config(root, case, encoder):
+    _, res, updates = MODE_CASES[case]
+    cfg = eval_config(root, res=res, std=32)
+    for section, values in updates.items():
+        cfg[section].update(values)
+    cfg["loader"].update(native_encoder=encoder != "numpy",
+                         fused_assembly=encoder == "native_fused")
+    return cfg
+
+
+@pytest.mark.parametrize("encoder", ["native_fused", "native", "numpy"])
+@pytest.mark.parametrize("case", list(MODE_CASES))
+def test_every_mode_matches_reference(frames_dataset, case, encoder):
+    """Each window mode (with the spatially filtered read, temporal_cnt,
+    augmentation at B=2, the caches off and two fetch workers) by each of
+    the three encoders: every key of every batch equal to the reference's,
+    in value and type, across rollovers; get_iters alike."""
+    import copy
+
+    cfg = mode_config(frames_dataset, case, encoder)
+    bins = cfg["model"]["num_bins"]
+    ours, ref = H5EventStream(cfg, bins), JaxStream(copy.deepcopy(cfg), bins)
+    assert ours.encoder == encoder
+    try:
+        saw_rollover = False
+        for _ in range(MODE_CASES[case][0]):
+            a, b = ours.next_batch(), ref.next_batch()
+            assert set(a) == set(b)
+            for k in ALL_KEYS:
+                if k in b:
+                    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+                    assert np.asarray(a[k]).dtype == np.asarray(b[k]).dtype, k
+            for k in ("epoch_done", "seq_num", "file_names"):
+                assert a[k] == b[k], k
+            assert [ours.get_iters(s) for s in range(ours.batch_size)] == [
+                ref.get_iters(s) for s in range(ref.batch_size)]
+            saw_rollover |= bool(a["new_seq"].any())
+        assert saw_rollover
+        if case == "no_caches_fetch2":  # the uncached reads ran
+            assert not ours._ev_cache and all(f.ts_cache is None for f in ours.open_files)
+    finally:
+        ours.close()
+        ref.close()
+
+
+def test_shuffle_and_end_epoch_match_reference(frames_dataset):
+    cfg = mode_config(frames_dataset, "frames", "native_fused")
+    ours, ref = H5EventStream(cfg, 2), JaxStream(cfg, 2)
+    try:
+        ours.shuffle()
+        ref.shuffle()
+        assert ours.files == ref.files
+        ours.end_epoch()
+        ref.end_epoch()
+        assert (ours.epoch, ours.samples) == (ref.epoch, ref.samples) == (1, 0)
+    finally:
+        ours.close()
+        ref.close()
+
+
+def test_failed_host_build_raises(dataset, tmp_path, monkeypatch):
+    """A host library that does not build stops the stream with the
+    compiler's message; numpy encodes only when the config asks for it."""
+    from evflow_torch.data import native
+
+    broken = tmp_path / "broken.cpp"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", broken)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    cfg = eval_config(dataset)
+    with pytest.raises(RuntimeError, match="host library build failed"):
+        H5EventStream(cfg, 2)
+    cfg["loader"]["native_encoder"] = False
+    stream = H5EventStream(cfg, 2)
+    assert stream.encoder == "numpy"
+    assert stream.next_batch()["event_cnt"].shape == (1, 16, 16, 2)
+    stream.close()

@@ -185,13 +185,20 @@ def test_refusals_match_reference(setup):
 
 
 @pytest.mark.parametrize("key", ["enabled", "store", "activity"])
-def test_vis_settings_raise(setup, key):
-    """The visualisation and activity logs are not ported: asking for them
-    raises instead of running without them."""
+def test_vis_settings_raise(setup, key, tmp_path):
+    """The visualisation settings raise where the reference's do, with its
+    message: the live and stored panels with ``device_metrics`` (which never
+    fetches a flow map), the activity log with the fused step."""
     cfg, v = setup
     cfg = dict(cfg, vis=dict(cfg["vis"], **{key: True}))
-    with pytest.raises(NotImplementedError, match=f"vis.{key}.*queue 1 item 4"):
-        evaluate(cfg, variables=v, device="cpu", debug=True)
+    kw = (dict(fused=True) if key == "activity" else dict(chunk=8, device_metrics=True))
+    kw.update(debug=key != "store", path_results=str(tmp_path))
+    with pytest.raises(ValueError) as ref:
+        jax_evaluate(cfg, variables=v, verbose=False, **kw)
+    with pytest.raises(ValueError) as ours:
+        evaluate(cfg, variables=v, device="cpu", **kw)
+    assert str(ours.value) == str(ref.value)
+    assert ("activity" if key == "activity" else "vis/collect_vis") in str(ours.value)
 
 
 @pytest.mark.parametrize("device_metrics", [False, True])

@@ -405,21 +405,29 @@ def test_probe_cases_run_on_enough_ctas():
     assert D.load_dot_grid(24 * 256, 2) >= 132
 
 
-@pytest.mark.parametrize("body", ["k3", "k4", "k8", "k11", "k12"])
+@pytest.mark.parametrize("body", ["k3", "k4", "k8", "k11", "k12", "k1", "k2", "k5", "k6", "k10"])
 def test_floor_args_are_one_cta(body):
-    """``floor_args`` gives each body one layer of 8 pixels (k8 a one-row
-    window of 8, k12 with w[0]): one CTA of its kernel, whose time is the
-    launch floor; the plain version runs on them."""
+    """``floor_args`` gives each body one layer of 8 pixels (k5 its three
+    slot layers, k6 an 8-pixel image of p[0], k8 a one-row window of 8, the
+    dots with w[0]): one CTA of its kernel, whose time is the launch floor;
+    the plain version runs on them."""
     case = next(c for c in D.probe_cases("cpu") if D.body_of(c) == body)
     args, kwargs = D.floor_args(case)
-    assert tuple(args[0].shape) == (1, 32, 1, 8) and all(t.is_contiguous() for t in args)
+    layers = 3 if body == "k5" else 1
+    if body == "k6":
+        assert tuple(args[0].shape) == (1, 32, 3) and args[1:] == (1, 8)
+    else:
+        assert tuple(args[0].shape) == (layers, 32, 1, 8)
+    assert all(t.is_contiguous() for t in args if isinstance(t, torch.Tensor))
     if body in ("k3", "k11"):
         assert D.store_grid(8) == 1
-    elif body == "k12":
+    elif body in ("k12", "k2"):
         assert D.load_dot_grid(8, 2) == 1
+    elif body in ("k1", "k5", "k6", "k10"):
+        assert -(-8 // D.TP) == 1  # load_sum_kernel and narrow_sum_kernel: TP pixels a CTA
     else:
         assert D.store_bulk_grid(32 * kwargs.get("rows", 1) * 8) == 1
-    if body == "k12":
+    if body in ("k12", "k2"):
         assert tuple(args[1].shape) == (1, 32, 96)
     if body == "k8":
         assert (kwargs["row0"], kwargs["rows"]) == (0, 1)

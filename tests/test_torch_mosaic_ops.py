@@ -160,3 +160,16 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert offenders == []
     assert imports.search("import jax.numpy as jnp") and imports.search("from evflow.ops import x")
     assert not imports.search("from evflow_torch.ops import x")
+
+
+def test_elementwise_floor_args_are_one_cta():
+    """``floor_args`` gives k_misc and k_roll one row of v: one CTA of
+    ``VEC`` elements a thread, whose time is the launch floor; the plain
+    version runs on it."""
+    for case in M.probe_cases("cpu"):
+        if M.body_of(case) == "k_dot3":
+            continue
+        (v,), kwargs = M.floor_args(case)
+        assert tuple(v.shape) == (1, 1, case.args[0].shape[-1]) and v.is_contiguous()
+        assert v.numel() <= M.VEC * 256  # one CTA of 256 threads (csrc/probe_mosaic_ops.cu)
+        assert torch.isfinite(case.plain(v, **kwargs)).all()

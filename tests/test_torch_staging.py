@@ -228,3 +228,19 @@ def test_staging_slope_fit_and_refusal(capsys):
     assert staging_slope.LAYERS == (1, 3, 5, 7)
     assert staging_slope.main([]) == 1
     assert capsys.readouterr().out == ""
+
+
+def test_row_window_floor_args_are_one_cta():
+    """``floor_args`` gives a row-window case one channel and one tile of th
+    rows with its halo: one CTA, whose time is the launch floor; the plain
+    version runs on it."""
+    for case in S.probe_cases("cpu"):
+        if case.fn is not S.row_window_copy:
+            continue
+        (x,), kwargs = S.floor_args(case)
+        th, halo = kwargs["th"], kwargs["halo"]
+        assert tuple(x.shape) == (1, 1, th + 2 * halo, case.args[0].shape[-1])
+        assert x.is_contiguous()
+        assert S.channels_per_cta(1, 1, th + 2 * halo, x.shape[-1], x.element_size(), 132) == 1
+        torch.testing.assert_close(case.plain(x, **kwargs),
+                                   case.plain(*case.args, **kwargs)[:, :1, :th])
