@@ -63,8 +63,32 @@ Phases, each printing JSON lines; any failure exits non-zero:
    event list, chunks within 1e-6 of per window, 7 launches a window; and
    the CLI with ``--fused`` on that config, its ``metrics_0.yml`` equal to
    the in-process per-window run (a host without cv2 renders the panels and
-   writes none, saying so on stderr).
-5. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
+   writes none, saying so on stderr). Then the unfused per-window path
+   through the CLI (no ``--fused``: the unfused f32 model, in a subprocess
+   that keeps PyTorch's default TF32 flags), its ``metrics_0.yml`` within
+   1e-6 relative of the in-process unfused run: ``conv_nhwc`` runs its f32
+   convs in full f32 whatever the process's flags.
+5. ``train``: training on the card (``evflow_torch.probes.train_step``).
+   (a) One TBPTT step at the CPU tests' sizes (LIFFireNet_short, 8
+   channels, B=2, 16x16, P=3, Adam, clip active, ``remat`` full) against
+   the same step on the CPU: loss within 1e-5 relative, every gradient
+   within rtol 5e-4, atol 5e-7, no membrane within 1e-5 of its threshold at
+   a spike. (b) ``configs/train_SNN.yml``'s settings (LIFFireNet_short, 8
+   channels, cnt, 128x128, B=8, P=10, Adam 2e-4, clip 1.0, ``remat`` full)
+   on synthetic sequences through ``train``: steps/s and windows/s over 20
+   steps after 3, the step's split by CUDA events (host batches + stack +
+   upload, the P forward passes, loss, backward, clip + optimizer +
+   clamp), and under ``remat`` none, full and dots the step's peak memory
+   and the card's kernel time by ``torch.profiler`` (by part and by
+   kernel; its share of the timed step is the card's busy share); every
+   loss finite, the parameters moved, no host sync inside a step, the
+   first step's loss within 1% of the CPU's same step. Then ``python3 -m
+   evflow_torch.train_flow`` on a short run and ``python3 -m
+   evflow_torch.eval_flow <run id> --path_runs`` on its checkpoint in
+   subprocesses: both exit 0, a checkpoint and a ``metrics_0.yml``. The
+   training path launches no hand-written kernel (its reference reaches no
+   Pallas kernel either).
+6. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
    256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
    and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
    the sums of a window's 7 launches at each shape; then FusedFireNet
@@ -72,7 +96,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    over 7 rounds of 50 steps enqueued while the card sleeps: the host's
    enqueue time a step and the card's time a step, medians of the rounds
    (the scan is the larger of the two).
-6. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
+7. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
    ``fused_net_loop``, K5 ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7
    ``fused_net_batch``) at full width, 256x256, at B=2 over 8 windows and
    at B=8 (the bench entry point's batch) over 4, in f32 and bf16 state:
@@ -91,7 +115,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
    just before and read just after (1 launch per window).
-7. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
+8. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
    through their entry point ``run_all`` at the JAX probes' shapes
    (launch counters 0 just before, read just after; exactly 1 + repeats
    launches per case), each against its plain version (f32 accumulation
@@ -103,7 +127,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the L stacked weight matrices per step (``torch.matmul`` bf16,
    ``torch._int_mm`` int8), as the yardstick, and the kernel's time over
    each (``x_bound``, ``x_library``).
-8. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
+9. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
    K8d row windows staged by TMA bulk copies, K8e's layer loop, and K8c at
    H=2048) through ``run_all`` (launch counters 0 just before, read just
    after; exactly 1 + repeats launches per case), each against its plain
@@ -119,7 +143,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    for the layer grid. Then K8e at L = 1, 3, 5 and 7 layers
    (``probes/staging_slope.py``) and the slope of its time over L: what
    staging one more layer costs.
-9. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
+10. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
    three cases, one conv+LIF unit in a runtime layer loop with and without
    the LIF and the per-layer output, and K8j, the same body behind staged
    spike slots) at the JAX probes' shapes through ``run_all`` (launch
@@ -130,7 +154,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (the bytes and operations of the cone of rows the outputs need), the
    CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
    W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
-10. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
+11. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
    K8f's k1-k5, K8h's k10-k12 and K8g's k6-k8, a layer loop reading and
    writing a shared-memory scratch at the runtime layer index) at the JAX
    probes' shapes (L=4, C=32, E=24, W=256; k6's p ``[4,32,3]``, k7's w
@@ -157,22 +181,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k7 one ``F.conv2d`` of ``[1, L C, E, W]`` (f32, TF32 off), k8
    ``torch.mul(x[:, :, 8:16], 2)``; and the kernel's time over the bound
    and over the yardstick.
-11. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
+12. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
    K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
    in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
    W=256, bf16 normals) through ``run_all`` (launch counters as in phase
-   10), each against its plain version (k_misc and k_roll equal, each bf16
+   11), each against its plain version (k_misc and k_roll equal, each bf16
    sum rounded once alike; k_dot3 within ``2 sqrt(K) 2^-24 max|out|``),
    with device ms, the launch floor of k_misc and k_roll (one row of v,
    one CTA), the bound, and the yardstick: ``(torch.roll(v, 1, 2) +
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
    (``out_dtype``), and the kernel's time over the bound and the yardstick.
-12. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
+13. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
    K8k's kA and kB, K8l's two, K8m's four and K8n's three chain variants, on
    ``csrc/probe_wholenet_bisect.cu``) at the JAX files' shapes (C=32, H=64,
    W=256, TH=16; B=1 for K8k, 2 for the chain) through ``run_all`` (launch
-   counters as in phase 10), every output of each case (kA's and kB's out;
+   counters as in phase 11), every output of each case (kA's and kB's out;
    the chain's o0, o1 and flow) against its plain version: equal, on
    operands that make every sum exact (``wholenet_bisect.draw_operands``),
    the pred flow within ``2 sqrt(C) 2^-24 max|out|`` plus 4 f32 ulps; with
@@ -202,8 +226,8 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "times", "wholenet", "probes", "staging",
-          "unitloop", "loopdyn", "mosaicops", "bisect")
+PHASES = ("build", "kernels", "model", "protocol", "train", "times", "wholenet", "probes",
+          "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # K1's and K2's cases (case, Cin, recurrent, hard reset), their launches a
@@ -535,6 +559,13 @@ PROTOCOL_MODES = (  # name, evaluate's keywords: fused runs in both layouts, the
 )
 
 
+def rel_diff(a, b):
+    """The largest relative difference of results ``a`` from ``b`` (per
+    metric and file; absolute where ``b``'s value is 0)."""
+    return max(abs(float(a[m][f]) / float(v) - 1.0) if float(v) else abs(float(a[m][f]))
+               for m, per_file in b.items() for f, v in per_file.items())
+
+
 def protocol_run(cfg, model, wrappers, **kw):
     """One evaluate run (``debug`` unless ``kw`` says otherwise) with the
     launch counters set to 0 just before and read just after, then the
@@ -603,10 +634,6 @@ def phase_protocol(state):
     emit({"phase": "protocol", "fused": False, "mode": "window", **rec, "metrics": res,
           "card": name})
 
-    def rel_diff(a, b):
-        return max(abs(float(a[m][f]) / float(v) - 1.0) if float(v) else abs(float(a[m][f]))
-                   for m, per_file in b.items() for f, v in per_file.items())
-
     ref = results["unfused"]["AEE"]
     checks = {}
     for _, layout, _, _ in KERNELS:
@@ -629,6 +656,9 @@ def phase_protocol(state):
     cli = protocol_cli(cfg, model, results[("nhwc", "chunk8_dm")])
     if not cli:
         fails.append("the eval CLI's metrics_0.yml differs from the in-process results")
+    if not protocol_cli(cfg, model, results["unfused"], chunked=False, fused=False, rtol=1e-6):
+        fails.append("the unfused eval CLI's metrics_0.yml is beyond 1e-6 of the in-process "
+                     "unfused run (f32 convs in TF32?)")
     fails += protocol_temporal(state, wrappers, name)
     fails += protocol_visual(state, wrappers, name)
     if fails:
@@ -754,11 +784,13 @@ def protocol_visual(state, wrappers, name) -> list:
     return fails
 
 
-def protocol_cli(cfg, model, expected, chunked=True) -> bool:
+def protocol_cli(cfg, model, expected, chunked=True, fused=True, rtol=None) -> bool:
     """``python3 -m evflow_torch.eval_flow <seeded .pth> --fused --chunk 8
-    --device_metrics`` (or without chunks: ``--fused`` alone) in a
-    subprocess, on the config written as YAML; its metrics_0.yml against
-    the in-process results."""
+    --device_metrics`` (or without chunks: ``--fused`` alone; or neither:
+    the unfused f32 model, whose convs run in full f32 though the
+    subprocess keeps PyTorch's default TF32 flags) in a subprocess, on the
+    config written as YAML; its metrics_0.yml equal to the in-process
+    results, or with ``rtol`` within it relatively."""
     import os
     import subprocess
     from pathlib import Path
@@ -772,6 +804,8 @@ def protocol_cli(cfg, model, expected, chunked=True) -> bool:
         cfg_path.write_text(yaml.safe_dump(cfg))
         cmd = [sys.executable, "-m", "evflow_torch.eval_flow", str(ckpt), "--config",
                str(cfg_path), "--fused", "--path_results", str(out)]
+        if not fused:
+            cmd.remove("--fused")
         if chunked:
             cmd[-2:-2] = ["--chunk", "8", "--device_metrics"]
         t0 = time.perf_counter()
@@ -781,10 +815,100 @@ def protocol_cli(cfg, model, expected, chunked=True) -> bool:
         metrics_file = out / "seeded.pth" / "metrics_0.yml"
         got = yaml.safe_load(metrics_file.read_text()) if metrics_file.exists() else {}
     runid = got.pop("runid", None)
-    ok = proc.returncode == 0 and runid == "seeded.pth" and got == expected
+    diff = rel_diff(got, expected) if rtol is not None and set(got) == set(expected) else None
+    close = got == expected if rtol is None else diff is not None and diff <= rtol
+    ok = proc.returncode == 0 and runid == "seeded.pth" and close
     emit({"phase": "protocol", "cli": " ".join(["python3", *cmd[1:]]), "rc": proc.returncode,
           "seconds": seconds, "metrics_0": got, "equal_to_in_process": got == expected,
-          "stderr_tail": proc.stderr[-2000:], "ok": ok})
+          "max_rel_diff": diff, "rtol": rtol, "stderr_tail": proc.stderr[-2000:], "ok": ok})
+    return ok
+
+
+def phase_train(state):
+    """Training on the card: (a) one small step against the CPU's; (b)
+    ``configs/train_SNN.yml``'s settings through ``train``, measured
+    (``evflow_torch.probes.train_step``); the train and eval CLIs on a
+    short run in subprocesses."""
+    import math
+    import os
+
+    from evflow_torch.probes.train_step import compare_small, measure_full
+
+    name = card()
+    with tempfile.TemporaryDirectory(prefix="evflow_train_") as d:
+        small = compare_small(os.path.join(d, "small"))
+        emit({"phase": "train", "part": "small", **small, "card": name})
+        full = measure_full(os.path.join(d, "full"))
+        losses = full.pop("losses")
+        checks = {"losses_finite": all(math.isfinite(v) for v in losses),
+                  "params_moved": full["params_moved"] > 0,
+                  "no_host_sync_in_step": not any(
+                      r["host_syncs"] for r in full["by_remat"].values()),
+                  "first_loss_within_1pct_of_cpu": full["first_loss_rel_diff"] <= 0.01}
+        emit({"phase": "train", "part": "full_width", **full, "loss_first_last": [
+            losses[0], losses[-1]], "checks": checks, "card": name, "ok": all(checks.values())})
+        cli = train_cli(d)
+    fails = [k for k, v in checks.items() if not v]
+    if not small["ok"]:
+        fails.append("the small step on the card disagrees with the CPU's")
+    if not cli:
+        fails.append("the train or eval CLI failed on a short run")
+    if fails:
+        raise SystemExit("; ".join(fails))
+
+
+def train_cli(d) -> bool:
+    """``python3 -m evflow_torch.train_flow`` with ``configs/train_SNN.yml``'s
+    settings on 2 short synthetic sequences (an epoch in 3 steps), then
+    ``python3 -m evflow_torch.eval_flow <run id> --path_runs`` on the run's
+    checkpoint: both exit 0, the run leaves a ``lowest_loss`` checkpoint
+    and the evaluation its ``metrics_0.yml``."""
+    import glob
+    import os
+    import subprocess
+
+    import yaml
+
+    from evflow_torch.data.synthetic import make_dataset
+    from evflow_torch.probes.train_step import full_config
+
+    data, runs, res = (os.path.join(d, "cli", k) for k in ("data", "runs", "results"))
+    make_dataset(data, num_sequences=2, seed=1, duration=0.35, resolution=(128, 128),
+                 events_per_sec=100_000, fmt="npz")
+    cfg = full_config(data)
+    cfg["loader"]["n_epochs"] = 2
+    train_yml, eval_yml = os.path.join(d, "cli", "train.yml"), os.path.join(d, "cli", "eval.yml")
+    with open(train_yml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    with open(eval_yml, "w") as f:  # no model: the run's model stays
+        yaml.safe_dump({"data": {"path": data, "mode": "gtflow_dt1", "window": 1},
+                        "loader": {"resolution": [128, 128], "batch_size": 1, "augment": []},
+                        "metrics": {"name": ["AEE", "AAE"], "flow_scaling": 128},
+                        "hot_filter": {"enabled": False}}, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmds = [[sys.executable, "-m", "evflow_torch.train_flow", "--config", train_yml,
+             "--path_runs", runs, "--max_steps", "4"]]
+    t0 = time.perf_counter()
+    procs = [subprocess.run(cmds[0], cwd=here, capture_output=True, text=True, timeout=600)]
+    run_dirs = glob.glob(os.path.join(runs, "*", "*"))
+    ckpts = glob.glob(os.path.join(runs, "*", "*", "checkpoints", "lowest_loss", "*", "model.pth"))
+    runid = os.path.basename(run_dirs[0]) if len(run_dirs) == 1 else None
+    got = {}
+    if procs[0].returncode == 0 and runid and ckpts:
+        cmds.append([sys.executable, "-m", "evflow_torch.eval_flow", runid, "--config", eval_yml,
+                     "--path_runs", runs, "--path_results", res])
+        procs.append(subprocess.run(cmds[1], cwd=here, capture_output=True, text=True,
+                                    timeout=600))
+        metrics_file = os.path.join(res, runid, "metrics_0.yml")
+        if os.path.exists(metrics_file):
+            with open(metrics_file) as f:
+                got = yaml.safe_load(f)
+    ok = (len(procs) == 2 and all(p.returncode == 0 for p in procs) and len(ckpts) == 1
+          and got.get("runid") == runid and set(got) >= {"AEE", "AAE"})
+    emit({"phase": "train", "part": "cli", "cli": [" ".join(["python3", *c[1:]]) for c in cmds],
+          "rc": [p.returncode for p in procs], "seconds": time.perf_counter() - t0,
+          "checkpoints": [os.path.relpath(c, runs) for c in ckpts], "metrics_0": got,
+          "stderr_tail": [p.stderr[-1500:] for p in procs], "ok": ok})
     return ok
 
 
@@ -1778,7 +1902,8 @@ def main(argv=None):
 
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
-             "protocol": phase_protocol, "times": phase_times, "wholenet": phase_wholenet,
+             "protocol": phase_protocol, "train": phase_train, "times": phase_times,
+             "wholenet": phase_wholenet,
              "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
              "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops, "bisect": phase_bisect}
     try:

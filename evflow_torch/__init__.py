@@ -1,9 +1,10 @@
 """evflow_torch — the PyTorch/CUDA port of evflow for NVIDIA Hopper.
 
 Mirrors ``evflow``'s module layout (``ops``, ``models``, ``data``, ``loss``,
-``registry``, ``config``, ``eval``, ``utils``) so each counterpart is easy
-to find; ``evflow`` stays the reference. ``eval_flow`` is the counterpart
-of its eval CLI, run as ``python -m evflow_torch.eval_flow``. The package
+``registry``, ``config``, ``eval``, ``train``, ``utils``) so each
+counterpart is easy to find; ``evflow`` stays the reference.
+``eval_flow``, ``train_flow`` and ``train_flow_validation`` are the
+counterparts of its CLIs, run as ``python -m evflow_torch.<cli>``. The package
 imports ``torch`` and ``numpy``, and ``h5py``, ``yaml`` and ``matplotlib``
 only where a call needs them. The kernels that ``evflow`` wrote in Pallas for the TPU are
 hand-written CUDA C++ under ``csrc/``, built at first use (see

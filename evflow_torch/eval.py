@@ -262,8 +262,13 @@ def evaluate(
                              "evaluated in-graph)")
     if checkpoint and variables is None and not checkpoint.endswith((".pth", ".pt")):
         raise NotImplementedError(
-            f"checkpoint {checkpoint!r}: only reference .pth/.pt files are read; evflow "
-            "msgpack checkpoints come with ROADMAP.md queue 1 item 6")
+            f"checkpoint {checkpoint!r}: only .pth/.pt files (the reference's and the "
+            "port's) are read; evflow msgpack checkpoints come with ROADMAP.md queue 1 "
+            "item 12")
+    if int(config["loader"].get("num_workers", 1)) > 1:
+        raise NotImplementedError(
+            "loader.num_workers > 1: the multi-process loader comes with ROADMAP.md "
+            "queue 1 item 11")
 
     device = resolve_device(device)
     model_cfg = config["model"]

@@ -4,23 +4,27 @@ package's ``eval_flow.py``)::
     python -m evflow_torch.eval_flow model.pth --config configs/eval_MVSEC.yml \\
         --fused --chunk 8 --device_metrics
 
-The checkpoint is a reference PyTorch ``.pth``. Unless ``--debug``, the
-config and the per-file results go to ``<path_results>/<name of the
-checkpoint file>/eval_N.yml`` and ``metrics_N.yml``. It runs on the GPU
-unless ``--device cpu``. A run id, evflow msgpack checkpoints,
-``--num_devices > 1`` and ``--profile`` are not ported yet and raise.
+The checkpoint is a PyTorch ``.pth`` (the reference's, or a port
+training checkpoint), or the id of a port training run under
+``--path_runs``: the run's ``params.yaml`` under the config (the config
+wins, the run's model survives) and its newest ``lowest_loss`` checkpoint.
+Unless ``--debug``, the config and the per-file results go to
+``<path_results>/<run id or name of the checkpoint file>/eval_N.yml`` and
+``metrics_N.yml``. It runs on the GPU unless ``--device cpu``. evflow
+msgpack checkpoints, ``--num_devices > 1`` and ``--profile`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("checkpoint", help="reference .pth checkpoint")
+    parser.add_argument("checkpoint", help=".pth checkpoint, or a run id under --path_runs")
     parser.add_argument("--config", default="configs/eval_MVSEC.yml",
                         help="config file, overwrites training settings")
     parser.add_argument("--path_runs", default="runs")
@@ -42,18 +46,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
-def resolve_checkpoint(checkpoint: str, path_runs: str) -> str:
-    """The run id: the checkpoint's file name. Raises for what the port
-    does not read yet: a run id under ``path_runs``, a missing file."""
-    if not os.path.exists(checkpoint):
-        if os.path.isdir(path_runs) and any(
-                os.path.isdir(os.path.join(path_runs, exp, checkpoint))
-                for exp in os.listdir(path_runs)):
-            raise NotImplementedError(
-                f"{checkpoint!r} is a run id under {path_runs}: resolving run ids and "
-                "merging their params comes with ROADMAP.md queue 1 item 6")
-        raise FileNotFoundError(f"no checkpoint file {checkpoint!r}")
-    return os.path.basename(checkpoint.rstrip("/")) or "eval"
+def resolve_checkpoint(checkpoint: str, path_runs: str,
+                       config: Dict[str, Any]) -> Tuple[str, str, Dict[str, Any]]:
+    """``(checkpoint file, run id, config)``. An existing path is a
+    checkpoint file, its run id the file's name. Else a run id under
+    ``path_runs/<experiment>/``: the run's params merged under ``config``
+    (``config.merge_configs``) and its newest ``checkpoints/lowest_loss``
+    epoch's ``model.pth``. Any other name raises ``FileNotFoundError``."""
+    if os.path.exists(checkpoint):
+        return checkpoint, os.path.basename(checkpoint.rstrip("/")) or "eval", config
+    from evflow_torch.config import merge_configs
+    from evflow_torch.utils.checkpoint import CKPT_NAME
+    from evflow_torch.utils.tracker import Run
+
+    for exp in sorted(os.listdir(path_runs)) if os.path.isdir(path_runs) else []:
+        run_dir = os.path.join(path_runs, exp, checkpoint)
+        if not os.path.isdir(run_dir):
+            continue
+        train_params = Run.load_params(path_runs, exp, checkpoint)
+        config = merge_configs({k: str(v) for k, v in train_params.items()}, config)
+        lowest = os.path.join(run_dir, "checkpoints", "lowest_loss")
+        epochs = sorted(os.listdir(lowest), key=int) if os.path.isdir(lowest) else []
+        if not epochs:
+            raise FileNotFoundError(f"run {checkpoint!r} has no lowest_loss checkpoint")
+        return os.path.join(lowest, epochs[-1], CKPT_NAME), checkpoint, config
+    raise FileNotFoundError(f"no checkpoint file or run id {checkpoint!r}")
 
 
 def run(config: Dict[str, Any], checkpoint: str, runid: str, path_results: str,
@@ -84,8 +101,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, str]]:
                                   "ROADMAP.md queue 1 item 10")
     from evflow_torch.config import load_config
 
-    runid = resolve_checkpoint(args.checkpoint, args.path_runs)
-    return run(load_config(args.config), args.checkpoint, runid, args.path_results,
+    ckpt, runid, config = resolve_checkpoint(args.checkpoint, args.path_runs,
+                                             load_config(args.config))
+    return run(config, ckpt, runid, args.path_results,
                debug=args.debug, max_windows=args.max_windows, fused=args.fused,
                layout=args.layout, chunk=args.chunk, device_metrics=args.device_metrics,
                device=args.device)

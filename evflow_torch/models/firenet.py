@@ -44,9 +44,12 @@ def activity_fractions(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.T
 class FireNet(nn.Module):
     """FireNet family with snn.Leaky cells (``cell_family="snn"``).
 
-    ``forward(event_voxel, event_cnt, states, log=False)`` runs one event
-    window and returns ``({"flow": [flow [B, H, W, 2]], "activity": ...},
-    new_states)``; with ``log`` the activity is each layer's fraction of
+    ``forward(event_voxel, event_cnt, states, log=False, timestep=None)``
+    runs one event window and returns ``({"flow": [flow [B, H, W, 2]],
+    "activity": ...}, new_states)``; ``timestep`` is the pass's index into
+    TEBN's per-timestep scales (the trainer's ``p % T``), and in
+    ``.train()`` mode the norms use batch statistics and update their
+    running ones. With ``log`` the activity is each layer's fraction of
     nonzero activations (``activity_fractions`` of the input, every unit's
     spikes and the flow, keyed ``"<i>:<name>"``), else None. ``compute_dtype``
     (e.g. ``torch.bfloat16``) runs the convolutions in that type while the
@@ -63,7 +66,8 @@ class FireNet(nn.Module):
                  hard_reset: bool = True, tebn: bool = False,
                  num_timesteps: int = 4, mpbn: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
-                 w_scale_pred: float = 0.01):
+                 w_scale_pred: float = 0.01, learn_leak: bool = True,
+                 learn_thresh: bool = True, detach: bool = True):
         super().__init__()
         if cell_family != "snn":
             raise NotImplementedError(
@@ -84,11 +88,13 @@ class FireNet(nn.Module):
         self.tebn = tebn
         self.mpbn = mpbn
         self.compute_dtype = compute_dtype
+        self.num_timesteps = num_timesteps
 
         C = base_num_channels
         common = dict(kernel_size=kernel_size, leak=leak, thresh=thresh,
                       hard_reset=hard_reset, tebn=tebn, num_timesteps=num_timesteps,
-                      mpbn=mpbn, compute_dtype=compute_dtype)
+                      mpbn=mpbn, compute_dtype=compute_dtype, learn_leak=learn_leak,
+                      learn_thresh=learn_thresh, detach=detach)
         mid = SNNConvLIFRecurrent if recurrent else SNNConvLIF
         for name in self.unit_names:
             cls = mid if name in ("G1", "G2") else SNNConvLIF
@@ -121,7 +127,8 @@ class FireNet(nn.Module):
 
     def forward(self, event_voxel: Optional[torch.Tensor],
                 event_cnt: Optional[torch.Tensor],
-                states: Optional[Sequence[Optional[LIFState]]] = None, log: bool = False):
+                states: Optional[Sequence[Optional[LIFState]]] = None, log: bool = False,
+                timestep: Optional[int] = None):
         x = event_voxel if self.encoding == "voxel" else event_cnt
         if x is None:
             raise ValueError(f"the {self.encoding} input is None")
@@ -134,7 +141,7 @@ class FireNet(nn.Module):
         taps = {"0:input": x}
         h = x
         for i, (name, st) in enumerate(zip(self.unit_names, states)):
-            h, s = getattr(self, name)(h, st)
+            h, s = getattr(self, name)(h, st, timestep=timestep)
             new_states.append(s)
             taps[f"{i + 1}:{name}"] = h
         flow = self.pred(h)

@@ -1,23 +1,50 @@
-"""Inference normalisation layers (port of ``evflow/models/norm.py``).
+"""Normalisation layers (port of ``evflow/models/norm.py``).
 
 Channels-last ``[..., C]`` like the reference package. Parameter and buffer
 names follow ``torch.nn.BatchNorm2d`` (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``), so reference
-``.pth`` state dicts load as they are. This slice runs the running
-statistics only; the training-mode statistics come with the training slice,
-and a module in training mode raises rather than silently using them.
+``.pth`` state dicts load as they are.
+
+In training mode the layers follow flax's ``nn.BatchNorm`` rather than
+``torch.nn.BatchNorm2d``: the batch mean and the biased variance over every
+axis but the last, the variance as ``E[x^2] - E[x]^2`` (clipped at 0), and
+running statistics decayed by 0.9 towards the batch's (biased) ones.
+Inside ``frozen_running_stats(model)`` the model's running statistics are
+left as they are: the trainer recomputes a checkpointed forward in it, so
+that each pass updates them once.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
-__all__ = ["BatchNorm", "TEBN", "MPBN"]
+__all__ = ["BatchNorm", "TEBN", "MPBN", "frozen_running_stats"]
+
+MOMENTUM = 0.9  # flax's decay of the running statistics (torch momentum 0.1)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(model: nn.Module):
+    """The model's train-mode norms normalise with batch statistics but
+    leave their running statistics unchanged (a checkpointed pass's
+    recompute)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen = False
 
 
 class BatchNorm(nn.Module):
-    """``BatchNorm2d`` at inference over the last axis (eps 1e-5)."""
+    """BatchNorm over the last axis (eps 1e-5): running statistics in eval
+    mode, batch statistics (updating the running ones) in training mode."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -27,27 +54,41 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm comes with the training slice; call .eval()")
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.maximum(torch.zeros_like(mean), (x * x).mean(dims) - mean * mean)
+            if not self.frozen:
+                with torch.no_grad():
+                    self.running_mean.copy_(MOMENTUM * self.running_mean + (1 - MOMENTUM) * mean)
+                    self.running_var.copy_(MOMENTUM * self.running_var + (1 - MOMENTUM) * var)
+                    self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
         # flax's order of operations: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class TEBN(nn.Module):
-    """Temporal Effective BN at inference: BN, then the mean over time of
-    the per-timestep scale ``p [T, C, 1, 1]`` (PARITY.md divergence 10)."""
+    """Temporal Effective BN: BN, then the per-timestep scale ``p [T, C, 1,
+    1]`` at ``timestep`` (clipped into [0, T-1]), or without a timestep
+    the mean of ``p`` over time (PARITY.md divergence 10)."""
 
     def __init__(self, num_features: int, num_timesteps: int = 4):
         super().__init__()
         self.bn = BatchNorm(num_features)
         self.p = nn.Parameter(torch.ones(num_timesteps, num_features, 1, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(x) * self.p.mean(dim=0).reshape(-1)
+    def forward(self, x: torch.Tensor, timestep: Optional[int] = None) -> torch.Tensor:
+        if timestep is None:
+            p_t = self.p.mean(dim=0)
+        else:
+            p_t = self.p[min(max(int(timestep), 0), self.p.shape[0] - 1)]
+        return self.bn(x) * p_t.reshape(-1)
 
 
 class MPBN(nn.Module):

@@ -72,8 +72,10 @@ def get_interpolation(events: torch.Tensor, flow: torch.Tensor, tref: Tref,
         bot, right = torch.floor(warped[..., 0:1] + 1.0), torch.floor(warped[..., 1:2] + 1.0)
         idx = torch.cat([torch.cat(c, dim=-1) for c in
                          ((top, left), (top, right), (bot, left), (bot, right))], dim=1)
-        weights = torch.prod(torch.clamp(1.0 - (warped.repeat(1, 4, 1) - idx).abs(), min=0.0),
-                             dim=-1)
+        # the two factors multiplied, not torch.prod: its backward syncs the
+        # host (a check for zeros) and runs a scan
+        hat = torch.clamp(1.0 - (warped.repeat(1, 4, 1) - idx).abs(), min=0.0)
+        weights = hat[..., 0] * hat[..., 1]
     in_bounds = (idx[..., 0] >= 0) & (idx[..., 0] < H) & (idx[..., 1] >= 0) & (idx[..., 1] < W)
     weights = weights * in_bounds.to(weights.dtype)
     if valid is not None:

@@ -3,10 +3,11 @@
 ``leaky_step`` is the snntorch ``snn.Leaky`` update with
 ``reset_delay=False`` that the default FireNet cells use. State is an
 explicit ``LIFState(mem, spk)`` of tensors. The cells detach the membrane
-carry after every step; the spike carry is not detached, so recurrent-spike
-gradients flow within a loss window (the trainer detaches at window
-boundaries). ``sigmoid_lif_step`` and ``export_lif_step`` come with later
-slices.
+carry after every step (unless ``detach=False``); the spike carry is not
+detached, so recurrent-spike gradients flow within a loss window (the
+trainer detaches at window boundaries). ``sigmoid_lif_step`` and
+``export_lif_step`` come with the sigmoid-family cells (ROADMAP.md queue 1
+item 5).
 """
 
 from __future__ import annotations
@@ -55,7 +56,8 @@ def leaky_step(
     if reset not in ("zero", "subtract"):
         raise ValueError(f"reset must be 'zero' or 'subtract', got {reset!r}")
 
-    beta_c = beta.clamp(0.0, 1.0)
+    # jnp.clip's gradient: half to each side at a bound (clamp passes it whole)
+    beta_c = torch.minimum(torch.maximum(beta, beta.new_zeros(())), beta.new_ones(()))
     reset_prev = heaviside(mem - threshold).detach()
 
     base = beta_c * mem + ff

@@ -1,9 +1,10 @@
 """Surrogate-gradient spike functions (port of ``evflow/ops/surrogate.py``).
 
 Forward is an exact Heaviside step; backward substitutes a smooth
-surrogate derivative (``torch.autograd.Function``). This slice ports the
-step and the snntorch ATan surrogate that the ``snn.Leaky`` cells use; the
-other four surrogates come with the training slice.
+surrogate derivative (``torch.autograd.Function``). The port has the step
+and the snntorch ATan surrogate that the ``snn.Leaky`` cells use; the other
+four surrogates come with the sigmoid-family cells (ROADMAP.md queue 1
+item 5).
 """
 
 from __future__ import annotations

@@ -29,4 +29,8 @@ wrapper and a ``main()`` that prints the probe's measurements on the card:
   conv, seven chained convs and two chained conv+LIF units in nine
   variants over a row window whose rows outside the image are read as
   they are (``python -m evflow_torch.probes.wholenet_bisect``).
+
+Beside them, ``protocol_host`` times the protocol's host work and
+``train_step`` holds and measures the training step on the card
+(``python -m evflow_torch.probes.train_step``); neither has a kernel.
 """

@@ -1,19 +1,22 @@
-"""Model and metric registries (port of the FireNet builders and
-``build_metrics`` of ``evflow/registry.py``).
+"""Model, optimizer and metric registries (port of the FireNet builders,
+``build_optimizer`` and ``build_metrics`` of ``evflow/registry.py``).
 
-Whitelisted factories keyed by the config's ``model.name`` and
-``metrics.name``, over the same config schema as the reference package.
+Whitelisted factories keyed by the config's ``model.name``,
+``optimizer.name`` and ``metrics.name``, over the same config schema as the
+reference package. The optimizers follow optax's defaults and update rules
+(the reference trains with optax), on ``torch.optim``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import torch
 
 from evflow_torch.device import resolve_device
 
-__all__ = ["build_model", "build_metrics", "model_names", "firenet_kwargs"]
+__all__ = ["build_model", "build_metrics", "build_optimizer", "model_names",
+           "firenet_kwargs", "OptaxRMSprop"]
 
 _FIRENETS: Dict[str, Dict[str, bool]] = {
     "LIFFireNet": dict(recurrent=True, short=False),
@@ -60,8 +63,9 @@ def firenet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     for key in ("leak", "thresh"):
         if key in sn:
             kwargs[key] = tuple(sn[key])
-    if "hard_reset" in sn:
-        kwargs["hard_reset"] = bool(sn["hard_reset"])
+    for key in ("learn_leak", "learn_thresh", "hard_reset", "detach"):
+        if key in sn:
+            kwargs[key] = bool(sn[key])
     if cfg.get("compute_dtype") == "bfloat16":
         kwargs["compute_dtype"] = torch.bfloat16
     return kwargs
@@ -79,6 +83,78 @@ def build_model(model_cfg: Dict[str, Any],
         raise KeyError(f"Unknown model {name!r}. Registered: {model_names()}")
     model = FireNet(**_FIRENETS[name], **firenet_kwargs(model_cfg))
     return model.to(resolve_device(device)).eval()
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop`` (uncentered, without bias correction)::
+
+      nu  = (1 - decay) * g^2 + decay * nu      (nu starts at initial_scale)
+      u   = rsqrt(nu + eps) * g                 (eps inside the root)
+      t   = u + momentum * t  (with momentum; nesterov: u + momentum * t_new)
+      p  -= lr * (t or u)
+
+    ``torch.optim.RMSprop`` differs (alpha 0.99, eps outside the root, nu
+    from 0), so no torch flag reproduces it."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float, decay: float = 0.9,
+                 eps: float = 1e-8, initial_scale: float = 0.0,
+                 momentum: Optional[float] = None, nesterov: bool = False):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, initial_scale=initial_scale,
+                                      momentum=momentum, nesterov=nesterov))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["nu"] = torch.full_like(p, group["initial_scale"])
+                    if group["momentum"] is not None:
+                        st["trace"] = torch.zeros_like(p)
+                g, nu = p.grad, st["nu"]
+                nu.copy_((1 - group["decay"]) * (g * g) + group["decay"] * nu)
+                u = torch.rsqrt(nu + group["eps"]) * g
+                if group["momentum"] is not None:
+                    t = st["trace"]
+                    t.copy_(u + group["momentum"] * t)
+                    u = u + group["momentum"] * t if group["nesterov"] else t.clone()
+                p.sub_(group["lr"] * u)
+
+
+def _adam(params, lr, b1=0.9, b2=0.999, eps=1e-8):
+    return torch.optim.Adam(params, lr=lr, betas=(float(b1), float(b2)), eps=float(eps))
+
+
+def _adamw(params, lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4):
+    # optax decays by 1e-4 by default (torch: 1e-2); both decay the old weights
+    return torch.optim.AdamW(params, lr=lr, betas=(float(b1), float(b2)), eps=float(eps),
+                             weight_decay=float(weight_decay))
+
+
+def _sgd(params, lr, momentum=None, nesterov=False):
+    return torch.optim.SGD(params, lr=lr, momentum=float(momentum or 0.0),
+                           nesterov=bool(nesterov))
+
+
+# optax's keyword names and defaults
+_OPTIMIZERS: Dict[str, Callable[..., torch.optim.Optimizer]] = {
+    "Adam": _adam, "AdamW": _adamw, "SGD": _sgd, "RMSprop": OptaxRMSprop}
+
+
+def build_optimizer(opt_cfg: Dict[str, Any],
+                    params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
+    """The config's ``optimizer`` section (``name``, ``lr`` and optax's
+    keywords: ``b1``, ``b2``, ``eps``, ``weight_decay`` for AdamW,
+    ``momentum``, ``nesterov``, ``decay``, ``initial_scale``) as a torch
+    optimizer over ``params``. An unknown keyword raises ``TypeError``, as
+    optax does."""
+    name = opt_cfg.get("name", "Adam")
+    if name not in _OPTIMIZERS:
+        raise KeyError(f"Unknown optimizer {name!r}. Registered: {sorted(_OPTIMIZERS)}")
+    kw = {k: v for k, v in opt_cfg.items() if k not in ("name", "lr")}
+    return _OPTIMIZERS[name](list(params), float(opt_cfg.get("lr", 2e-4)), **kw)
 
 
 def build_metrics(config: Dict[str, Any], flow_scaling: float) -> List[Callable]:

@@ -4,7 +4,8 @@ path (with the visualisation's IWE on the card), the IWE functions against
 their CPU run, the whole-network kernels (K3, K4, K5, K6, K7) against
 ``firenet_step_plain``, and the in-kernel dot, staging, unit-loop,
 runtime-indexed loop, Mosaic-ops and whole-net bisection probes against
-theirs.
+theirs; ``conv_nhwc`` in full f32 under PyTorch's default TF32 flags, and
+one training step against the CPU's.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -1416,3 +1417,47 @@ def test_fused_evaluate_collect_vis_matches_cpu(cuda, tmp_path, layout):
                                        pm[..., 0], pm[..., 1], flow_scaling=128, round_idx=True,
                                        valid=torch.from_numpy(b["event_valid"]))
             np.testing.assert_array_equal(f["iwe"], host_iwe.numpy())
+
+
+@pytest.mark.parametrize("cin,cout,k", [(32, 32, 3), (2, 32, 3), (32, 2, 1)],
+                         ids=["unit", "head", "pred"])
+def test_conv_nhwc_is_full_f32_under_default_tf32(cuda, monkeypatch, cin, cout, k):
+    """With PyTorch's default (cuDNN may run f32 convs in TF32),
+    ``conv_nhwc`` still computes in f32: on f32 normals at B=2, 128x128,
+    within 2 sqrt(k k Cin) 2^-24 max|out| of a float64 conv on the CPU (the
+    f32 bar of PERF.md section 2). A TF32 conv misses the bar (checked on
+    the 32-channel unit: it rounds its operands to 10 mantissa bits)."""
+    import torch.nn.functional as F
+
+    from evflow_torch.models.cells import conv_nhwc
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    rng = np.random.default_rng(0)
+    conv = torch.nn.Conv2d(cin, cout, k, padding=k // 2, bias=k == 1)
+    with torch.no_grad():
+        conv.weight.copy_(torch.tensor(rng.normal(0, 1, tuple(conv.weight.shape)),
+                                       dtype=torch.float32))
+    x = torch.tensor(rng.normal(0, 1, (2, 128, 128, cin)), dtype=torch.float32)
+    exact = F.conv2d(x.double().permute(0, 3, 1, 2), conv.weight.double(),
+                     None if conv.bias is None else conv.bias.double(), padding=k // 2)
+    exact = exact.permute(0, 2, 3, 1)
+    bar = 2 * np.sqrt(k * k * cin) * 2.0 ** -24 * float(exact.abs().max())
+    conv = conv.to(cuda)
+    with torch.no_grad():
+        got = conv_nhwc(x.to(cuda), conv).double().cpu()
+        assert float((got - exact).abs().max()) <= bar
+        if cin == 32 and k == 3:
+            tf32 = F.conv2d(x.to(cuda).permute(0, 3, 1, 2), conv.weight, None, padding=1)
+            tf32 = tf32.permute(0, 2, 3, 1).double().cpu()
+            assert float((tf32 - exact).abs().max()) > bar
+
+
+def test_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One TBPTT step of the small case (LIFFireNet_short, 8 channels, B=2,
+    16x16, P=3, Adam with the clip active, remat full) on the card against
+    the CPU's: loss within 1e-5 relative, every gradient within rtol 5e-4,
+    atol 5e-7, no membrane within 1e-5 of its threshold at a spike."""
+    from evflow_torch.probes.train_step import compare_small
+
+    rec = compare_small(str(tmp_path))
+    assert rec["ok"], rec

@@ -79,16 +79,29 @@ def test_cli_refuses_what_is_not_ported(workspace, tmp_path, extra, match):
 
 
 def test_cli_refuses_a_run_id(workspace, tmp_path):
-    """A name that is no file but a run under --path_runs raises, naming
-    the item that brings run ids; any other missing name is not found."""
-    (tmp_path / "runs" / "Default" / "abc123").mkdir(parents=True)
+    """A name that is no file but a port training run under --path_runs
+    resolves to the run's newest ``lowest_loss`` checkpoint (the same
+    results as the file itself, written under the run id); a run without
+    one, and any other missing name, raise ``FileNotFoundError``."""
+    runs = tmp_path / "runs" / "Default"
+    (runs / "empty1").mkdir(parents=True)
+    (runs / "empty1" / "params.yaml").write_text(yaml.safe_dump(read(workspace["cfg"])))
+    for epoch in (3, 12):
+        ckpt_dir = runs / "abc123" / "checkpoints" / "lowest_loss" / str(epoch)
+        ckpt_dir.mkdir(parents=True)
+        sd = torch.load(workspace["ckpt"]) if epoch == 12 else {}
+        torch.save({"model_state_dict": sd, "epoch": epoch}, ckpt_dir / "model.pth")
+    (runs / "abc123" / "params.yaml").write_text(yaml.safe_dump(read(workspace["cfg"])))
     base = ["--config", workspace["cfg"], "--device", "cpu", "--path_runs",
-            str(tmp_path / "runs"), "--path_results", str(tmp_path / "r")]
-    with pytest.raises(NotImplementedError, match="run id.*queue 1 item 6"):
-        main(["abc123", *base])
+            str(tmp_path / "runs"), "--path_results", str(tmp_path / "r"), "--max_windows", "3"]
+    with pytest.raises(FileNotFoundError, match="lowest_loss"):
+        main(["empty1", *base])
     with pytest.raises(FileNotFoundError):
         main(["nothing.pth", *base])
     assert not (tmp_path / "r").exists()
+    by_run = main(["abc123", *base])
+    assert read(tmp_path / "r" / "abc123" / "metrics_0.yml")["runid"] == "abc123"
+    assert by_run == main([workspace["ckpt"], *base])
 
 
 def test_cli_runs_on_the_card_unless_asked(workspace, tmp_path, monkeypatch):
