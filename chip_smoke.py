@@ -88,7 +88,37 @@ Phases, each printing JSON lines; any failure exits non-zero:
    subprocesses: both exit 0, a checkpoint and a ``metrics_0.yml``. The
    training path launches no hand-written kernel (its reference reaches no
    Pallas kernel either).
-6. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
+6. ``quant``: the quantization path on the card
+   (``evflow_torch.probes.quant_step``). (a) One QAT step (full, and
+   ``Conv_only``) at the CPU tests' sizes against the CPU's (kernels on a
+   2^-12 grid: a conv of spikes sums exactly, so both devices quantise the
+   same values; the CPU tests' bars and guards: no membrane within 1e-5 of
+   its threshold at a spike, no membrane-quantiser index within 4e-5 and no
+   ``x / s`` of the head's conv output within 1e-4 of where its rounding or
+   clip turns),
+   and a sigmoid-family LIFFireNet over 3 windows against the CPU (flow
+   and membranes within 1e-5, spikes equal). (b) ``configs/train_SNN.yml``'s
+   cell (LIFFireNet_short, 8 channels, 128x128, B=8, P=10, ``remat`` full)
+   through ``train`` without quantization, with full QAT and with
+   ``Conv_only`` QAT, each as phase ``train`` measures it: steps/s,
+   windows/s, the split, the card's kernel ms and launches a step and its
+   busy share, peak memory, no host sync inside a step, the first loss
+   within 1% of the CPU's. (c) PTQ of the phase-4 model: ``calibrate_model_ptq``
+   over 50 batches (profiles over 100), ``full`` and ``states_only``, both
+   with ``auto_tune``, on the card and on the CPU (scales within rtol 1e-5,
+   recommended ranges equal); each card model under ``evaluate`` per window,
+   in chunks of 8 (a CUDA graph of the unfused quantised model) and with
+   the metrics on the device, windows/s and the host split as phase
+   ``protocol`` prints them: chunks within 1e-6 of per window, device
+   metrics within 1e-5 of the host's. (d) An FP32 run, then in
+   subprocesses ``python3 -m evflow_torch.train_flow_quant --prev_runid
+   <run> --calibration static``, ``python3 -m evflow_torch.eval_flow_quant
+   <QAT run> --mode full_qat`` and ``<FP32 run> --mode ptq --auto_tune_lif
+   --chunk 8 --device_metrics``: all exit 0 and write their
+   ``metrics_0.yml``, the PTQ one equal to the same run in-process. The
+   quantization path launches no hand-written kernel (its reference reaches
+   no Pallas kernel either).
+7. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
    256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
    and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
    the sums of a window's 7 launches at each shape; then FusedFireNet
@@ -96,7 +126,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    over 7 rounds of 50 steps enqueued while the card sleeps: the host's
    enqueue time a step and the card's time a step, medians of the rounds
    (the scan is the larger of the two).
-7. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
+8. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
    ``fused_net_loop``, K5 ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7
    ``fused_net_batch``) at full width, 256x256, at B=2 over 8 windows and
    at B=8 (the bench entry point's batch) over 4, in f32 and bf16 state:
@@ -115,7 +145,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
    just before and read just after (1 launch per window).
-8. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
+9. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
    through their entry point ``run_all`` at the JAX probes' shapes
    (launch counters 0 just before, read just after; exactly 1 + repeats
    launches per case), each against its plain version (f32 accumulation
@@ -127,7 +157,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the L stacked weight matrices per step (``torch.matmul`` bf16,
    ``torch._int_mm`` int8), as the yardstick, and the kernel's time over
    each (``x_bound``, ``x_library``).
-9. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
+10. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
    K8d row windows staged by TMA bulk copies, K8e's layer loop, and K8c at
    H=2048) through ``run_all`` (launch counters 0 just before, read just
    after; exactly 1 + repeats launches per case), each against its plain
@@ -143,7 +173,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    for the layer grid. Then K8e at L = 1, 3, 5 and 7 layers
    (``probes/staging_slope.py``) and the slope of its time over L: what
    staging one more layer costs.
-10. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
+11. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
    three cases, one conv+LIF unit in a runtime layer loop with and without
    the LIF and the per-layer output, and K8j, the same body behind staged
    spike slots) at the JAX probes' shapes through ``run_all`` (launch
@@ -154,7 +184,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (the bytes and operations of the cone of rows the outputs need), the
    CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
    W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
-11. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
+12. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
    K8f's k1-k5, K8h's k10-k12 and K8g's k6-k8, a layer loop reading and
    writing a shared-memory scratch at the runtime layer index) at the JAX
    probes' shapes (L=4, C=32, E=24, W=256; k6's p ``[4,32,3]``, k7's w
@@ -181,22 +211,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k7 one ``F.conv2d`` of ``[1, L C, E, W]`` (f32, TF32 off), k8
    ``torch.mul(x[:, :, 8:16], 2)``; and the kernel's time over the bound
    and over the yardstick.
-12. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
+13. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
    K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
    in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
    W=256, bf16 normals) through ``run_all`` (launch counters as in phase
-   11), each against its plain version (k_misc and k_roll equal, each bf16
+   12), each against its plain version (k_misc and k_roll equal, each bf16
    sum rounded once alike; k_dot3 within ``2 sqrt(K) 2^-24 max|out|``),
    with device ms, the launch floor of k_misc and k_roll (one row of v,
    one CTA), the bound, and the yardstick: ``(torch.roll(v, 1, 2) +
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
    (``out_dtype``), and the kernel's time over the bound and the yardstick.
-13. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
+14. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
    K8k's kA and kB, K8l's two, K8m's four and K8n's three chain variants, on
    ``csrc/probe_wholenet_bisect.cu``) at the JAX files' shapes (C=32, H=64,
    W=256, TH=16; B=1 for K8k, 2 for the chain) through ``run_all`` (launch
-   counters as in phase 11), every output of each case (kA's and kB's out;
+   counters as in phase 12), every output of each case (kA's and kB's out;
    the chain's o0, o1 and flow) against its plain version: equal, on
    operands that make every sum exact (``wholenet_bisect.draw_operands``),
    the pred flow within ``2 sqrt(C) 2^-24 max|out|`` plus 4 f32 ulps; with
@@ -226,8 +256,8 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "train", "times", "wholenet", "probes",
-          "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
+PHASES = ("build", "kernels", "model", "protocol", "train", "quant", "times", "wholenet",
+          "probes", "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # K1's and K2's cases (case, Cin, recurrent, hard reset), their launches a
@@ -909,6 +939,165 @@ def train_cli(d) -> bool:
           "rc": [p.returncode for p in procs], "seconds": time.perf_counter() - t0,
           "checkpoints": [os.path.relpath(c, runs) for c in ckpts], "metrics_0": got,
           "stderr_tail": [p.stderr[-1500:] for p in procs], "ok": ok})
+    return ok
+
+
+def phase_quant(state):
+    """Quantization on the card (``evflow_torch.probes.quant_step``): (a) the
+    small QAT step (full, Conv_only) and a sigmoid-family forward against
+    the CPU; (b) ``configs/train_SNN.yml``'s cell with QAT (full,
+    Conv_only) beside the FP32 step, measured; (c) PTQ calibration of the
+    phase-4 model on the card against the CPU, then ``evaluate`` per window,
+    in chunks of 8 and with the metrics on the device; (d) the QAT-train
+    and quantized-eval CLIs on a short run in subprocesses."""
+    import math
+    import os
+
+    from evflow_torch.probes.quant_step import compare_small, measure_qat
+
+    name = card()
+    fails = []
+    with tempfile.TemporaryDirectory(prefix="evflow_quant_") as d:
+        small = compare_small(os.path.join(d, "small"))
+        emit({"phase": "quant", "part": "small", **small, "card": name})
+        if not small["ok"]:
+            fails.append("the small QAT step or the sigmoid forward on the card disagrees "
+                         "with the CPU's")
+        for mode, r in measure_qat(os.path.join(d, "qat")).items():
+            losses = r.pop("losses")
+            checks = {"losses_finite": all(math.isfinite(v) for v in losses),
+                      "params_moved": r["params_moved"] > 0,
+                      "no_host_sync_in_step": r["by_remat"]["full"]["host_syncs"] == 0,
+                      "first_loss_within_1pct_of_cpu": r["first_loss_rel_diff"] <= 0.01}
+            emit({"phase": "quant", "part": "qat_full_width", "mode": mode, **r,
+                  "loss_first_last": [losses[0], losses[-1]], "checks": checks, "card": name,
+                  "ok": all(checks.values())})
+            fails += [f"qat {mode}: {k}" for k, v in checks.items() if not v]
+        fails += quant_ptq(state, name)
+        if not quant_cli(state, d):
+            fails.append("a quantization CLI failed, or the PTQ CLI's results differ from "
+                         "the in-process run's")
+    if fails:
+        raise SystemExit("; ".join(fails))
+
+
+def quant_ptq(state, name) -> list:
+    """PTQ of the phase-4 model (configs/eval_MVSEC.yml's settings, seeded
+    weights): ``calibrate_model_ptq`` over 50 batches (profiles over 100)
+    in ``full`` mode and in ``states_only``, both with ``auto_tune``, on the
+    card and on the CPU (scales within rtol 1e-5, ranges equal); then each
+    card model under ``evaluate`` per window, in chunks of 8 and with the
+    metrics on the device: windows/s and the host split, chunks within 1e-6
+    of per window, device metrics within 1e-5 of the host's."""
+    import numpy as np
+
+    from evflow_torch.eval import evaluate
+    from evflow_torch.probes.quant_step import compare_calibration
+
+    cfg = eval_config(dataset(state))
+    sd = {k: v.cpu() for k, v in seeded_firenet().state_dict().items()}
+    fails = []
+    for mode in ("full", "states_only"):
+        model, rec = compare_calibration(cfg, sd, mode)
+        emit({"phase": "quant", "part": "ptq_calibration", **rec, "card": name})
+        if not rec["ok"]:
+            fails.append(f"ptq {mode}: the card's scales or ranges differ from the CPU's")
+        # the first streams and graph captures of a process run slower: not measured
+        evaluate(cfg, model=model, debug=True, max_windows=2)
+        evaluate(cfg, model=model, debug=True, max_windows=16, chunk=8, device_metrics=True)
+        results = {}
+        for run, kw in PROTOCOL_MODES:
+            res, prec = protocol_run(cfg, model, {}, **kw)
+            results[run] = res
+            emit({"phase": "quant", "part": "ptq_evaluate", "mode": mode, "run": run, **kw,
+                  **prec, "metrics": res, "card": name})
+        checks = {"chunk8_vs_window": rel_diff(results["chunk8"], results["window"]),
+                  "dm_vs_window": rel_diff(results["chunk8_dm"], results["window"])}
+        values = [float(v) for r in results.values() for m in r.values() for v in m.values()]
+        ok = (checks["chunk8_vs_window"] <= 1e-6 and checks["dm_vs_window"] <= 1e-5
+              and len(results["window"]["AEE"]) == 2 and bool(np.isfinite(values).all()))
+        emit({"phase": "quant", "part": "ptq_evaluate", "mode": mode, "rel_diffs": checks,
+              "ok": ok})
+        if not ok:
+            fails.append(f"ptq {mode}: chunked beyond 1e-6 of per window, or device metrics "
+                         f"beyond 1e-5 of the host's: {checks}")
+    return fails
+
+
+def quant_cli(state, d) -> bool:
+    """An FP32 run of ``configs/train_SNN.yml``'s settings on 2 short
+    synthetic sequences (an epoch in 3 steps), then in subprocesses
+    ``python3 -m evflow_torch.train_flow_quant --prev_runid <FP32 run>
+    --calibration static`` (one epoch), ``python3 -m
+    evflow_torch.eval_flow_quant <QAT run> --mode full_qat`` and ``<FP32
+    run> --mode ptq --auto_tune_lif --chunk 8 --device_metrics`` on the
+    phase-4 data: all exit 0 and write their ``metrics_0.yml``, the PTQ
+    one equal to the same calibration and evaluation in-process."""
+    import glob
+    import os
+    import subprocess
+
+    import yaml
+
+    from evflow_torch.config import load_config
+    from evflow_torch.data.synthetic import make_dataset
+    from evflow_torch.eval import evaluate
+    from evflow_torch.eval_flow import resolve_checkpoint
+    from evflow_torch.eval_flow_quant import quantized_model
+    from evflow_torch.probes.train_step import full_config
+    from evflow_torch.train import train
+    from evflow_torch.weights import load_checkpoint
+
+    data, runs, res = (os.path.join(d, "cli", k) for k in ("data", "runs", "results"))
+    make_dataset(data, num_sequences=2, seed=1, duration=0.35, resolution=(128, 128),
+                 events_per_sec=100_000, fmt="npz")
+    cfg = full_config(data)
+    cfg["loader"]["n_epochs"] = 1
+    train_yml, eval_yml = os.path.join(d, "cli", "train.yml"), os.path.join(d, "cli", "eval.yml")
+    with open(train_yml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    with open(eval_yml, "w") as f:  # no model: the run's model stays
+        yaml.safe_dump({k: v for k, v in eval_config(dataset(state)).items() if k != "model"}, f)
+    fp32 = train(cfg, path_runs=runs, device="cuda", verbose=False).runid
+    here = os.path.dirname(os.path.abspath(__file__))
+    calib = ["--calibration_batches", "20", "--profile_batches", "20", "--max_windows", "48"]
+    cmds = [[sys.executable, "-m", "evflow_torch.train_flow_quant", "--config", train_yml,
+             "--path_runs", runs, "--prev_runid", fp32, "--calibration", "static",
+             "--calibration_batches", "5"]]
+    t0 = time.perf_counter()
+    procs = [subprocess.run(cmds[0], cwd=here, capture_output=True, text=True, timeout=600)]
+    qat = [os.path.basename(r) for r in glob.glob(os.path.join(runs, "*", "*"))
+           if os.path.basename(r) != fp32]
+    if procs[0].returncode == 0 and len(qat) == 1:
+        for runid, mode in ((qat[0], "full_qat"), (fp32, "ptq")):
+            cmds.append([sys.executable, "-m", "evflow_torch.eval_flow_quant", runid,
+                         "--config", eval_yml, "--path_runs", runs, "--mode", mode,
+                         "--path_results", res, *calib])
+        cmds[-1] += ["--auto_tune_lif", "--chunk", "8", "--device_metrics"]
+        procs += [subprocess.run(c, cwd=here, capture_output=True, text=True, timeout=600)
+                  for c in cmds[1:]]
+    seconds = time.perf_counter() - t0
+    got = {}
+    for mode in ("full_qat", "ptq"):
+        path = os.path.join(res, f"quant_{mode}", "metrics_0.yml")
+        if os.path.exists(path):
+            with open(path) as f:
+                got[mode] = yaml.safe_load(f)
+    ckpt, _, config = resolve_checkpoint(fp32, runs, load_config(eval_yml))
+    model = quantized_model(config, load_checkpoint(ckpt), "ptq", calibration_batches=20,
+                            auto_tune_lif=True, profile_batches=20, device="cuda")
+    ref = evaluate(config, model=model, debug=True, max_windows=48, chunk=8,
+                   device_metrics=True)
+    ptq = dict(got.get("ptq", {}))
+    ptq.pop("runid", None)
+    diff = rel_diff(ptq, ref) if set(ptq) == set(ref) else None
+    ok = (len(procs) == 3 and all(p.returncode == 0 for p in procs) and set(got) == {
+        "full_qat", "ptq"} and ptq == ref and got["ptq"].get("runid") == "quant_ptq")
+    emit({"phase": "quant", "part": "cli", "cli": [" ".join(["python3", *c[1:]]) for c in cmds],
+          "rc": [p.returncode for p in procs], "seconds": seconds, "metrics_0": got,
+          "in_process_ptq": ref, "ptq_equal_to_in_process": ptq == ref,
+          "ptq_max_rel_diff": diff, "stderr_tail": [p.stderr[-1500:] for p in procs],
+          "ok": ok})
     return ok
 
 
@@ -1902,7 +2091,8 @@ def main(argv=None):
 
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
-             "protocol": phase_protocol, "train": phase_train, "times": phase_times,
+             "protocol": phase_protocol, "train": phase_train, "quant": phase_quant,
+             "times": phase_times,
              "wholenet": phase_wholenet,
              "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
              "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops, "bisect": phase_bisect}

@@ -1,7 +1,7 @@
-"""Convolutional spiking LIF cells (port of the ``SNNConvLIF`` family of
-``evflow/models/cells.py``).
+"""Convolutional spiking LIF cells (port of ``evflow/models/cells.py``).
 
-conv3x3 (SAME, no bias) -> BatchNorm/TEBN (at the pass's ``timestep``) ->
+The snn.Leaky cells (``SNNConvLIF``, ``SNNConvLIFRecurrent``): conv3x3
+(SAME, no bias) -> BatchNorm/TEBN (at the pass's ``timestep``) ->
 ``leaky_step``, per-channel leak ``beta`` and threshold (clamped to >=
 ``THRESH_MIN`` in the forward), hard or subtract reset, the membrane
 detached after every step unless ``detach=False``, optional MPBN on the
@@ -18,6 +18,22 @@ LIF state stays f32. Module names match the reference's state dict: ``ff``,
 ``rec``, ``bn``, ``lif.beta``, ``lif.threshold`` (``[C, 1, 1]``),
 ``mpbn.bn``.
 
+The sigmoid-family cells (``ConvLIF``, ``ConvLIFRecurrent``): conv3x3 (no
+bias, no norm) -> ``sigmoid_lif_step`` with a learnable per-channel
+``leak`` (through a sigmoid) and ``thresh``, drawn from normal
+distributions ``(mean, std)`` (the same ``leak: [0.0, 1.0]`` config key is
+a uniform range in the snn family), a selectable surrogate
+(``activation``, ``act_width``), the previous spikes detached in the reset
+unless ``detach=False``; the membrane is not detached. ``residual`` is added
+to the feedforward cell's output spikes. Their state-dict names are the
+reference's: ``ff``, ``rec``, ``leak``, ``thresh`` (``[C, 1, 1]``).
+
+Quantization hooks, set as attributes (``FireNet.set_quant`` installs
+them): ``conv_fake_quant(x, tag)`` on the conv input (tag "input") and on
+each conv output before the norm (tag "output"); the recurrent conv's
+spike input is not quantised. ``state_quant(u)`` on the membrane before
+firing, in the snn family only.
+
 f32 convs on the card run in full f32 (``full_f32_convs``) whatever the
 process's TF32 flags: PyTorch lets cuDNN run f32 convs in TF32 by default,
 whose 10 mantissa bits move membranes by ~1e-3 and flip spikes.
@@ -27,16 +43,17 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from evflow_torch.models.norm import MPBN, TEBN, BatchNorm
-from evflow_torch.ops.lif import THRESH_MIN, LIFState, leaky_step
+from evflow_torch.ops.lif import THRESH_MIN, LIFState, leaky_step, sigmoid_lif_step
 
-__all__ = ["SNNConvLIF", "SNNConvLIFRecurrent", "conv_nhwc", "full_f32_convs"]
+__all__ = ["SNNConvLIF", "SNNConvLIFRecurrent", "ConvLIF", "ConvLIFRecurrent", "conv_nhwc",
+           "full_f32_convs"]
 
 
 @contextlib.contextmanager
@@ -74,6 +91,18 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
     return y.permute(0, 2, 3, 1)
 
 
+ConvQuant = Callable[[torch.Tensor, str], torch.Tensor]
+StateQuant = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
+    """A SAME conv without bias, its weights from ``U(-sqrt(1/cin), +)``."""
+    conv = nn.Conv2d(cin, cout, k, padding=k // 2, bias=False)
+    w = math.sqrt(1.0 / cin)
+    nn.init.uniform_(conv.weight, -w, w)
+    return conv
+
+
 class _LIFParams(nn.Module):
     """Holds the learnable leak and threshold, ``[C, 1, 1]`` like snn.Leaky."""
 
@@ -91,12 +120,11 @@ class SNNConvLIF(nn.Module):
                  thresh: Tuple[float, float] = (0.0, 0.8), hard_reset: bool = True,
                  tebn: bool = False, num_timesteps: int = 4, mpbn: bool = False,
                  compute_dtype: Optional[torch.dtype] = None, learn_leak: bool = True,
-                 learn_thresh: bool = True, detach: bool = True):
+                 learn_thresh: bool = True, detach: bool = True,
+                 conv_fake_quant: Optional[ConvQuant] = None,
+                 state_quant: Optional[StateQuant] = None):
         super().__init__()
-        self.ff = nn.Conv2d(input_size, hidden_size, kernel_size,
-                            padding=kernel_size // 2, bias=False)
-        w = math.sqrt(1.0 / input_size)
-        nn.init.uniform_(self.ff.weight, -w, w)
+        self.ff = _conv(input_size, hidden_size, kernel_size)
         self.bn = TEBN(hidden_size, num_timesteps) if tebn else BatchNorm(hidden_size)
         self.lif = _LIFParams(hidden_size, leak, thresh)
         self.mpbn = MPBN(hidden_size) if mpbn else None
@@ -105,6 +133,8 @@ class SNNConvLIF(nn.Module):
         self.learn_leak = learn_leak
         self.learn_thresh = learn_thresh
         self.detach = detach
+        self.conv_fake_quant = conv_fake_quant
+        self.state_quant = state_quant
 
     def _norm(self, x: torch.Tensor, timestep: Optional[int]) -> torch.Tensor:
         return self.bn(x, timestep) if isinstance(self.bn, TEBN) else self.bn(x)
@@ -120,6 +150,7 @@ class SNNConvLIF(nn.Module):
         spk, mem_out = leaky_step(
             current, mem, beta, theta,
             reset="zero" if self.hard_reset else "subtract",
+            state_quant=self.state_quant,
         )
         if self.detach:
             mem_out = mem_out.detach()
@@ -131,7 +162,13 @@ class SNNConvLIF(nn.Module):
                 timestep: Optional[int] = None):
         """``x [B, H, W, Cin]`` -> ``(spk [B, H, W, C], LIFState)``;
         ``timestep`` selects TEBN's scale."""
-        ff = self._norm(conv_nhwc(x, self.ff, self.compute_dtype), timestep)
+        q = self.conv_fake_quant
+        if q is not None:
+            x = q(x, "input")
+        ff = conv_nhwc(x, self.ff, self.compute_dtype)
+        if q is not None:
+            ff = q(ff, "output")
+        ff = self._norm(ff, timestep)
         mem = torch.zeros_like(ff) if state is None else state.mem
         return self._fire(ff, mem)
 
@@ -142,17 +179,89 @@ class SNNConvLIFRecurrent(SNNConvLIF):
 
     def __init__(self, input_size: int, hidden_size: int, kernel_size: int = 3, **kw):
         super().__init__(input_size, hidden_size, kernel_size, **kw)
-        self.rec = nn.Conv2d(hidden_size, hidden_size, kernel_size,
-                             padding=kernel_size // 2, bias=False)
-        w = math.sqrt(1.0 / hidden_size)
-        nn.init.uniform_(self.rec.weight, -w, w)
+        self.rec = _conv(hidden_size, hidden_size, kernel_size)
 
     def forward(self, x: torch.Tensor, state: Optional[LIFState] = None,
                 timestep: Optional[int] = None):
+        q = self.conv_fake_quant
+        if q is not None:
+            x = q(x, "input")
         ff = conv_nhwc(x, self.ff, self.compute_dtype)
         if state is None:
             mem = prev_spk = torch.zeros_like(ff)
         else:
             mem, prev_spk = state
-        total = ff + conv_nhwc(prev_spk, self.rec, self.compute_dtype)
-        return self._fire(self._norm(total, timestep), mem)
+        rec = conv_nhwc(prev_spk, self.rec, self.compute_dtype)
+        if q is not None:
+            ff, rec = q(ff, "output"), q(rec, "output")
+        return self._fire(self._norm(ff + rec, timestep), mem)
+
+
+class ConvLIF(nn.Module):
+    """Sigmoid-family feedforward cell: conv, then ``sigmoid_lif_step``."""
+
+    def __init__(self, input_size: int, hidden_size: int, kernel_size: int = 3,
+                 activation: str = "arctanspike", act_width: float = 10.0,
+                 leak: Tuple[float, float] = (-4.0, 0.1),
+                 thresh: Tuple[float, float] = (0.8, 0.0), learn_leak: bool = True,
+                 learn_thresh: bool = True, hard_reset: bool = True, detach: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 conv_fake_quant: Optional[ConvQuant] = None):
+        super().__init__()
+        self.ff = _conv(input_size, hidden_size, kernel_size)
+        self.leak = nn.Parameter(torch.empty(hidden_size, 1, 1).normal_(*leak))
+        self.thresh = nn.Parameter(torch.empty(hidden_size, 1, 1).normal_(*thresh))
+        self.activation = activation
+        self.act_width = act_width
+        self.learn_leak = learn_leak
+        self.learn_thresh = learn_thresh
+        self.hard_reset = hard_reset
+        self.detach = detach
+        self.compute_dtype = compute_dtype
+        self.conv_fake_quant = conv_fake_quant
+
+    def _quant_conv(self, x: torch.Tensor, conv: nn.Conv2d, tag_input: bool) -> torch.Tensor:
+        q = self.conv_fake_quant
+        if q is not None and tag_input:
+            x = q(x, "input")
+        y = conv_nhwc(x, conv, self.compute_dtype)
+        return q(y, "output") if q is not None else y
+
+    def _fire(self, current: torch.Tensor, state: Optional[LIFState]):
+        if state is None:
+            v = z = torch.zeros_like(current)
+        else:
+            v, z = state
+        leak, thresh = self.leak.reshape(-1), self.thresh.reshape(-1)
+        if not self.learn_leak:
+            leak = leak.detach()
+        if not self.learn_thresh:
+            thresh = thresh.detach()
+        z_out, v_out = sigmoid_lif_step(
+            current, v, z, leak, thresh, hard_reset=self.hard_reset,
+            detach_reset=self.detach, activation=self.activation, act_width=self.act_width)
+        return z_out, LIFState(v_out, z_out)
+
+    def forward(self, x: torch.Tensor, state: Optional[LIFState] = None,
+                timestep: Optional[int] = None, residual=0.0):
+        """``x [B, H, W, Cin]`` -> ``(spikes + residual, LIFState)``;
+        ``timestep`` is accepted and unused (no TEBN here)."""
+        z_out, st = self._fire(self._quant_conv(x, self.ff, True), state)
+        if torch.is_tensor(residual) or residual != 0.0:
+            z_out = z_out + residual
+        return z_out, st
+
+
+class ConvLIFRecurrent(ConvLIF):
+    """Sigmoid-family recurrent cell: a conv over the previous spikes is
+    added to the input current."""
+
+    def __init__(self, input_size: int, hidden_size: int, kernel_size: int = 3, **kw):
+        super().__init__(input_size, hidden_size, kernel_size, **kw)
+        self.rec = _conv(hidden_size, hidden_size, kernel_size)
+
+    def forward(self, x: torch.Tensor, state: Optional[LIFState] = None,
+                timestep: Optional[int] = None):
+        ff = self._quant_conv(x, self.ff, True)
+        z = torch.zeros_like(ff) if state is None else state.spk
+        return self._fire(ff + self._quant_conv(z, self.rec, False), state)

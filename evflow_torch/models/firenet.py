@@ -13,16 +13,20 @@ also accepts the PTQ layout, see ``evflow_torch.weights``).
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from evflow_torch.models.ann import ConvLayer
-from evflow_torch.models.cells import SNNConvLIF, SNNConvLIFRecurrent
+from evflow_torch.models.cells import (ConvLIF, ConvLIFRecurrent, SNNConvLIF,
+                                       SNNConvLIFRecurrent)
 from evflow_torch.ops.lif import LIFState
 
-__all__ = ["FireNet", "nonzero_normalize", "activity_fractions"]
+__all__ = ["FireNet", "nonzero_normalize", "activity_fractions", "QUANT_HOOKS"]
+
+QUANT_HOOKS = ("state_quant", "state_quant_per_layer", "conv_fake_quant",
+               "conv_fake_quant_per_layer")
 
 
 def nonzero_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -42,7 +46,9 @@ def activity_fractions(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.T
 
 
 class FireNet(nn.Module):
-    """FireNet family with snn.Leaky cells (``cell_family="snn"``).
+    """FireNet family: snn.Leaky cells (``cell_family="snn"``) or the
+    sigmoid-family cells (``"sigmoid"``, with the surrogate ``activation``
+    and its ``act_width``).
 
     ``forward(event_voxel, event_cnt, states, log=False, timestep=None)``
     runs one event window and returns ``({"flow": [flow [B, H, W, 2]],
@@ -54,6 +60,14 @@ class FireNet(nn.Module):
     spikes and the flow, keyed ``"<i>:<name>"``), else None. ``compute_dtype``
     (e.g. ``torch.bfloat16``) runs the convolutions in that type while the
     LIF state stays f32.
+
+    Quantization hooks (``evflow_torch.quant.fake_quant``): ``state_quant``
+    on every snn unit's membrane, or ``state_quant_per_layer`` (one per
+    unit, None for none); ``conv_fake_quant`` on every conv's input and
+    outputs, or ``conv_fake_quant_per_layer`` (one per unit, then one for
+    the pred head, index ``num_units``). The per-layer forms win. The
+    sigmoid family takes no state quant. ``set_quant`` changes them on a
+    built model.
     """
 
     def __init__(self, num_bins: int = 2, base_num_channels: int = 32,
@@ -67,11 +81,15 @@ class FireNet(nn.Module):
                  num_timesteps: int = 4, mpbn: bool = False,
                  compute_dtype: Optional[torch.dtype] = None,
                  w_scale_pred: float = 0.01, learn_leak: bool = True,
-                 learn_thresh: bool = True, detach: bool = True):
+                 learn_thresh: bool = True, detach: bool = True,
+                 activation: str = "arctanspike", act_width: float = 10.0,
+                 state_quant: Optional[Callable] = None,
+                 state_quant_per_layer: Optional[Sequence[Optional[Callable]]] = None,
+                 conv_fake_quant: Optional[Callable] = None,
+                 conv_fake_quant_per_layer: Optional[Sequence[Optional[Callable]]] = None):
         super().__init__()
-        if cell_family != "snn":
-            raise NotImplementedError(
-                f"cell_family {cell_family!r}: only the snn.Leaky cells are ported")
+        if cell_family not in ("snn", "sigmoid"):
+            raise ValueError(f"Unknown cell_family {cell_family!r}")
         if encoding == "cnt" and num_bins != 2:
             raise ValueError(f"cnt encoding needs num_bins=2, got {num_bins}")
         if encoding not in ("cnt", "voxel"):
@@ -92,16 +110,58 @@ class FireNet(nn.Module):
 
         C = base_num_channels
         common = dict(kernel_size=kernel_size, leak=leak, thresh=thresh,
-                      hard_reset=hard_reset, tebn=tebn, num_timesteps=num_timesteps,
-                      mpbn=mpbn, compute_dtype=compute_dtype, learn_leak=learn_leak,
-                      learn_thresh=learn_thresh, detach=detach)
-        mid = SNNConvLIFRecurrent if recurrent else SNNConvLIF
+                      hard_reset=hard_reset, compute_dtype=compute_dtype,
+                      learn_leak=learn_leak, learn_thresh=learn_thresh, detach=detach)
+        if cell_family == "snn":
+            common.update(tebn=tebn, num_timesteps=num_timesteps, mpbn=mpbn)
+            ff_cell, rec_cell = SNNConvLIF, SNNConvLIFRecurrent
+        else:
+            common.update(activation=activation, act_width=act_width)
+            ff_cell, rec_cell = ConvLIF, ConvLIFRecurrent
+        mid = rec_cell if recurrent else ff_cell
         for name in self.unit_names:
-            cls = mid if name in ("G1", "G2") else SNNConvLIF
+            cls = mid if name in ("G1", "G2") else ff_cell
             cin = num_bins if name == "head" else C
             self.add_module(name, cls(cin, C, **common))
         self.pred = ConvLayer(C, 2, kernel_size=1, w_scale=w_scale_pred,
                               compute_dtype=compute_dtype)
+        self.set_quant(state_quant=state_quant, state_quant_per_layer=state_quant_per_layer,
+                       conv_fake_quant=conv_fake_quant,
+                       conv_fake_quant_per_layer=conv_fake_quant_per_layer)
+
+    def set_quant(self, **hooks) -> "FireNet":
+        """Set any of the four quantization hooks (keywords as in the
+        constructor; the others keep theirs) and install each unit's and
+        the pred head's; returns the model."""
+        for key, hook in hooks.items():
+            if key not in QUANT_HOOKS:
+                raise TypeError(f"unknown quantization hook {key!r}")
+            per_layer = key.endswith("_per_layer") and hook is not None
+            setattr(self, key, tuple(hook) if per_layer else hook)
+        for i, name in enumerate(self.unit_names):
+            cell = getattr(self, name)
+            cell.conv_fake_quant = self._layer_conv_quant(i)
+            if self.cell_family == "snn":
+                cell.state_quant = self._layer_quant(i)
+        self.pred.conv_fake_quant = self._layer_conv_quant(self.num_units)
+        return self
+
+    @property
+    def quant_hooks(self) -> Tuple[str, ...]:
+        """The names of the quantization hooks that are set."""
+        return tuple(k for k in QUANT_HOOKS if getattr(self, k) is not None
+                     and (not k.endswith("_per_layer") or any(getattr(self, k))))
+
+    def _layer_quant(self, idx: int):
+        if self.state_quant_per_layer is not None:
+            return self.state_quant_per_layer[idx]
+        return self.state_quant
+
+    def _layer_conv_quant(self, idx: int):
+        """Conv quant hook of unit ``idx`` (``idx == num_units``: pred)."""
+        if self.conv_fake_quant_per_layer is not None:
+            return self.conv_fake_quant_per_layer[idx]
+        return self.conv_fake_quant
 
     @property
     def num_units(self) -> int:

@@ -9,7 +9,9 @@ kernel per unit (``fused_conv_lif`` for ``layout="nhwc"``,
 
 ``from_firenet`` refuses the settings under which the fused step would
 compute another function than ``FireNet``: input normalisation
-(``norm_input``), membrane BN (``mpbn``) and cells other than snn.Leaky.
+(``norm_input``), membrane BN (``mpbn``), cells other than snn.Leaky and
+quantization hooks (``FireNet.quant_hooks``: the fused kernels run f32
+convs and membranes, so a quantised model runs unfused).
 """
 
 from __future__ import annotations
@@ -60,6 +62,10 @@ class FusedFireNet:
         if getattr(model, "cell_family", "snn") != "snn":
             raise ValueError("FusedFireNet runs snn.Leaky cells only, got "
                              f"cell_family={model.cell_family!r}")
+        hooks = getattr(model, "quant_hooks", ())
+        if hooks:
+            raise ValueError(f"FusedFireNet runs no fake quantization; a FireNet with "
+                             f"{', '.join(hooks)} set computes another function")
         if model.norm_input:
             raise ValueError("FusedFireNet does not normalise its input; a "
                              "norm_input=True FireNet computes another function")

@@ -73,8 +73,17 @@ def get_interpolation(events: torch.Tensor, flow: torch.Tensor, tref: Tref,
         idx = torch.cat([torch.cat(c, dim=-1) for c in
                          ((top, left), (top, right), (bot, left), (bot, right))], dim=1)
         # the two factors multiplied, not torch.prod: its backward syncs the
-        # host (a check for zeros) and runs a scan
-        hat = torch.clamp(1.0 - (warped.repeat(1, 4, 1) - idx).abs(), min=0.0)
+        # host (a check for zeros) and runs a scan. A warp onto a pixel (as
+        # a zero flow gives) puts its corners at the kinks; there the
+        # gradients are jnp.abs's (+1 at 0, torch's abs: 0) and jnp.maximum's
+        # (half to each side at a tie, clamp: all of it). Without a gradient
+        # (the evaluation), abs and clamp: the same values in fewer launches
+        d = warped.repeat(1, 4, 1) - idx
+        if warped.requires_grad:
+            hat = 1.0 - torch.where(d >= 0, d, -d)
+            hat = torch.maximum(hat, hat.new_zeros(()))
+        else:
+            hat = torch.clamp(1.0 - d.abs(), min=0.0)
         weights = hat[..., 0] * hat[..., 1]
     in_bounds = (idx[..., 0] >= 0) & (idx[..., 0] < H) & (idx[..., 1] >= 0) & (idx[..., 1] < W)
     weights = weights * in_bounds.to(weights.dtype)

@@ -5,9 +5,9 @@
 explicit ``LIFState(mem, spk)`` of tensors. The cells detach the membrane
 carry after every step (unless ``detach=False``); the spike carry is not
 detached, so recurrent-spike gradients flow within a loss window (the
-trainer detaches at window boundaries). ``sigmoid_lif_step`` and
-``export_lif_step`` come with the sigmoid-family cells (ROADMAP.md queue 1
-item 5).
+trainer detaches at window boundaries). ``sigmoid_lif_step`` is the
+update of the sigmoid-family cells (``ConvLIF``), ``export_lif_step`` the
+deployment operator's inference update.
 """
 
 from __future__ import annotations
@@ -16,9 +16,9 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from evflow_torch.ops.surrogate import atanspike_snn, heaviside
+from evflow_torch.ops.surrogate import atanspike_snn, heaviside, spike_fn
 
-__all__ = ["LIFState", "leaky_step", "THRESH_MIN"]
+__all__ = ["LIFState", "leaky_step", "sigmoid_lif_step", "export_lif_step", "THRESH_MIN"]
 
 # learnable thresholds are clamped to >= 0.01 before every forward
 THRESH_MIN = 0.01
@@ -77,3 +77,61 @@ def leaky_step(
     else:
         mem_out = u - do_reset * threshold
     return spk, mem_out
+
+
+def sigmoid_lif_step(
+    ff: torch.Tensor,
+    mem: torch.Tensor,
+    spk_prev: torch.Tensor,
+    leak: torch.Tensor,
+    thresh: torch.Tensor,
+    *,
+    hard_reset: bool = True,
+    detach_reset: bool = True,
+    activation: str = "arctanspike",
+    act_width: float = 10.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One update of the sigmoid-family cell::
+
+      leak_s = sigmoid(leak)
+      hard:  v' = v * leak_s * (1 - z) + (1 - leak_s) * ff
+      soft:  v' = v * leak_s + (1 - leak_s) * ff - z * max(thresh, 0.01)
+      z' = surrogate(v' - max(thresh, 0.01))
+
+    ``z`` is the previous spike output (detached when ``detach_reset``);
+    ``activation`` names the surrogate (``spike_fn``), ``act_width`` its
+    width. The threshold clamp splits its gradient at a tie, as
+    ``jnp.maximum`` does. Returns ``(z', v')``.
+    """
+    thresh_c = torch.maximum(thresh, thresh.new_full((), THRESH_MIN))
+    leak_s = torch.sigmoid(leak)
+    z = spk_prev.detach() if detach_reset else spk_prev
+
+    if hard_reset:
+        v_out = mem * leak_s * (1.0 - z) + (1.0 - leak_s) * ff
+    else:
+        v_out = mem * leak_s + (1.0 - leak_s) * ff - z * thresh_c
+
+    z_out = spike_fn(activation)(v_out, thresh_c, act_width)
+    return z_out, v_out
+
+
+def export_lif_step(
+    x: torch.Tensor,
+    mem: torch.Tensor,
+    beta: torch.Tensor,
+    threshold: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The deployment operator's LIF update, inference only::
+
+      u = beta * mem + x
+      spike = (u >= threshold);  mem_out = where(spike, 0, u)
+
+    It differs from the training cells on purpose: the raw ``beta`` (no
+    sigmoid, no clip), no ``(1 - beta)`` input scaling, a spike at ``>=``.
+    Returns ``(spike, mem_out)``.
+    """
+    u = beta * mem + x
+    spike = (u >= threshold).to(x.dtype)
+    mem_out = torch.where(spike > 0, torch.zeros_like(u), u)
+    return spike, mem_out

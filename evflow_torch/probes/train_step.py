@@ -34,7 +34,7 @@ import os
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,22 +122,32 @@ def small_window(cfg: Dict[str, Any], skip: int = SMALL_SKIP) -> Dict[str, np.nd
     return w
 
 
-def small_step(cfg: Dict[str, Any], window, device: str, seed: int = SMALL_SEED):
+def small_step(cfg: Dict[str, Any], window, device: str, seed: int = SMALL_SEED,
+               weights: Optional[Callable] = None,
+               guards: Optional[Mapping[str, Tuple[Callable, float]]] = None):
     """One step of the small case on ``device`` from ``seeded_state_dict``
-    weights: (loss, raw grads on the CPU, min spike margin)."""
+    weights (mapped by ``weights`` if given): (loss, raw grads on the CPU,
+    {guard: least margin}) for the spike margin and each of ``guards``
+    (name -> (context manager yielding a list of margins, its bar)),
+    entered before the model is built."""
     from evflow_torch.weights import seeded_state_dict
 
-    model = registry.build_model(cfg["model"], device="cpu")
-    model.load_state_dict(seeded_state_dict(model, seed=seed))
-    model = model.to(device)
-    opt = registry.build_optimizer(cfg["optimizer"], model.parameters())
-    step = TrainStep(model, opt, EventWarpingConfig(cfg), 4, remat=cfg["loss"]["remat"],
-                     clip_grad=cfg["loss"]["clip_grad"], resolution=(SMALL["H"], SMALL["W"]),
-                     keep_grads=True)
-    with spike_margins() as margins:
+    with contextlib.ExitStack() as stack:
+        margins = {"spike": stack.enter_context(spike_margins()),
+                   **{k: stack.enter_context(g()) for k, (g, _) in (guards or {}).items()}}
+        model = registry.build_model(cfg["model"], device="cpu")
+        sd = seeded_state_dict(model, seed=seed)
+        model.load_state_dict(weights(sd) if weights else sd)
+        model = model.to(device)
+        opt = registry.build_optimizer(cfg["optimizer"], model.parameters())
+        step = TrainStep(model, opt, EventWarpingConfig(cfg), 4, remat=cfg["loss"]["remat"],
+                         clip_grad=cfg["loss"]["clip_grad"],
+                         resolution=(SMALL["H"], SMALL["W"]), keep_grads=True)
         loss, _ = step(model.init_states(SMALL["B"], SMALL["H"], SMALL["W"]),
                        upload_window(window, torch.device(device)))
-    return float(loss), {k: g.cpu() for k, g in step.grads.items()}, min(margins)
+    # a guard that saw no call has nothing to hold: the largest margin
+    return (float(loss), {k: g.cpu() for k, g in step.grads.items()},
+            {k: min(m, default=0.5) for k, m in margins.items()})
 
 
 def grad_ratio(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]) -> float:
@@ -147,27 +157,42 @@ def grad_ratio(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor]) -> f
                for k, w in want.items())
 
 
-def compare_small(root: str, device: str = "cuda") -> Dict[str, Any]:
-    """The small case's step on ``device`` against the CPU's."""
+def compare_small(root: str, device: str = "cuda",
+                  quantization: Optional[Dict[str, Any]] = None, seed: int = SMALL_SEED,
+                  weights=None, guards: Optional[Mapping[str, Tuple[Callable, float]]] = None
+                  ) -> Dict[str, Any]:
+    """The small case's step on ``device`` against the CPU's (with
+    ``quantization`` as the model's quantization section if given;
+    ``seed``, ``weights`` and ``guards`` as ``small_step``'s): every margin
+    above its bar (the spike margin's ``MARGIN``)."""
     cfg = small_config(root)
+    if quantization is not None:
+        cfg["model"]["quantization"] = dict(quantization)
     window = small_window(cfg)
-    loss_cpu, grads_cpu, margin_cpu = small_step(cfg, window, "cpu")
-    loss_dev, grads_dev, margin_dev = small_step(cfg, window, device)
+    kw = dict(seed=seed, weights=weights, guards=guards)
+    loss_cpu, grads_cpu, margins_cpu = small_step(cfg, window, "cpu", **kw)
+    loss_dev, grads_dev, margins_dev = small_step(cfg, window, device, **kw)
     gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads_cpu.values())))
     ratio = grad_ratio(grads_dev, grads_cpu)
     rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
-    margin = min(margin_cpu, margin_dev)
+    margins = {k: min(m, margins_dev[k]) for k, m in margins_cpu.items()}
+    bars = {"spike": MARGIN, **{k: bar for k, (_, bar) in (guards or {}).items()}}
     return {"loss_cpu": loss_cpu, "loss_card": loss_dev, "loss_rel_diff": rel,
-            "grad_bar_ratio": ratio, "spike_margin": margin, "grad_norm": gnorm,
-            "ok": margin > MARGIN and gnorm > 1.0 and rel <= 1e-5 and ratio <= 1.0}
+            "grad_bar_ratio": ratio, "margins": margins, "grad_norm": gnorm,
+            "ok": (all(margins[k] > b for k, b in bars.items()) and gnorm > 1.0
+                   and rel <= 1e-5 and ratio <= 1.0)}
 
 
-def full_config(root: str, remat: str = "full") -> Dict[str, Any]:
-    """``configs/train_SNN.yml`` on the synthetic sequences under ``root``."""
+def full_config(root: str, remat: str = "full",
+                quantization: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """``configs/train_SNN.yml`` on the synthetic sequences under ``root``
+    (with ``quantization`` as its model's quantization section, if given)."""
     cfg = load_config(str(TRAIN_CONFIG))
     cfg["data"]["path"] = root
     cfg["loss"]["remat"] = remat
     cfg["vis"]["verbose"] = False
+    if quantization is not None:
+        cfg["model"]["quantization"] = dict(quantization)
     return cfg
 
 
@@ -253,9 +278,16 @@ def profile_step(cfg: Dict[str, Any], n: int = 15) -> Dict[str, Any]:
             "top_kernels": [{"name": k[:120], "launches": c, "ms": ms} for k, c, ms in rows[:n]]}
 
 
-def measure_full(root: str, steps: int = 20, warm: int = 3) -> Dict[str, Any]:
-    """The full-width cell on the card (see the module's docstring)."""
-    cfg = full_config(full_data(root))
+def measure_full(root: str, steps: int = 20, warm: int = 3,
+                 quantization: Optional[Dict[str, Any]] = None,
+                 remats: Sequence[str] = ("none", "full", "dots"),
+                 data: Optional[str] = None) -> Dict[str, Any]:
+    """The full-width cell on the card (see the module's docstring), with
+    ``quantization`` as the model's quantization section if given, each of
+    ``remats`` profiled (the ``device_*`` figures are remat full's), on the
+    sequences under ``data`` (``full_data``'s, else written under ``root``)."""
+    data = data or full_data(root)
+    cfg = full_config(data, quantization=quantization)
     runs = os.path.join(root, "runs")
     n = warm + steps
     timed: Dict[str, Any] = {}
@@ -267,7 +299,7 @@ def measure_full(root: str, steps: int = 20, warm: int = 3) -> Dict[str, Any]:
     split: Dict[str, Any] = {"split": True}
     train(cfg, path_runs=runs, max_steps=warm + 5, verbose=False, device="cuda", stats=split)
     split_ms = {p: float(np.mean([s[p] for s in split["split_ms"][warm:]])) for p in STEP_PARTS}
-    cards = {r: profile_step(full_config(root, r)) for r in ("none", "full", "dots")}
+    cards = {r: profile_step(full_config(data, r, quantization)) for r in remats}
     cpu: Dict[str, Any] = {}
     train(cfg, path_runs=runs, max_steps=1, verbose=False, device="cpu", stats=cpu)
     wall_ms = 1e3 * seconds / steps

@@ -16,7 +16,7 @@ import torch
 from evflow_torch.device import resolve_device
 
 __all__ = ["build_model", "build_metrics", "build_optimizer", "model_names",
-           "firenet_kwargs", "OptaxRMSprop"]
+           "firenet_kwargs", "apply_static_qat", "OptaxRMSprop"]
 
 _FIRENETS: Dict[str, Dict[str, bool]] = {
     "LIFFireNet": dict(recurrent=True, short=False),
@@ -39,10 +39,10 @@ def firenet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     sn = cfg.get("spiking_neuron") or {}
     tebn = cfg.get("tebn") or {}
     q = cfg.get("quantization") or {}
-    if q.get("enabled"):
-        raise NotImplementedError("quantized FireNet models are not ported yet")
     if cfg.get("state_dtype") not in (None, "float32"):
-        raise NotImplementedError("only f32 LIF state is ported")
+        raise NotImplementedError(f"state_dtype {cfg['state_dtype']!r}: only f32 LIF state is "
+                                  "ported; bf16 membranes come with the int8 serving engine, "
+                                  "ROADMAP.md queue 1, item 8")
     # auto, im2col, dypack and lax all compute the same f32 conv; dypack_int8
     # quantises every 3x3 conv to int8, which the port does not do yet
     if cfg.get("conv_impl") == "dypack_int8":
@@ -60,28 +60,58 @@ def firenet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
         mpbn=_enabled(cfg.get("mpbn") or {}),
         cell_family=cfg.get("cell_family", "snn"),
     )
+    acts = cfg.get("activations")
+    if acts:
+        kwargs["activation"] = acts[0]
     for key in ("leak", "thresh"):
         if key in sn:
             kwargs[key] = tuple(sn[key])
     for key in ("learn_leak", "learn_thresh", "hard_reset", "detach"):
         if key in sn:
             kwargs[key] = bool(sn[key])
+    if "act_width" in sn:
+        kwargs["act_width"] = float(sn["act_width"])
     if cfg.get("compute_dtype") == "bfloat16":
         kwargs["compute_dtype"] = torch.bfloat16
+    # QAT: quantization.enabled without PTQ puts the fake-quant hooks in the
+    # training graph: dynamic absmax conv quant (static_scales swaps in the
+    # calibrated per-layer hooks, apply_static_qat), plus the membrane quant
+    # unless Conv_only
+    if q.get("enabled") and not q.get("PTQ"):
+        from evflow_torch.quant.fake_quant import dynamic_conv_quant, state_quant_fn
+
+        kwargs["conv_fake_quant"] = dynamic_conv_quant()
+        if not q.get("Conv_only"):
+            kwargs["state_quant"] = state_quant_fn()
     return kwargs
+
+
+def apply_static_qat(model, cfg: Dict[str, Any]):
+    """Swap the dynamic QAT conv hook for static per-layer hooks at the
+    scales in ``quantization.static_scales`` (``train_flow_quant
+    --calibration static`` calibrates them on the FP32 start, so the
+    training and the deployed quantisation grids agree)."""
+    q = cfg.get("quantization") or {}
+    scales = q.get("static_scales")
+    if not (q.get("enabled") and not q.get("PTQ") and scales):
+        return model
+    from evflow_torch.quant.fake_quant import static_conv_quant
+
+    hooks = tuple(static_conv_quant(scales, layer=u) for u in (*model.unit_names, "pred"))
+    return model.set_quant(conv_fake_quant=None, conv_fake_quant_per_layer=hooks)
 
 
 def build_model(model_cfg: Dict[str, Any],
                 device: Optional[Union[str, torch.device]] = None):
     """Build a FireNet from the config's ``model`` section (with its
-    ``spiking_neuron`` sub-section), in eval mode on ``device`` (the GPU
-    unless the caller names another device)."""
+    ``spiking_neuron`` and ``quantization`` sub-sections), in eval mode on
+    ``device`` (the GPU unless the caller names another device)."""
     from evflow_torch.models.firenet import FireNet
 
     name = model_cfg.get("name")
     if name not in _FIRENETS:
         raise KeyError(f"Unknown model {name!r}. Registered: {model_names()}")
-    model = FireNet(**_FIRENETS[name], **firenet_kwargs(model_cfg))
+    model = apply_static_qat(FireNet(**_FIRENETS[name], **firenet_kwargs(model_cfg)), model_cfg)
     return model.to(resolve_device(device)).eval()
 
 

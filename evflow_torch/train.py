@@ -413,9 +413,13 @@ def log_param_histograms(run, model: torch.nn.Module,
 
 def _resume(prev_ckpt: str, model, optimizer):
     ckpt = load_training_checkpoint(prev_ckpt)
-    model.load_state_dict(ckpt["model_state_dict"])
-    if ckpt.get("optimizer_state_dict") is not None:
-        optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+    if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
+        sd, opt = ckpt["model_state_dict"], ckpt.get("optimizer_state_dict")
+    else:  # a reference .pth: a bare state dict or a pickled module
+        sd, opt = (ckpt.state_dict() if hasattr(ckpt, "state_dict") else ckpt), None
+    model.load_state_dict(sd)
+    if opt is not None:
+        optimizer.load_state_dict(opt)
 
 
 def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[str] = None,
@@ -429,7 +433,8 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
 
     ``device`` defaults to the GPU. ``prev_ckpt`` (a port checkpoint file
     or its directory) restores the weights, the norms' running statistics
-    and the optimizer state. ``epoch_callback(epoch, model, run,
+    and the optimizer state; a reference ``.pth`` restores the weights and
+    statistics. ``epoch_callback(epoch, model, run,
     optimizer)`` fires at every epoch end (the validation hook). ``stats``,
     if given, receives ``steps``, ``losses`` (every fetched loss),
     ``step_end`` (the host clock after each step's enqueue), ``seconds``

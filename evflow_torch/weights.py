@@ -3,10 +3,12 @@ the port (counterpart of the torch import in ``evflow/utils/checkpoint.py``).
 
 * ``from_jax_variables``: flax ``{"params", "batch_stats"}`` trees (numpy or
   array-likes) -> a port ``FireNet`` state dict: HWIO -> OIHW kernels,
-  ``[C]`` -> ``[C, 1, 1]`` leak/threshold, BN scale/bias/mean/var ->
-  ``weight``/``bias``/``running_mean``/``running_var``.
+  ``[C]`` -> ``[C, 1, 1]`` leak/threshold (snn cells: ``lif.beta``,
+  ``lif.threshold``; sigmoid cells: ``leak``, ``thresh``), BN
+  scale/bias/mean/var -> ``weight``/``bias``/``running_mean``/``running_var``.
 * ``to_port_layout``: a reference state dict as it is (plain layout, or the
-  PTQ layout with ``{unit}.beta``/``{unit}.threshold``) -> port key names.
+  PTQ layout with ``{unit}.beta``/``{unit}.threshold``) -> port key names,
+  every per-channel LIF vector in the model's shape.
 * ``load_checkpoint``: the state dict inside a reference ``.pth`` file.
 * ``seeded_state_dict``: seeded FireNet weights in the flax init
   distributions, with BN statistics drawn so that every unit fires.
@@ -57,6 +59,10 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for conv in ("ff", "rec"):
             if conv in up:
                 out[f"{unit}.{conv}.weight"] = _oihw(up[conv]["kernel"])
+        if "leak" in up:  # sigmoid-family cell: no norm
+            for leaf in ("leak", "thresh"):
+                out[f"{unit}.{leaf}"] = _t(up[leaf]).reshape(-1, 1, 1)
+            continue
         for leaf in ("beta", "threshold"):
             out[f"{unit}.lif.{leaf}"] = _t(up[leaf]).reshape(-1, 1, 1)
         if "p" in up["bn"]:  # TEBN: BN one level deeper, p [T, C] -> [T, C, 1, 1]
@@ -76,7 +82,8 @@ def to_port_layout(state_dict: Mapping[str, torch.Tensor],
                    model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Rename a reference state dict's PTQ-layout LIF keys (``{unit}.beta``,
     ``{unit}.threshold``) to the port's (``{unit}.lif.beta``, ...), reshape
-    ``[C]`` leak/threshold vectors to ``[C, 1, 1]``, and add BN
+    ``[C]`` leak/threshold vectors (``lif.beta``, ``lif.threshold``,
+    ``leak``, ``thresh``) to the model's ``[C, 1, 1]``, and add BN
     ``num_batches_tracked`` counters that the file may lack."""
     out = dict(state_dict)
     expected = model.state_dict()
@@ -85,7 +92,7 @@ def to_port_layout(state_dict: Mapping[str, torch.Tensor],
         if leaf in ("beta", "threshold") and f"{unit}.lif.{leaf}" in expected:
             out[f"{unit}.lif.{leaf}"] = out.pop(key)
     for key, ref in expected.items():
-        if key.endswith(("lif.beta", "lif.threshold")) and key in out:
+        if key.endswith(("lif.beta", "lif.threshold", ".leak", ".thresh")) and key in out:
             out[key] = out[key].reshape(ref.shape)
         if key.endswith("num_batches_tracked") and key not in out:
             out[key] = torch.zeros_like(ref)
@@ -107,7 +114,10 @@ def seeded_state_dict(model, seed: int = 0, pred_scale: float = 0.1) -> Dict[str
     """Random FireNet weights from a numpy seed, exact in bf16.
 
     Kernels, leaks and thresholds follow the flax init (``U(-sqrt(1/fan_in),
-    +)``, ``U(leak)``, ``U(thresh)``). Untrained BN statistics (mean 0, var
+    +)``, ``U(leak)``, ``U(thresh)``); a sigmoid-family cell's ``leak`` is
+    drawn from N(0, 1) (its normal init under the config's ``leak: [0.0,
+    1.0]``) and its ``thresh`` from ``U(0.05, 0.8)``, so that no threshold
+    sits at the clamp. Untrained BN statistics (mean 0, var
     1) leave deep units silent, where a trained model's BN brings each
     unit's input current to the scale of its threshold; so the BN
     statistics are drawn too (``running_var`` ~ U(0.1, 0.4),
@@ -144,6 +154,10 @@ def seeded_state_dict(model, seed: int = 0, pred_scale: float = 0.1) -> Dict[str
             out[key] = _t(rng.uniform(0.0, 1.0, shape))
         elif key.endswith("lif.threshold"):
             out[key] = _t(rng.uniform(0.0, 0.8, shape))
+        elif leaf == "leak":
+            out[key] = _t(rng.normal(0.0, 1.0, shape))
+        elif leaf == "thresh":
+            out[key] = _t(rng.uniform(0.05, 0.8, shape))
         elif leaf == "running_var":
             prefix = key[: -len("running_var")]
             var = _t(rng.uniform(0.1, 0.4, shape))

@@ -53,6 +53,10 @@ def _draw(rng, path, leaf):
         return rng.uniform(0.05, 0.2, shape)
     if last == "p":
         return rng.uniform(0.8, 1.2, shape)
+    if last == "leak":  # sigmoid-family cells
+        return rng.normal(0.0, 1.0, shape)
+    if last == "thresh":
+        return rng.uniform(0.05, 0.8, shape)
     raise KeyError("/".join(names))
 
 

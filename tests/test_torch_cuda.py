@@ -4,8 +4,10 @@ path (with the visualisation's IWE on the card), the IWE functions against
 their CPU run, the whole-network kernels (K3, K4, K5, K6, K7) against
 ``firenet_step_plain``, and the in-kernel dot, staging, unit-loop,
 runtime-indexed loop, Mosaic-ops and whole-net bisection probes against
-theirs; ``conv_nhwc`` in full f32 under PyTorch's default TF32 flags, and
-one training step against the CPU's.
+theirs; ``conv_nhwc`` in full f32 under PyTorch's default TF32 flags, one
+training step against the CPU's, and the quantization path: a QAT step
+and a sigmoid-family forward, the PTQ calibration, and the quantised
+model's chunks (a CUDA graph) against its per-window run.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -1461,3 +1463,68 @@ def test_train_step_on_card_matches_cpu(cuda, tmp_path):
 
     rec = compare_small(str(tmp_path))
     assert rec["ok"], rec
+
+
+def test_qat_step_and_sigmoid_forward_on_card_match_cpu(cuda, tmp_path):
+    """One QAT step (full, and Conv_only) of the small case on the card
+    against the CPU's (the CPU tests' bars and guards; kernels on a 2^-12
+    grid, no membrane within 1e-5 of its threshold, no membrane-quantiser
+    index within 4e-5 and no ``x / s`` of the head's conv output within
+    1e-4 of where its rounding or clip turns), and a sigmoid-family
+    LIFFireNet over 3 windows: flow and membranes within 1e-5, spikes
+    equal."""
+    from evflow_torch.probes.quant_step import compare_small
+
+    rec = compare_small(str(tmp_path))
+    assert rec["ok"], rec
+
+
+def _ptq_setup(tmp_path):
+    from evflow_torch.data.synthetic import make_dataset
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import seeded_state_dict
+
+    root = str(tmp_path / "ev")
+    make_dataset(root, num_sequences=2, seed=0, duration=1.0, resolution=(64, 64),
+                 events_per_sec=20000, fmt="npz")
+    cfg = {"data": {"path": root, "mode": "gtflow_dt1", "window": 1},
+           "model": {"name": "LIFFireNet", "encoding": "cnt", "num_bins": 2,
+                     "base_num_channels": 8, "kernel_size": 3,
+                     "spiking_neuron": {"leak": [0.0, 1.0], "thresh": [0.0, 0.8]}},
+           "metrics": {"name": ["AEE", "AAE"], "flow_scaling": 128},
+           "loader": {"batch_size": 1, "resolution": [32, 32], "std_resolution": [64, 64],
+                      "keep_gt_full_res": True, "augment": [], "seed": 0},
+           "hot_filter": {"enabled": True, "max_px": 100, "min_obvs": 5, "max_rate": 0.8}}
+    model = build_model(cfg["model"], device="cpu")
+    return cfg, seeded_state_dict(model, seed=0)
+
+
+@pytest.mark.parametrize("mode", ["full", "states_only"])
+def test_ptq_calibration_on_card_matches_cpu(cuda, tmp_path, mode):
+    """``calibrate_model_ptq`` (auto-tuned ranges) on the card against the
+    CPU over the same stream: scales within rtol 1e-5, ranges equal."""
+    from evflow_torch.probes.quant_step import compare_calibration
+
+    cfg, sd = _ptq_setup(tmp_path)
+    _, rec = compare_calibration(cfg, sd, mode, batches=10, profile_batches=10)
+    assert rec["ok"], rec
+
+
+def test_quantized_chunks_match_per_window_on_card(cuda, tmp_path):
+    """The PTQ model (static conv scales, per-layer membrane ranges) under
+    ``evaluate``: chunks of 4 (one CUDA graph of the unfused quantised
+    model) within 1e-6 of per window, with the metrics on the device within
+    1e-5."""
+    from evflow_torch.eval import evaluate
+    from evflow_torch.quant.calibrate import calibrate_model_ptq
+
+    cfg, sd = _ptq_setup(tmp_path)
+    model = calibrate_model_ptq(cfg, sd, mode="full", num_batches=5, auto_tune=True,
+                                profile_batches=5)
+    ref = evaluate(cfg, model=model, debug=True)
+    for kw, rtol in ((dict(chunk=4), 1e-6), (dict(chunk=4, device_metrics=True), 1e-5)):
+        got = evaluate(cfg, model=model, debug=True, **kw)
+        for m, per_file in ref.items():
+            for f, v in per_file.items():
+                np.testing.assert_allclose(float(got[m][f]), float(v), rtol=rtol, atol=1e-7,
+                                           err_msg=f"{kw} {m} {f}")
