@@ -118,7 +118,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
    ``metrics_0.yml``, the PTQ one equal to the same run in-process. The
    quantization path launches no hand-written kernel (its reference reaches
    no Pallas kernel either).
-7. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
+7. ``deploy``: the int8 serving engine (``evflow_torch.deploy``,
+   ``evflow_torch.probes.deploy_step``). (a) At full width (LIFFireNet, 32
+   channels, B=2, 256x256, 32 windows ~5% active, seeded weights) for each
+   membrane tier (``bfloat16``, ``int8``, ``mixed``; ranges profiled on 4
+   windows), without and with ``z_int8`` (calibrated on 4): the card
+   against the CPU, ranges, prepared tensors, membranes and spike carries
+   bit-equal, flows within 1 bf16 ulp. (b) The protocol cell of phase 4
+   under ``eval_flow_quant --mode deploy``'s engine for each tier, per
+   window and in chunks of 8 with ``device_metrics``: windows/s, the host
+   split and kernels a window (``torch.profiler``); chunks within 1e-6 of
+   per window, the bf16 tier's AEE within 2% of the unfused f32 model's
+   (``tests/test_deploy.py:211-233``). Then in subprocesses, all at once:
+   the CLI for each tier (``metrics_0.yml`` equal to in-process), the CLI
+   on an artifact the card wrote (``mixed`` with ``z_int8``: equal to the
+   engine that wrote it), and ``eval_flow`` on a reference package's run
+   (``model.msgpack`` written by ``utils.msgpack.packb``, read by its run
+   id) and on the same weights as a ``.pth``: equal. (c) ``python -m
+   evflow_torch.bench``'s workload (one Poisson(0.05) window reused,
+   CUDA graph replays of 32 steps) at B=2 and 8 for each tier, beside
+   ``FusedFireNet.step`` (K1) and the unfused FireNet with f32 and bf16
+   state; at B=2 each runner's kernels a window and their device ms. The
+   serving path launches no hand-written kernel: its reference's GEMM is
+   an XLA int8 dot, here ``torch._int_mm``.
+8. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
    256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
    and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
    the sums of a window's 7 launches at each shape; then FusedFireNet
@@ -126,7 +149,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    over 7 rounds of 50 steps enqueued while the card sleeps: the host's
    enqueue time a step and the card's time a step, medians of the rounds
    (the scan is the larger of the two).
-8. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
+9. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
    ``fused_net_loop``, K5 ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7
    ``fused_net_batch``) at full width, 256x256, at B=2 over 8 windows and
    at B=8 (the bench entry point's batch) over 4, in f32 and bf16 state:
@@ -145,7 +168,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
    just before and read just after (1 launch per window).
-9. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
+10. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
    through their entry point ``run_all`` at the JAX probes' shapes
    (launch counters 0 just before, read just after; exactly 1 + repeats
    launches per case), each against its plain version (f32 accumulation
@@ -157,7 +180,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the L stacked weight matrices per step (``torch.matmul`` bf16,
    ``torch._int_mm`` int8), as the yardstick, and the kernel's time over
    each (``x_bound``, ``x_library``).
-10. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
+11. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
    K8d row windows staged by TMA bulk copies, K8e's layer loop, and K8c at
    H=2048) through ``run_all`` (launch counters 0 just before, read just
    after; exactly 1 + repeats launches per case), each against its plain
@@ -173,7 +196,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    for the layer grid. Then K8e at L = 1, 3, 5 and 7 layers
    (``probes/staging_slope.py``) and the slope of its time over L: what
    staging one more layer costs.
-11. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
+12. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
    three cases, one conv+LIF unit in a runtime layer loop with and without
    the LIF and the per-layer output, and K8j, the same body behind staged
    spike slots) at the JAX probes' shapes through ``run_all`` (launch
@@ -184,7 +207,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (the bytes and operations of the cone of rows the outputs need), the
    CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
    W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
-12. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
+13. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
    K8f's k1-k5, K8h's k10-k12 and K8g's k6-k8, a layer loop reading and
    writing a shared-memory scratch at the runtime layer index) at the JAX
    probes' shapes (L=4, C=32, E=24, W=256; k6's p ``[4,32,3]``, k7's w
@@ -211,7 +234,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k7 one ``F.conv2d`` of ``[1, L C, E, W]`` (f32, TF32 off), k8
    ``torch.mul(x[:, :, 8:16], 2)``; and the kernel's time over the bound
    and over the yardstick.
-13. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
+14. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
    K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
    in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
    W=256, bf16 normals) through ``run_all`` (launch counters as in phase
@@ -222,11 +245,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
    (``out_dtype``), and the kernel's time over the bound and the yardstick.
-14. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
+15. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
    K8k's kA and kB, K8l's two, K8m's four and K8n's three chain variants, on
    ``csrc/probe_wholenet_bisect.cu``) at the JAX files' shapes (C=32, H=64,
    W=256, TH=16; B=1 for K8k, 2 for the chain) through ``run_all`` (launch
-   counters as in phase 12), every output of each case (kA's and kB's out;
+   counters as in phase 13), every output of each case (kA's and kB's out;
    the chain's o0, o1 and flow) against its plain version: equal, on
    operands that make every sum exact (``wholenet_bisect.draw_operands``),
    the pred flow within ``2 sqrt(C) 2^-24 max|out|`` plus 4 f32 ulps; with
@@ -256,8 +279,8 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "train", "quant", "times", "wholenet",
-          "probes", "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
+PHASES = ("build", "kernels", "model", "protocol", "train", "quant", "deploy", "times",
+          "wholenet", "probes", "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # K1's and K2's cases (case, Cin, recurrent, hard reset), their launches a
@@ -1099,6 +1122,193 @@ def quant_cli(state, d) -> bool:
           "ptq_max_rel_diff": diff, "stderr_tail": [p.stderr[-1500:] for p in procs],
           "ok": ok})
     return ok
+
+
+
+DEPLOY_TIERS = ("bfloat16", "int8", "mixed")
+DEPLOY_PROFILE = 20  # profile and calibration windows of the protocol cell's engines
+
+
+def phase_deploy(state):
+    """The int8 serving engine on the card (``evflow_torch.deploy``,
+    ``evflow_torch.probes.deploy_step``): (a) at full width against the
+    CPU, every tier with and without ``z_int8``; (b) the protocol cell under
+    the engine, its CLI, an artifact and a reference package's msgpack run;
+    (c) rates: ``evflow_torch.bench`` and its yardsticks."""
+    from evflow_torch.probes.deploy_step import compare_card_cpu
+    from evflow_torch.registry import build_model
+
+    name = card()
+    fails = []
+    model = seeded_firenet()
+    cpu_model = build_model(eval_config("")["model"], device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    for rec in compare_card_cpu(model, cpu_model, event_windows(32, B_BENCH), DEPLOY_TIERS):
+        emit({"phase": "deploy", "part": "card_vs_cpu", "batch": B_BENCH,
+              "resolution": [H_BENCH, W_BENCH], **rec, "seconds": time.perf_counter() - t0,
+              "card": name})
+        if not rec["ok"]:
+            fails.append(f"engine {rec['tier']} z_int8={rec['z_int8']}: the card's states or "
+                         "flow differ from the CPU's")
+    with tempfile.TemporaryDirectory(prefix="evflow_deploy_") as d:
+        fails += deploy_protocol(state, d, name)
+    fails += deploy_rates(name)
+    if fails:
+        raise SystemExit("; ".join(fails))
+
+
+def deploy_protocol(state, d, name) -> list:
+    """The protocol cell (phase 4's config, data and seeded weights) under
+    ``eval_flow_quant --mode deploy``'s engine for each tier, in-process per
+    window and in chunks of 8 with the metrics on the device (windows/s,
+    host split, kernels a window by ``torch.profiler``); then in
+    subprocesses, all at once: the CLI for each tier (``metrics_0.yml``
+    equal to the in-process chunked run), the CLI on an artifact that the
+    card wrote (``mixed``, ``z_int8``; equal to the engine that wrote it),
+    and ``eval_flow`` on a reference package's msgpack run and on the same
+    weights as a ``.pth`` (equal)."""
+    import os
+    import subprocess
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from evflow_torch.deploy import save_engine
+    from evflow_torch.eval import evaluate
+    from evflow_torch.eval_flow_quant import deploy_engine
+    from evflow_torch.probes.deploy_step import profile_engine, write_reference_run
+
+    cfg = eval_config(dataset(state))
+    model = seeded_firenet()
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    fails = []
+    f32, rec = protocol_run(cfg, model, {})
+    emit({"phase": "deploy", "part": "protocol", "model": "unfused f32", "mode": "window",
+          **rec, "metrics": f32, "card": name})
+    from evflow_torch.data.h5_stream import H5EventStream
+
+    stream = H5EventStream(cfg, 2)
+    x0 = torch.tensor(stream.next_batch()["event_cnt"], device="cuda")
+    stream.close()
+    results, engines = {}, {}
+    for tier in DEPLOY_TIERS:
+        engine = deploy_engine(cfg, sd, mem_dtype=tier, profile_batches=DEPLOY_PROFILE,
+                               device="cuda")
+        engines[tier] = engine
+        # a process's first streams and graph captures run slower: not measured
+        evaluate(cfg, model=engine, debug=True, max_windows=16, chunk=8, device_metrics=True)
+        for run, kw in (("window", {}), ("chunk8_dm", dict(chunk=8, device_metrics=True))):
+            res, rec = protocol_run(cfg, engine, {}, **kw)
+            results[(tier, run)] = res
+            emit({"phase": "deploy", "part": "protocol", "mem_dtype": tier, "mode": run, **kw,
+                  **rec, "metrics": res, "card": name})
+
+        def step(x, st, _e=engine):
+            out, st = _e(None, x, st)
+            return out["flow"][0], st
+
+        prof = profile_engine(step, x0, engine.init_states(*x0.shape[:3]))
+        emit({"phase": "deploy", "part": "protocol_kernels", "mem_dtype": tier,
+              "batch": int(x0.shape[0]), "resolution": list(x0.shape[1:3]), **prof,
+              "card": name})
+    checks = {f"{t}_chunk8_dm_vs_window": rel_diff(results[(t, "chunk8_dm")],
+                                                  results[(t, "window")]) for t in DEPLOY_TIERS}
+    checks.update({f"{t}_aee_vs_f32": rel_diff({"AEE": results[(t, "window")]["AEE"]},
+                                               {"AEE": f32["AEE"]}) for t in DEPLOY_TIERS})
+    values = [float(v) for r in results.values() for m in r.values() for v in m.values()]
+    ok = (all(v <= 1e-6 for k, v in checks.items() if "chunk8" in k)
+          and checks["bfloat16_aee_vs_f32"] <= 0.02 and bool(np.isfinite(values).all())
+          and len(f32["AEE"]) == 2)
+    emit({"phase": "deploy", "part": "protocol", "rel_diffs": checks,
+          "bars": {"chunk8_dm_vs_window": 1e-6, "bfloat16_aee_vs_f32": 0.02}, "ok": ok,
+          "card": name})
+    if not ok:
+        fails.append(f"deploy protocol: chunks beyond 1e-6 of per window, or the bf16 tier's "
+                     f"AEE beyond 2% of f32's: {checks}")
+
+    # the artifact: the mixed tier with z_int8, written on the card
+    art_engine = deploy_engine(cfg, sd, mem_dtype="mixed", z_int8=True,
+                               calibration_batches=DEPLOY_PROFILE,
+                               profile_batches=DEPLOY_PROFILE, device="cuda")
+    art_ref = evaluate(cfg, model=art_engine, debug=True, chunk=8, device_metrics=True)
+    artifact = save_engine(art_engine, os.path.join(d, "engine.npz"))
+    ckpt, cfg_path = os.path.join(d, "seeded.pth"), os.path.join(d, "eval.yml")
+    torch.save(sd, ckpt)
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    runs = os.path.join(d, "runs")
+    write_reference_run(runs, "reference", "msgpack_run", model, cfg)
+    dq = [sys.executable, "-m", "evflow_torch.eval_flow_quant"]
+    common = ["--config", cfg_path, "--chunk", "8", "--device_metrics"]
+    jobs = {f"cli_{t}": (dq + [ckpt, "--mode", "deploy", "--mem_dtype", t, "--profile_batches",
+                               str(DEPLOY_PROFILE), *common], "quant_deploy",
+                         results[(t, "chunk8_dm")]) for t in DEPLOY_TIERS}
+    jobs["artifact"] = (dq + ["--mode", "deploy", "--artifact", artifact, *common],
+                        "quant_deploy", art_ref)
+    ev = [sys.executable, "-m", "evflow_torch.eval_flow"]
+    jobs["msgpack_run"] = (ev + ["msgpack_run", "--path_runs", runs, "--config", cfg_path],
+                           "msgpack_run", None)
+    jobs["pth"] = (ev + [ckpt, "--config", cfg_path], "seeded.pth", None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd + ["--path_results", os.path.join(d, "res", k)], cwd=here,
+                                 stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+             for k, (cmd, _, _) in jobs.items()}
+    errs = {k: p.communicate(timeout=600)[1] for k, p in procs.items()}
+    seconds = time.perf_counter() - t0
+    got = {}
+    for k, (_, sub, _) in jobs.items():
+        path = os.path.join(d, "res", k, sub, "metrics_0.yml")
+        if os.path.exists(path):
+            with open(path) as f:
+                got[k] = yaml.safe_load(f)
+                got[k].pop("runid", None)
+    equal = {k: got.get(k) == ref for k, (_, _, ref) in jobs.items() if ref is not None}
+    equal["msgpack_run_vs_pth"] = got.get("msgpack_run") is not None and \
+        got.get("msgpack_run") == got.get("pth")
+    ok = all(p.returncode == 0 for p in procs.values()) and all(equal.values())
+    emit({"phase": "deploy", "part": "cli", "cli": {k: " ".join(["python3", *c[1:]])
+                                                    for k, (c, _, _) in jobs.items()},
+          "rc": {k: p.returncode for k, p in procs.items()}, "seconds": seconds,
+          "metrics_0": got, "equal": equal,
+          "stderr_tail": {k: e[-1500:] for k, e in errs.items() if e}, "ok": ok, "card": name})
+    if not ok:
+        fails.append(f"a deploy CLI failed or its metrics_0.yml differs: {equal}")
+    return fails
+
+
+def deploy_rates(name) -> list:
+    """``evflow_torch.bench`` (the ``bench.py`` workload as CUDA graph
+    replays) at B=2 and 8 for every tier, beside ``FusedFireNet.step`` (K1)
+    and the unfused FireNet with f32 and with bf16 state on the same
+    workload in the same call; at B=2 each runner's kernels a window and
+    their device ms by ``torch.profiler``."""
+    import numpy as np
+    import torch
+
+    from evflow_torch.bench import bench, make_runner
+    from evflow_torch.probes.deploy_step import profile_engine
+
+    runs = [("int8", t) for t in DEPLOY_TIERS] + [(r, None) for r in (
+        "fused", "unfused", "unfused_bf16")]
+    fails = []
+    for batch, steps in ((2, 512), (8, 128)):
+        for runner, tier in runs:
+            r = bench(batch, tier or "bfloat16", runner, steps=steps, repeats=2)
+            rec = {"phase": "deploy", "part": "bench", "runner": runner, "mem_dtype": tier,
+                   "batch": batch, "resolution": [H_BENCH, W_BENCH], "steps": steps, **r}
+            if batch == 2:
+                step, init = make_runner(runner, tier or "bfloat16")
+                x = torch.from_numpy(np.random.default_rng(0).poisson(
+                    0.05, (batch, H_BENCH, W_BENCH, 2)).astype(np.float32)).cuda()
+                rec.update(profile_engine(step, x, init(batch, H_BENCH, W_BENCH)))
+            emit({**rec, "card": name})
+            if not r["windows_per_s"] > 0:
+                fails.append(f"bench {runner} {tier} B={batch} measured nothing")
+            torch.cuda.empty_cache()
+    return fails
 
 
 def phase_times(state):
@@ -2092,7 +2302,7 @@ def main(argv=None):
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "train": phase_train, "quant": phase_quant,
-             "times": phase_times,
+             "deploy": phase_deploy, "times": phase_times,
              "wholenet": phase_wholenet,
              "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
              "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops, "bisect": phase_bisect}

@@ -6,7 +6,9 @@
 ``carry`` a list of tensors (the model's states, and whatever else rolls
 over from one chunk to the next). A call is split in two, so that a caller
 can time each part: ``stage`` takes the chunk's host arrays and the carry,
-``run`` dispatches.
+``run`` dispatches. A carry entry may be None (a state with no tensor in
+that slot, like the int8 engine's feedforward spike carries): it stays None
+through every chunk.
 
 On a CUDA device the first chunk of each input signature (names, shapes,
 dtypes) runs ``body`` eagerly on static device buffers. That is real work
@@ -31,7 +33,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ChunkProgram"]
+__all__ = ["ChunkProgram", "copy_carry"]
 
 Body = Callable[[Dict[str, torch.Tensor], List[torch.Tensor]],
                 Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]]
@@ -50,7 +52,7 @@ class _Graph:
                          for k, t in self.static_in.items()} for _ in range(2)]
         self.copied = [torch.cuda.Event(), torch.cuda.Event()]
         self.turn = 0
-        self.static_carry = [torch.empty_like(c) for c in carry]
+        self.static_carry = [None if c is None else torch.empty_like(c) for c in carry]
         self.graph = None
         self.static_out: Dict[str, torch.Tensor] = {}
         self.delta: List[int] = []
@@ -63,9 +65,15 @@ class _Graph:
             np.stack(arrs, out=self.staging[s][k].numpy())
             self.static_in[k].copy_(self.staging[s][k], non_blocking=True)
         self.copied[s].record()
-        for dst, src in zip(self.static_carry, carry):
-            if dst is not src:
-                dst.copy_(src)
+        copy_carry(self.static_carry, carry)
+
+
+def copy_carry(dst: Sequence, src: Sequence):
+    """``copy_`` each tensor of ``src`` into its slot of ``dst``; None slots
+    (and a slot that already holds the same tensor) are left as they are."""
+    for d, s in zip(dst, src):
+        if d is not None and d is not s:
+            d.copy_(s)
 
 
 class ChunkProgram:
@@ -89,7 +97,7 @@ class ChunkProgram:
             self._staged = (None, x, list(carry))
             return
         key = (tuple((k, len(v), v[0].shape, v[0].dtype.str) for k, v in sorted(inputs.items()))
-               + tuple((tuple(c.shape), c.dtype) for c in carry))
+               + tuple(None if c is None else (tuple(c.shape), c.dtype) for c in carry))
         g = self.graphs.get(key)
         if g is None:
             g = self.graphs[key] = _Graph(inputs, carry, self.device)
@@ -110,8 +118,7 @@ class ChunkProgram:
                 w.launches += d
             return g.static_out, g.static_carry
         out, new = self.body(g.static_in, g.static_carry)
-        for dst, src in zip(g.static_carry, new):
-            dst.copy_(src)
+        copy_carry(g.static_carry, new)
         self._capture(g)
         self.captured = True
         return out, g.static_carry
@@ -122,8 +129,7 @@ class ChunkProgram:
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out, new = self.body(g.static_in, g.static_carry)
-                for dst, src in zip(g.static_carry, new):
-                    dst.copy_(src)
+                copy_carry(g.static_carry, new)
         except Exception as e:
             raise RuntimeError(f"a chunk of {len(next(iter(g.static_in.values())))} windows "
                                f"could not be captured as one CUDA graph: {e}") from e

@@ -69,14 +69,17 @@ _SLEEP_CYCLES = 20_000_000
 
 
 def reset_slot_states(states, state_model, flags, batch: int, height: int, width: int):
-    """Zero the carries of the slots flagged in ``flags [B]``; ``state_model``
-    gives the fresh states in its own layout (batch first in every layout)."""
+    """Restart the carries of the slots flagged in ``flags [B]`` from
+    ``state_model``'s fresh states, in its own layout and dtypes (batch
+    first in every layout; an int8 membrane restarts at its grid's zero
+    point, not at 0); a None slot stays None."""
     flags = np.asarray(flags, bool)
     if not flags.any():
         return states
     fresh = state_model.init_states(batch, height, width)
     sel = torch.as_tensor(flags, device=fresh[0].mem.device).reshape(batch, 1, 1, 1)
-    return tuple(type(old)(*(torch.where(sel, n, o) for o, n in zip(old, new)))
+    return tuple(type(old)(*(None if o is None else torch.where(sel, n, o)
+                             for o, n in zip(old, new)))
                  for old, new in zip(states, fresh))
 
 
@@ -207,12 +210,14 @@ def evaluate(
     ``collect_vis`` also a list of each window's ``{"flow", "iwe",
     "event_cnt", "gtflow"}`` host arrays.
 
-    Weights: ``model`` (a port ``FireNet``), else the config's model; then
+    Weights: ``model`` (a port ``FireNet``, or an ``Int8DeployEngine``
+    with its prepared tensors), else the config's model; then
     ``variables`` (flax ``params``/``batch_stats`` as arrays, see
-    ``weights.from_jax_variables``), else ``checkpoint`` (a reference
-    ``.pth``/``.pt``, see ``weights.load_checkpoint``), else the model's own
-    weights. ``fused`` runs ``FusedFireNet`` in ``layout`` on the fused
-    kernels. ``device`` defaults to the GPU. ``chunk`` and
+    ``weights.from_jax_variables``), else ``checkpoint`` (a reference or
+    port ``.pth``/``.pt``, or an evflow ``model.msgpack`` or its directory,
+    see ``weights.load_checkpoint``), else the model's own weights.
+    ``fused`` runs ``FusedFireNet`` in ``layout`` on the fused kernels.
+    ``device`` defaults to the GPU. ``chunk`` and
     ``device_metrics`` as in the module's docstring. ``stats``, if given,
     receives the windows run and the wall seconds of the loop; with
     ``stats["split"]`` true the loop syncs between the parts of
@@ -260,11 +265,6 @@ def evaluate(
             raise ValueError("device_metrics with metrics.heat_map needs "
                              "window == 1 (the AEE criterion-call gate is "
                              "evaluated in-graph)")
-    if checkpoint and variables is None and not checkpoint.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"checkpoint {checkpoint!r}: only .pth/.pt files (the reference's and the "
-            "port's) are read; evflow msgpack checkpoints come with ROADMAP.md queue 1 "
-            "item 12")
     if int(config["loader"].get("num_workers", 1)) > 1:
         raise NotImplementedError(
             "loader.num_workers > 1: the multi-process loader comes with ROADMAP.md "

@@ -5,14 +5,14 @@ package's ``eval_flow.py``)::
         --fused --chunk 8 --device_metrics
 
 The checkpoint is a PyTorch ``.pth`` (the reference's, or a port
-training checkpoint), or the id of a port training run under
+training checkpoint), a reference package's ``model.msgpack`` (or its
+directory), or the id of a training run of either package under
 ``--path_runs``: the run's ``params.yaml`` under the config (the config
 wins, the run's model survives) and its newest ``lowest_loss`` checkpoint.
 Unless ``--debug``, the config and the per-file results go to
 ``<path_results>/<run id or name of the checkpoint file>/eval_N.yml`` and
-``metrics_N.yml``. It runs on the GPU unless ``--device cpu``. evflow
-msgpack checkpoints, ``--num_devices > 1`` and ``--profile`` are not
-ported yet and raise.
+``metrics_N.yml``. It runs on the GPU unless ``--device cpu``.
+``--num_devices > 1`` and ``--profile`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -49,14 +49,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def resolve_checkpoint(checkpoint: str, path_runs: str,
                        config: Dict[str, Any]) -> Tuple[str, str, Dict[str, Any]]:
     """``(checkpoint file, run id, config)``. An existing path is a
-    checkpoint file, its run id the file's name. Else a run id under
+    checkpoint, its run id the file's name. Else a run id under
     ``path_runs/<experiment>/``: the run's params merged under ``config``
     (``config.merge_configs``) and its newest ``checkpoints/lowest_loss``
-    epoch's ``model.pth``. Any other name raises ``FileNotFoundError``."""
+    epoch's ``model.pth`` (a port run) or ``model.msgpack`` (a reference
+    package's run). Any other name raises ``FileNotFoundError``."""
     if os.path.exists(checkpoint):
         return checkpoint, os.path.basename(checkpoint.rstrip("/")) or "eval", config
     from evflow_torch.config import merge_configs
     from evflow_torch.utils.checkpoint import CKPT_NAME
+    from evflow_torch.utils.msgpack import MSGPACK_NAME
     from evflow_torch.utils.tracker import Run
 
     for exp in sorted(os.listdir(path_runs)) if os.path.isdir(path_runs) else []:
@@ -67,9 +69,12 @@ def resolve_checkpoint(checkpoint: str, path_runs: str,
         config = merge_configs({k: str(v) for k, v in train_params.items()}, config)
         lowest = os.path.join(run_dir, "checkpoints", "lowest_loss")
         epochs = sorted(os.listdir(lowest), key=int) if os.path.isdir(lowest) else []
-        if not epochs:
+        files = [os.path.join(lowest, epochs[-1], name) for name in (CKPT_NAME, MSGPACK_NAME)
+                 ] if epochs else []
+        found = [f for f in files if os.path.isfile(f)]
+        if not found:
             raise FileNotFoundError(f"run {checkpoint!r} has no lowest_loss checkpoint")
-        return os.path.join(lowest, epochs[-1], CKPT_NAME), checkpoint, config
+        return found[0], checkpoint, config
     raise FileNotFoundError(f"no checkpoint file or run id {checkpoint!r}")
 
 

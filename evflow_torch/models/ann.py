@@ -18,7 +18,8 @@ class ConvLayer(nn.Module):
     from U(-w_scale, w_scale) with zero bias (FireNet's pred head uses
     0.01). With ``compute_dtype`` the conv's operands are rounded to it; the
     output is f32. ``conv_fake_quant(x, tag)``, if set, quantises the
-    conv's input ("input") and its output before the tanh ("output")."""
+    conv's input ("input") and its output before the tanh ("output"). A
+    bf16 input (bf16 state) is widened to f32 first, as flax promotes it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 1,
                  w_scale: Optional[float] = None,
@@ -34,6 +35,8 @@ class ConvLayer(nn.Module):
         self.conv_fake_quant = conv_fake_quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         q = self.conv_fake_quant
         if q is not None:
             x = q(x, "input")

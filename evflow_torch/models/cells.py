@@ -37,6 +37,17 @@ firing, in the snn family only.
 f32 convs on the card run in full f32 (``full_f32_convs``) whatever the
 process's TF32 flags: PyTorch lets cuDNN run f32 convs in TF32 by default,
 whose 10 mantissa bits move membranes by ~1e-3 and flip spikes.
+
+``conv_impl="dypack_int8"`` runs every 3x3 conv as the int8 dy-packed GEMM
+of ``ops/dypack.py`` (per-tensor int8 weights, the input rounded to int8,
+a bf16 output); the recurrent snn cell then sums ff and rec in one dual
+GEMM, unless a conv quant hook is set. The other values (``auto``,
+``im2col``, ``dypack``, ``lax``) compute the same f32 conv.
+``state_dtype=torch.bfloat16`` (snn cells) casts the post-norm current,
+``beta``, ``theta`` and the membrane to bf16 before ``leaky_step``, so the
+spikes and membranes are bf16; a conv of a bf16 input (the next unit's)
+then rounds its operands and its output to bf16, as flax's im2col conv in
+the input's dtype does.
 """
 
 from __future__ import annotations
@@ -50,10 +61,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from evflow_torch.models.norm import MPBN, TEBN, BatchNorm
+from evflow_torch.ops.dypack import conv3x3_dypack, conv3x3_dypack_dual
 from evflow_torch.ops.lif import THRESH_MIN, LIFState, leaky_step, sigmoid_lif_step
 
 __all__ = ["SNNConvLIF", "SNNConvLIFRecurrent", "ConvLIF", "ConvLIFRecurrent", "conv_nhwc",
-           "full_f32_convs"]
+           "cell_conv", "full_f32_convs", "CONV_IMPLS"]
 
 
 @contextlib.contextmanager
@@ -79,7 +91,10 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Stride-1 SAME conv of NHWC ``x`` in f32 (on the card in full f32,
     not TF32); with ``compute_dtype`` the operands are rounded to it first
-    (exact products, f32 sums) and cuDNN's flags apply as they are."""
+    (exact products, f32 sums) and cuDNN's flags apply as they are. A bf16
+    ``x`` (bf16 state) computes so in bf16 and rounds the output to bf16."""
+    if x.dtype == torch.bfloat16:
+        return conv_nhwc(x.float(), conv, compute_dtype or torch.bfloat16).to(torch.bfloat16)
     w, b = conv.weight, conv.bias
     f32 = (full_f32_convs() if x.is_cuda and compute_dtype is None
            else contextlib.nullcontext())
@@ -93,6 +108,16 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
 
 ConvQuant = Callable[[torch.Tensor, str], torch.Tensor]
 StateQuant = Callable[[torch.Tensor], torch.Tensor]
+CONV_IMPLS = ("auto", "im2col", "dypack", "dypack_int8", "lax")
+
+
+def cell_conv(x: torch.Tensor, conv: nn.Conv2d, compute_dtype: Optional[torch.dtype],
+              conv_impl: str) -> torch.Tensor:
+    """The cell's conv of NHWC ``x``: the int8 dy-packed GEMM (bf16 out) for
+    a 3x3 kernel under ``dypack_int8``, else ``conv_nhwc``."""
+    if conv_impl == "dypack_int8" and conv.kernel_size[0] == 3:
+        return conv3x3_dypack(x, conv.weight)
+    return conv_nhwc(x, conv, compute_dtype)
 
 
 def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
@@ -122,8 +147,11 @@ class SNNConvLIF(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None, learn_leak: bool = True,
                  learn_thresh: bool = True, detach: bool = True,
                  conv_fake_quant: Optional[ConvQuant] = None,
-                 state_quant: Optional[StateQuant] = None):
+                 state_quant: Optional[StateQuant] = None, conv_impl: str = "auto",
+                 state_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
         self.ff = _conv(input_size, hidden_size, kernel_size)
         self.bn = TEBN(hidden_size, num_timesteps) if tebn else BatchNorm(hidden_size)
         self.lif = _LIFParams(hidden_size, leak, thresh)
@@ -135,6 +163,11 @@ class SNNConvLIF(nn.Module):
         self.detach = detach
         self.conv_fake_quant = conv_fake_quant
         self.state_quant = state_quant
+        self.conv_impl = conv_impl
+        self.state_dtype = state_dtype
+
+    def _conv(self, x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+        return cell_conv(x, conv, self.compute_dtype, self.conv_impl)
 
     def _norm(self, x: torch.Tensor, timestep: Optional[int]) -> torch.Tensor:
         return self.bn(x, timestep) if isinstance(self.bn, TEBN) else self.bn(x)
@@ -147,6 +180,10 @@ class SNNConvLIF(nn.Module):
             theta = theta.detach()
         # new_full fills on the device: new_tensor would copy from the host
         theta = torch.maximum(theta, theta.new_full((), THRESH_MIN))
+        sdt = self.state_dtype
+        if sdt is not None:
+            current, mem = current.to(sdt), mem.to(sdt)
+            beta, theta = beta.to(sdt), theta.to(sdt)
         spk, mem_out = leaky_step(
             current, mem, beta, theta,
             reset="zero" if self.hard_reset else "subtract",
@@ -165,7 +202,7 @@ class SNNConvLIF(nn.Module):
         q = self.conv_fake_quant
         if q is not None:
             x = q(x, "input")
-        ff = conv_nhwc(x, self.ff, self.compute_dtype)
+        ff = self._conv(x, self.ff)
         if q is not None:
             ff = q(ff, "output")
         ff = self._norm(ff, timestep)
@@ -186,15 +223,20 @@ class SNNConvLIFRecurrent(SNNConvLIF):
         q = self.conv_fake_quant
         if q is not None:
             x = q(x, "input")
-        ff = conv_nhwc(x, self.ff, self.compute_dtype)
         if state is None:
-            mem = prev_spk = torch.zeros_like(ff)
+            shape = x.shape[:-1] + (self.ff.out_channels,)
+            mem = prev_spk = x.new_zeros(shape, dtype=torch.float32)
         else:
             mem, prev_spk = state
-        rec = conv_nhwc(prev_spk, self.rec, self.compute_dtype)
-        if q is not None:
-            ff, rec = q(ff, "output"), q(rec, "output")
-        return self._fire(self._norm(ff + rec, timestep), mem)
+        if self.conv_impl == "dypack_int8" and self.ff.kernel_size[0] == 3 and q is None:
+            # ff and rec in one int8 GEMM over one shared weight scale
+            total = conv3x3_dypack_dual(x, prev_spk, self.ff.weight, self.rec.weight)
+        else:
+            ff, rec = self._conv(x, self.ff), self._conv(prev_spk, self.rec)
+            if q is not None:
+                ff, rec = q(ff, "output"), q(rec, "output")
+            total = ff + rec
+        return self._fire(self._norm(total, timestep), mem)
 
 
 class ConvLIF(nn.Module):
@@ -206,8 +248,10 @@ class ConvLIF(nn.Module):
                  thresh: Tuple[float, float] = (0.8, 0.0), learn_leak: bool = True,
                  learn_thresh: bool = True, hard_reset: bool = True, detach: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
-                 conv_fake_quant: Optional[ConvQuant] = None):
+                 conv_fake_quant: Optional[ConvQuant] = None, conv_impl: str = "auto"):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
         self.ff = _conv(input_size, hidden_size, kernel_size)
         self.leak = nn.Parameter(torch.empty(hidden_size, 1, 1).normal_(*leak))
         self.thresh = nn.Parameter(torch.empty(hidden_size, 1, 1).normal_(*thresh))
@@ -219,12 +263,13 @@ class ConvLIF(nn.Module):
         self.detach = detach
         self.compute_dtype = compute_dtype
         self.conv_fake_quant = conv_fake_quant
+        self.conv_impl = conv_impl
 
     def _quant_conv(self, x: torch.Tensor, conv: nn.Conv2d, tag_input: bool) -> torch.Tensor:
         q = self.conv_fake_quant
         if q is not None and tag_input:
             x = q(x, "input")
-        y = conv_nhwc(x, conv, self.compute_dtype)
+        y = cell_conv(x, conv, self.compute_dtype, self.conv_impl)
         return q(y, "output") if q is not None else y
 
     def _fire(self, current: torch.Tensor, state: Optional[LIFState]):
@@ -246,7 +291,7 @@ class ConvLIF(nn.Module):
                 timestep: Optional[int] = None, residual=0.0):
         """``x [B, H, W, Cin]`` -> ``(spikes + residual, LIFState)``;
         ``timestep`` is accepted and unused (no TEBN here)."""
-        z_out, st = self._fire(self._quant_conv(x, self.ff, True), state)
+        z_out, st = self._fire(self._quant_conv(x, self.ff, True).float(), state)
         if torch.is_tensor(residual) or residual != 0.0:
             z_out = z_out + residual
         return z_out, st
@@ -264,4 +309,4 @@ class ConvLIFRecurrent(ConvLIF):
                 timestep: Optional[int] = None):
         ff = self._quant_conv(x, self.ff, True)
         z = torch.zeros_like(ff) if state is None else state.spk
-        return self._fire(ff + self._quant_conv(z, self.rec, False), state)
+        return self._fire((ff + self._quant_conv(z, self.rec, False)).float(), state)

@@ -59,7 +59,11 @@ class FireNet(nn.Module):
     nonzero activations (``activity_fractions`` of the input, every unit's
     spikes and the flow, keyed ``"<i>:<name>"``), else None. ``compute_dtype``
     (e.g. ``torch.bfloat16``) runs the convolutions in that type while the
-    LIF state stays f32.
+    LIF state stays f32. ``conv_impl="dypack_int8"`` runs the units' 3x3
+    convs as int8 dy-packed GEMMs; ``state_dtype=torch.bfloat16`` carries
+    bf16 membranes and spikes in the snn family (see ``models.cells``). The
+    sigmoid family keeps f32 state: the reference's starts from bf16 zeros
+    and computes the same f32 values from its first step on.
 
     Quantization hooks (``evflow_torch.quant.fake_quant``): ``state_quant``
     on every snn unit's membrane, or ``state_quant_per_layer`` (one per
@@ -86,7 +90,8 @@ class FireNet(nn.Module):
                  state_quant: Optional[Callable] = None,
                  state_quant_per_layer: Optional[Sequence[Optional[Callable]]] = None,
                  conv_fake_quant: Optional[Callable] = None,
-                 conv_fake_quant_per_layer: Optional[Sequence[Optional[Callable]]] = None):
+                 conv_fake_quant_per_layer: Optional[Sequence[Optional[Callable]]] = None,
+                 conv_impl: str = "auto", state_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cell_family not in ("snn", "sigmoid"):
             raise ValueError(f"Unknown cell_family {cell_family!r}")
@@ -107,13 +112,17 @@ class FireNet(nn.Module):
         self.mpbn = mpbn
         self.compute_dtype = compute_dtype
         self.num_timesteps = num_timesteps
+        self.conv_impl = conv_impl
+        self.state_dtype = state_dtype if cell_family == "snn" else None
 
         C = base_num_channels
         common = dict(kernel_size=kernel_size, leak=leak, thresh=thresh,
                       hard_reset=hard_reset, compute_dtype=compute_dtype,
-                      learn_leak=learn_leak, learn_thresh=learn_thresh, detach=detach)
+                      learn_leak=learn_leak, learn_thresh=learn_thresh, detach=detach,
+                      conv_impl=conv_impl)
         if cell_family == "snn":
-            common.update(tebn=tebn, num_timesteps=num_timesteps, mpbn=mpbn)
+            common.update(tebn=tebn, num_timesteps=num_timesteps, mpbn=mpbn,
+                          state_dtype=state_dtype)
             ff_cell, rec_cell = SNNConvLIF, SNNConvLIFRecurrent
         else:
             common.update(activation=activation, act_width=act_width)
@@ -178,12 +187,12 @@ class FireNet(nn.Module):
         return self.pred.conv2d.weight.device
 
     def init_states(self, batch: int, height: int, width: int) -> Tuple[LIFState, ...]:
-        """Zero f32 state, one ``LIFState`` per unit, ``[B, H, W, C]``."""
+        """Zero state (f32, or ``state_dtype``), one ``LIFState`` per unit,
+        ``[B, H, W, C]``."""
         shape = (batch, height, width, self.base_num_channels)
-        return tuple(
-            LIFState(torch.zeros(shape, device=self.device),
-                     torch.zeros(shape, device=self.device))
-            for _ in range(self.num_units))
+        kw = dict(device=self.device, dtype=self.state_dtype or torch.float32)
+        return tuple(LIFState(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+                     for _ in range(self.num_units))
 
     def forward(self, event_voxel: Optional[torch.Tensor],
                 event_cnt: Optional[torch.Tensor],

@@ -9,9 +9,12 @@ kernel per unit (``fused_conv_lif`` for ``layout="nhwc"``,
 
 ``from_firenet`` refuses the settings under which the fused step would
 compute another function than ``FireNet``: input normalisation
-(``norm_input``), membrane BN (``mpbn``), cells other than snn.Leaky and
+(``norm_input``), membrane BN (``mpbn``), cells other than snn.Leaky,
 quantization hooks (``FireNet.quant_hooks``: the fused kernels run f32
-convs and membranes, so a quantised model runs unfused).
+convs and membranes, so a quantised model runs unfused), bf16 state
+(``state_dtype``) and int8 convs (``conv_impl="dypack_int8"``). The
+reference's ``FusedFireNet`` ignores the last two and computes another
+function (ROADMAP.md queue 3).
 """
 
 from __future__ import annotations
@@ -59,7 +62,11 @@ class FusedFireNet:
     @torch.no_grad()
     def from_firenet(cls, model, layout: str = "nhwc") -> "FusedFireNet":
         """Fold a port ``FireNet`` (eval statistics) into fused form."""
-        if getattr(model, "cell_family", "snn") != "snn":
+        from evflow_torch.models.firenet import FireNet
+
+        if not isinstance(model, FireNet):
+            raise ValueError(f"FusedFireNet folds a FireNet, got {type(model).__name__}")
+        if model.cell_family != "snn":
             raise ValueError("FusedFireNet runs snn.Leaky cells only, got "
                              f"cell_family={model.cell_family!r}")
         hooks = getattr(model, "quant_hooks", ())
@@ -72,6 +79,12 @@ class FusedFireNet:
         if model.mpbn:
             raise ValueError("FusedFireNet has no membrane BN; an mpbn=True "
                              "FireNet computes another function")
+        if model.state_dtype is not None:
+            raise ValueError(f"FusedFireNet carries f32 membranes; a FireNet with "
+                             f"state_dtype={model.state_dtype} computes another function")
+        if model.conv_impl == "dypack_int8":
+            raise ValueError("FusedFireNet runs f32 convs; a conv_impl='dypack_int8' FireNet "
+                             "computes another function")
         units, params = [], {}
         for name in model.unit_names:
             cell = getattr(model, name)

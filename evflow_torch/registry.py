@@ -39,15 +39,8 @@ def firenet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     sn = cfg.get("spiking_neuron") or {}
     tebn = cfg.get("tebn") or {}
     q = cfg.get("quantization") or {}
-    if cfg.get("state_dtype") not in (None, "float32"):
-        raise NotImplementedError(f"state_dtype {cfg['state_dtype']!r}: only f32 LIF state is "
-                                  "ported; bf16 membranes come with the int8 serving engine, "
-                                  "ROADMAP.md queue 1, item 8")
-    # auto, im2col, dypack and lax all compute the same f32 conv; dypack_int8
-    # quantises every 3x3 conv to int8, which the port does not do yet
-    if cfg.get("conv_impl") == "dypack_int8":
-        raise NotImplementedError("conv_impl 'dypack_int8' (int8 convs) is not ported yet: "
-                                  "ROADMAP.md queue 1, item 8")
+    if cfg.get("state_dtype") not in (None, "float32", "bfloat16"):
+        raise ValueError(f"state_dtype must be float32 or bfloat16, got {cfg['state_dtype']!r}")
     kwargs = dict(
         num_bins=int(cfg.get("num_bins", 2)),
         base_num_channels=int(cfg.get("base_num_channels", 32)),
@@ -73,6 +66,10 @@ def firenet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
         kwargs["act_width"] = float(sn["act_width"])
     if cfg.get("compute_dtype") == "bfloat16":
         kwargs["compute_dtype"] = torch.bfloat16
+    if "conv_impl" in cfg:
+        kwargs["conv_impl"] = cfg["conv_impl"]
+    if cfg.get("state_dtype") == "bfloat16":
+        kwargs["state_dtype"] = torch.bfloat16
     # QAT: quantization.enabled without PTQ puts the fake-quant hooks in the
     # training graph: dynamic absmax conv quant (static_scales swaps in the
     # calibrated per-layer hooks, apply_static_qat), plus the membrane quant

@@ -412,6 +412,16 @@ def log_param_histograms(run, model: torch.nn.Module,
 
 
 def _resume(prev_ckpt: str, model, optimizer):
+    from evflow_torch.utils.msgpack import is_flax_checkpoint, read_flax_checkpoint
+    from evflow_torch.weights import flax_optimizer_state, from_jax_variables
+
+    if is_flax_checkpoint(prev_ckpt):  # a reference package's run
+        ckpt = read_flax_checkpoint(prev_ckpt)
+        model.load_state_dict(from_jax_variables(ckpt))
+        if ckpt.get("opt_state") is not None:
+            optimizer.load_state_dict(flax_optimizer_state(
+                ckpt["opt_state"], ckpt.get("batch_stats", {}), model, optimizer))
+        return
     ckpt = load_training_checkpoint(prev_ckpt)
     if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
         sd, opt = ckpt["model_state_dict"], ckpt.get("optimizer_state_dict")
@@ -432,9 +442,12 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
     checkpoints and metrics).
 
     ``device`` defaults to the GPU. ``prev_ckpt`` (a port checkpoint file
-    or its directory) restores the weights, the norms' running statistics
-    and the optimizer state; a reference ``.pth`` restores the weights and
-    statistics. ``epoch_callback(epoch, model, run,
+    or its directory, or a reference package's ``model.msgpack`` or its
+    directory) restores the weights, the norms' running statistics and the
+    optimizer state (optax's moments and count); a reference ``.pth``
+    restores the weights and statistics. Bf16 state (``model.state_dtype``)
+    is refused: its step is not held against the reference's (ROADMAP.md
+    queue 1 item 13). ``epoch_callback(epoch, model, run,
     optimizer)`` fires at every epoch end (the validation hook). ``stats``,
     if given, receives ``steps``, ``losses`` (every fetched loss),
     ``step_end`` (the host clock after each step's enqueue), ``seconds``
@@ -450,8 +463,12 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
         raise NotImplementedError(
             "loader.num_workers > 1: the multi-process loader comes with ROADMAP.md "
             "queue 1 item 11")
-    device = resolve_device(device)
     model_cfg = config["model"]
+    if model_cfg.get("state_dtype") == "bfloat16":
+        raise NotImplementedError(
+            "state_dtype bfloat16 in training: the bf16-state step is not held against the "
+            "reference's yet, ROADMAP.md queue 1 item 13")
+    device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(loader.get("seed", 0)))
         model = registry.build_model(model_cfg, device="cpu")

@@ -20,7 +20,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--config", default="configs/train_SNN.yml", help="training configuration")
     parser.add_argument("--path_runs", default="runs", help="tracking and checkpoint root")
     parser.add_argument("--prev_runid", default="",
-                        help="port checkpoint (model.pth or its directory) to resume from: "
+                        help="checkpoint to resume from (a port model.pth, a reference "
+                             "package's model.msgpack, or the directory of either): "
                              "weights, norm statistics and optimizer state")
     parser.add_argument("--num_devices", type=int, default=1)
     parser.add_argument("--max_steps", type=int, default=None)

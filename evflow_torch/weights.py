@@ -9,7 +9,11 @@ the port (counterpart of the torch import in ``evflow/utils/checkpoint.py``).
 * ``to_port_layout``: a reference state dict as it is (plain layout, or the
   PTQ layout with ``{unit}.beta``/``{unit}.threshold``) -> port key names,
   every per-channel LIF vector in the model's shape.
-* ``load_checkpoint``: the state dict inside a reference ``.pth`` file.
+* ``load_checkpoint``: the state dict inside a reference ``.pth`` file, or
+  of a reference package's ``model.msgpack`` (``utils/msgpack.py``).
+* ``flax_optimizer_state``: a msgpack checkpoint's optax state (Adam's
+  moments and count, a momentum trace, RMSprop's ``nu``) as the port
+  optimizer's ``state_dict``.
 * ``seeded_state_dict``: seeded FireNet weights in the flax init
   distributions, with BN statistics drawn so that every unit fires.
 """
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax_variables", "to_port_layout", "load_checkpoint",
-           "seeded_state_dict"]
+           "seeded_state_dict", "flax_optimizer_state"]
 
 _BN_LEAVES = (("scale", "weight"), ("bias", "bias"))
 _BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
@@ -101,7 +105,12 @@ def to_port_layout(state_dict: Mapping[str, torch.Tensor],
 
 def load_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """The model state dict of a reference checkpoint file: a bare state
-    dict, ``{"model_state_dict": ...}``, or a pickled module."""
+    dict, ``{"model_state_dict": ...}``, or a pickled module; or of the
+    reference package's ``model.msgpack`` (the file or its directory)."""
+    from evflow_torch.utils.msgpack import is_flax_checkpoint, read_flax_checkpoint
+
+    if is_flax_checkpoint(path):
+        return from_jax_variables(read_flax_checkpoint(path))
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
     if hasattr(sd, "state_dict"):
@@ -173,3 +182,54 @@ def seeded_state_dict(model, seed: int = 0, pred_scale: float = 0.1) -> Dict[str
         else:
             raise KeyError(f"no seeded draw for {key}")
     return out
+
+
+def _optax_nodes(tree: Any):
+    """(fields, node) of every optax state in a msgpack ``opt_state`` tree
+    that holds per-parameter trees: ScaleByAdamState, ScaleByRmsState,
+    TraceState."""
+    if not isinstance(tree, dict):
+        return
+    keys = frozenset(tree)
+    if keys in (frozenset({"count", "mu", "nu"}), frozenset({"nu"}), frozenset({"trace"})):
+        yield keys, tree
+        return
+    for v in tree.values():
+        yield from _optax_nodes(v)
+
+
+def flax_optimizer_state(opt_state: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                         model: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The port ``optimizer``'s ``state_dict`` holding the reference's optax
+    state (as a msgpack checkpoint stores it): Adam and AdamW's ``mu``,
+    ``nu`` and ``count`` as ``exp_avg``, ``exp_avg_sq`` and ``step``; SGD's
+    momentum trace as ``momentum_buffer``; ``OptaxRMSprop``'s ``nu`` and
+    ``trace`` (optax traces the update after the learning rate, the port
+    before it: divided by ``-lr``). Each moment tree is laid out as
+    ``from_jax_variables`` lays out the parameters."""
+    names = [n for n, _ in model.named_parameters()]
+
+    def port(tree):
+        sd = from_jax_variables({"params": tree, "batch_stats": batch_stats})
+        return [sd[n] for n in names]
+
+    state: Dict[int, Dict[str, torch.Tensor]] = {i: {} for i in range(len(names))}
+    for keys, node in _optax_nodes(opt_state):
+        if "mu" in keys:
+            step = torch.tensor(float(np.asarray(node["count"])))
+            for i, (m, v) in enumerate(zip(port(node["mu"]), port(node["nu"]))):
+                state[i].update(step=step.clone(), exp_avg=m, exp_avg_sq=v)
+        elif "nu" in keys:
+            for i, v in enumerate(port(node["nu"])):
+                state[i]["nu"] = v
+        elif isinstance(optimizer, torch.optim.SGD):
+            for i, t in enumerate(port(node["trace"])):
+                state[i]["momentum_buffer"] = t
+        else:
+            lr = float(optimizer.param_groups[0]["lr"])
+            for i, t in enumerate(port(node["trace"])):
+                state[i]["trace"] = t / -lr
+    sd = optimizer.state_dict()
+    return {"state": {i: s for i, s in state.items() if s},
+            "param_groups": sd["param_groups"]}

@@ -5,9 +5,10 @@ their CPU run, the whole-network kernels (K3, K4, K5, K6, K7) against
 ``firenet_step_plain``, and the in-kernel dot, staging, unit-loop,
 runtime-indexed loop, Mosaic-ops and whole-net bisection probes against
 theirs; ``conv_nhwc`` in full f32 under PyTorch's default TF32 flags, one
-training step against the CPU's, and the quantization path: a QAT step
+training step against the CPU's, the quantization path: a QAT step
 and a sigmoid-family forward, the PTQ calibration, and the quantised
-model's chunks (a CUDA graph) against its per-window run.
+model's chunks (a CUDA graph) against its per-window run; and the int8
+serving engine against the CPU's, with its int8 GEMM.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -1528,3 +1529,59 @@ def test_quantized_chunks_match_per_window_on_card(cuda, tmp_path):
             for f, v in per_file.items():
                 np.testing.assert_allclose(float(got[m][f]), float(v), rtol=rtol, atol=1e-7,
                                            err_msg=f"{kw} {m} {f}")
+
+
+@pytest.mark.parametrize("M", [300, 17, 1920])
+@pytest.mark.parametrize("K,N", [(6, 96), (192, 96), (13, 5), (96, 96)],
+                         ids=["head", "dual", "ragged", "ff"])
+def test_int8_matmul_on_card_is_exact(cuda, M, K, N):
+    """``int8_matmul`` (``torch._int_mm`` with K and N padded to multiples
+    of 8 and M to a multiple of 32) equals the int64 product: the head's
+    K = 3 * num_bins = 6, the recurrent units' K = 6C, a feedforward unit's
+    3C, and a K and N that both need padding, at row counts that cuBLASLt
+    refuses unpadded (300, 17) and one it takes (1920)."""
+    from evflow_torch.ops.dypack import int8_matmul
+
+    rng = np.random.default_rng(K)
+    a = torch.tensor(rng.integers(-127, 128, (M, K)), dtype=torch.int8)
+    b = torch.tensor(rng.integers(-127, 128, (K, N)), dtype=torch.int8)
+    got = int8_matmul(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu().long(), a.long() @ b.long())
+
+
+@pytest.mark.parametrize("tier", ["bfloat16", "int8", "mixed"])
+def test_deploy_engine_on_card_matches_cpu(cuda, tier):
+    """The int8 serving engine (LIFFireNet, 8 channels, B=2, 24x40) over 6
+    windows with ``z_int8`` on the card and on the CPU: membrane ranges,
+    membranes and spike carries bit-equal, flows within one bf16 ulp."""
+    from evflow_torch.deploy import Int8DeployEngine, profile_mem_ranges
+    from evflow_torch.probes.deploy_step import bf16_ulps
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import seeded_state_dict
+
+    cfg = {"name": "LIFFireNet", "num_bins": 2, "base_num_channels": 8, "kernel_size": 3,
+           "encoding": "cnt", "spiking_neuron": {"leak": [0.0, 1.0], "thresh": [0.0, 0.8]}}
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(seeded_state_dict(cpu, seed=3))
+    gpu = build_model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    wins = torch.tensor(rng.poisson(0.4, (6, 2, 24, 40, 2)).astype(np.float32))
+    ranges = profile_mem_ranges(cpu, wins[:3]) if tier != "bfloat16" else None
+    if ranges is not None:
+        for (a, b), (c, d) in zip(ranges, profile_mem_ranges(gpu, wins[:3].to(cuda))):
+            assert np.array_equal(a, c) and np.array_equal(b, d)
+    engines = [Int8DeployEngine(m, mem_dtype=tier, mem_ranges=ranges) for m in (cpu, gpu)]
+    for e in engines:
+        e.calibrate_z(list(wins[:3].numpy()))
+    states = [e.init_states(2, 24, 40) for e in engines]
+    with torch.no_grad():
+        for x in wins:
+            (oc, sc), (og, sg) = (e(None, x.to(e.device), s) for e, s in zip(engines, states))
+            states = [sc, sg]
+            assert bf16_ulps(og["flow"][0], oc["flow"][0]) <= 1
+            for a, b in zip(sc, sg):
+                assert torch.equal(a.mem, b.mem.cpu())
+                assert (a.spk is None) == (b.spk is None)
+                assert a.spk is None or torch.equal(a.spk, b.spk.cpu())

@@ -186,19 +186,24 @@ def test_from_jax_variables_round_trip(tmp_path, cfg_extra):
 
 def test_conv_impl_int8_is_refused():
     """``conv_impl: dypack_int8`` runs every 3x3 conv in int8 in the
-    reference; the port has no int8 conv yet, so the config is refused (in
-    ``firenet_kwargs`` and ``build_model``) before any model is built or
-    kernel launched, instead of silently running f32 convs."""
+    reference; the port's cells run the int8 dy-packed conv too (a bf16
+    output), and the fused kernels, which compute f32 convs, refuse such a
+    model before any kernel is launched instead of silently running f32
+    convs."""
+    from evflow_torch.models.fused import FusedFireNet
     from evflow_torch.ops.conv_lif import fused_conv_lif
     from evflow_torch.ops.conv_lif_cmajor import fused_conv_lif_cmajor
     from evflow_torch.registry import firenet_kwargs
 
     before = (fused_conv_lif.launches, fused_conv_lif_cmajor.launches)
     cfg = model_cfg("LIFFireNet", conv_impl="dypack_int8")
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        firenet_kwargs(cfg)
-    with pytest.raises(NotImplementedError, match="dypack_int8"):
-        build_model(cfg, device="cpu")
+    assert firenet_kwargs(cfg)["conv_impl"] == "dypack_int8"
+    model = build_model(cfg, device="cpu")
+    assert model.head.conv_impl == model.G1.conv_impl == "dypack_int8"
+    assert model.head._conv(torch.ones(1, 4, 4, 2), model.head.ff).dtype == torch.bfloat16
+    for layout in ("nhwc", "cmajor"):
+        with pytest.raises(ValueError, match="dypack_int8"):
+            FusedFireNet.from_firenet(model, layout=layout)
     assert (fused_conv_lif.launches, fused_conv_lif_cmajor.launches) == before
 
 

@@ -162,8 +162,9 @@ def test_registry_builds_the_qat_hooks():
     """``quantization.enabled`` (without PTQ): the dynamic conv hook on
     every unit and the pred head, the membrane quant unless ``Conv_only``;
     ``static_scales`` swaps in per-layer static hooks; PTQ and a disabled
-    section build the FP32 model; ``state_dtype`` still raises naming the
-    int8 serving item."""
+    section build the FP32 model; ``state_dtype: bfloat16`` builds bf16
+    state (the int8 serving item brought it), another ``state_dtype``
+    raises."""
     def built(**q):
         return build_model(model_cfg("LIFFireNet_short", quantization=q), device="cpu")
 
@@ -175,8 +176,10 @@ def test_registry_builds_the_qat_hooks():
     static = built(enabled=True, static_scales={"head/output": 0.1})
     assert static.quant_hooks == ("state_quant", "conv_fake_quant_per_layer")
     assert len({id(getattr(static, u).conv_fake_quant) for u in static.unit_names}) == 5
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        build_model(model_cfg("LIFFireNet", state_dtype="bfloat16"), device="cpu")
+    bf16 = build_model(model_cfg("LIFFireNet", state_dtype="bfloat16"), device="cpu")
+    assert bf16.init_states(1, 4, 4)[0].mem.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="state_dtype"):
+        build_model(model_cfg("LIFFireNet", state_dtype="float16"), device="cpu")
 
 
 def calibrated_scales(cfg, variables, batches=6):

@@ -5,8 +5,9 @@ the reference's form)
 and ``evflow_torch.eval_flow_quant`` in each mode (``ptq`` with
 ``--auto_tune_lif`` in chunks with the metrics on the device, equal to the
 same run in-process; ``hybrid``, ``mixed`` and ``full_qat`` on the QAT
-run's id), the deploy flags refused naming the int8 serving item before
-any file opens, and the modules importing neither JAX nor the reference."""
+run's id), the UNet engine's flags and misused deploy flags refused before
+any file opens, and the modules importing neither JAX nor the reference
+(``--mode deploy`` itself: ``tests/test_torch_deploy_cli.py``)."""
 
 import json
 import os
@@ -143,15 +144,20 @@ def test_eval_flow_quant_modes_on_the_qat_run(ws, qat_run, tmp_path, capsys, mod
     assert np.isfinite([float(v) for m in res.values() for v in m.values()]).all()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mode", "deploy"], ["--mode", "deploy", "--artifact", "a.npz"], ["--compute", "int8"],
-    ["--phase_decoders"], ["--mem_dtype", "int8"], ["--z_int8"]])
-def test_eval_flow_quant_refuses_the_deploy_flags(flags, tmp_path):
-    """The int8 serving engines are queue 1 item 8: their flags raise
-    before any file opens (the checkpoint and config do not exist)."""
+@pytest.mark.parametrize("flags,exc,match", [
+    (["--mode", "deploy", "--compute", "int8"], NotImplementedError, "queue 1 item 9"),
+    (["--mode", "deploy", "--artifact", "a.npz"], SystemExit, None),
+    (["--compute", "int8"], NotImplementedError, "queue 1 item 9"),
+    (["--phase_decoders"], NotImplementedError, "queue 1 item 9"),
+    (["--mem_dtype", "int8"], SystemExit, None), (["--z_int8"], SystemExit, None)])
+def test_eval_flow_quant_refuses_the_deploy_flags(flags, exc, match, tmp_path):
+    """The UNet engine's flags raise naming its item (queue 1 item 9); a
+    checkpoint beside ``--artifact``, and the engine's flags outside
+    ``--mode deploy``, are usage errors; all before any file opens (the
+    checkpoint and config do not exist)."""
     from evflow_torch.eval_flow_quant import main
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(exc, match=match):
         main([str(tmp_path / "none.pth"), "--config", str(tmp_path / "none.yml"), *flags])
     assert not any(tmp_path.iterdir())
 
