@@ -141,7 +141,34 @@ Phases, each printing JSON lines; any failure exits non-zero:
    state; at B=2 each runner's kernels a window and their device ms. The
    serving path launches no hand-written kernel: its reference's GEMM is
    an XLA int8 dot, here ``torch._int_mm``.
-8. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
+8. ``unet``: the UNet family (``evflow_torch.models.unet``,
+   ``evflow_torch.deploy_unet``, ``evflow_torch.probes.unet_step``). (a)
+   The int8 engine of the full-width ``SpikingRecEVFlowNet`` (32 base
+   channels, 4 encoders, 2 residual blocks; ``weights.seeded_unet_state_dict``,
+   every slot firing) at 256x256, 6 windows ~5% active, for each tier
+   (``bfloat16``, ``int8``, ``hybrid``, ``hybrid8``, and ``hybrid`` with
+   phase decoders) on the card at B=2 and at B=1 (the first slot) and on
+   the CPU at B=2: prepared tensors equal, every state and flow bit-equal
+   (B=1 against the CPU's first slot), each slot's spike rate; then the
+   share of the resize decoders' prediction inputs at the int8 clip
+   (``feedback_saturation``). (b) Phase 4's data and config with the
+   model swapped for the UNet: the f32 model per window, in chunks of 8
+   and with ``device_metrics``, and each engine per window and with
+   ``device_metrics`` (windows/s, host split over 32 windows): chunks
+   within 1e-6, device metrics within 1e-5, the phase decoders' AEE within
+   5% of f32's, the resize tiers' within 2% of one another and within 12%
+   of f32's (the reference engine's saturated prediction feedback puts
+   them ~10.4% above it). (c) In subprocesses started before (a), all
+   with ``--chunk 8 --device_metrics``: ``eval_flow`` on the UNet ``.pth``
+   (within 1e-6), ``eval_flow_quant --mode deploy --compute hybrid
+   --phase_decoders`` and ``--artifact`` on a ``save_unet_engine`` file of
+   the ``int8`` engine, each equal to its in-process run in (b). (d)
+   ``evflow_torch.bench_unet`` at 256x256, B=1 and 2: the f32 model and
+   each tier with phase decoders off and on (windows/s, CUDA graph
+   replays), and at B=2 kernels and card ms a step and the int8 GEMMs'
+   share. No hand-written kernel runs (the reference reaches no Pallas
+   kernel on this path).
+9. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
    256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
    and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
    the sums of a window's 7 launches at each shape; then FusedFireNet
@@ -149,7 +176,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    over 7 rounds of 50 steps enqueued while the card sleeps: the host's
    enqueue time a step and the card's time a step, medians of the rounds
    (the scan is the larger of the two).
-9. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
+10. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
    ``fused_net_loop``, K5 ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7
    ``fused_net_batch``) at full width, 256x256, at B=2 over 8 windows and
    at B=8 (the bench entry point's batch) over 4, in f32 and bf16 state:
@@ -168,7 +195,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
    just before and read just after (1 launch per window).
-10. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
+11. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
    through their entry point ``run_all`` at the JAX probes' shapes
    (launch counters 0 just before, read just after; exactly 1 + repeats
    launches per case), each against its plain version (f32 accumulation
@@ -180,7 +207,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the L stacked weight matrices per step (``torch.matmul`` bf16,
    ``torch._int_mm`` int8), as the yardstick, and the kernel's time over
    each (``x_bound``, ``x_library``).
-11. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
+12. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
    K8d row windows staged by TMA bulk copies, K8e's layer loop, and K8c at
    H=2048) through ``run_all`` (launch counters 0 just before, read just
    after; exactly 1 + repeats launches per case), each against its plain
@@ -196,7 +223,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    for the layer grid. Then K8e at L = 1, 3, 5 and 7 layers
    (``probes/staging_slope.py``) and the slope of its time over L: what
    staging one more layer costs.
-12. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
+13. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
    three cases, one conv+LIF unit in a runtime layer loop with and without
    the LIF and the per-layer output, and K8j, the same body behind staged
    spike slots) at the JAX probes' shapes through ``run_all`` (launch
@@ -207,7 +234,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (the bytes and operations of the cone of rows the outputs need), the
    CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
    W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
-13. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
+14. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
    K8f's k1-k5, K8h's k10-k12 and K8g's k6-k8, a layer loop reading and
    writing a shared-memory scratch at the runtime layer index) at the JAX
    probes' shapes (L=4, C=32, E=24, W=256; k6's p ``[4,32,3]``, k7's w
@@ -234,7 +261,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k7 one ``F.conv2d`` of ``[1, L C, E, W]`` (f32, TF32 off), k8
    ``torch.mul(x[:, :, 8:16], 2)``; and the kernel's time over the bound
    and over the yardstick.
-14. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
+15. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
    K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
    in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
    W=256, bf16 normals) through ``run_all`` (launch counters as in phase
@@ -245,11 +272,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
    (``out_dtype``), and the kernel's time over the bound and the yardstick.
-15. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
+16. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
    K8k's kA and kB, K8l's two, K8m's four and K8n's three chain variants, on
    ``csrc/probe_wholenet_bisect.cu``) at the JAX files' shapes (C=32, H=64,
    W=256, TH=16; B=1 for K8k, 2 for the chain) through ``run_all`` (launch
-   counters as in phase 13), every output of each case (kA's and kB's out;
+   counters as in phase 14), every output of each case (kA's and kB's out;
    the chain's o0, o1 and flow) against its plain version: equal, on
    operands that make every sum exact (``wholenet_bisect.draw_operands``),
    the pred flow within ``2 sqrt(C) 2^-24 max|out|`` plus 4 f32 ulps; with
@@ -279,7 +306,7 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "train", "quant", "deploy", "times",
+PHASES = ("build", "kernels", "model", "protocol", "train", "quant", "deploy", "unet", "times",
           "wholenet", "probes", "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
 
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
@@ -619,11 +646,12 @@ def rel_diff(a, b):
                for m, per_file in b.items() for f, v in per_file.items())
 
 
-def protocol_run(cfg, model, wrappers, **kw):
+def protocol_run(cfg, model, wrappers, split_windows=None, **kw):
     """One evaluate run (``debug`` unless ``kw`` says otherwise) with the
     launch counters set to 0 just before and read just after, then the
-    first SPLIT_WINDOWS windows again with the host split measured (a sync
-    between the parts); returns (what evaluate returned, record)."""
+    first ``split_windows`` (SPLIT_WINDOWS) windows again with the host
+    split measured (a sync between the parts); returns (what evaluate
+    returned, record)."""
     from evflow_torch.eval import evaluate
 
     kw.setdefault("debug", True)
@@ -633,7 +661,7 @@ def protocol_run(cfg, model, wrappers, **kw):
     results = evaluate(cfg, model=model, stats=stats, **kw)
     launches = {kn: w.launches for kn, w in wrappers.items()}
     split = {"split": True}
-    evaluate(cfg, model=model, stats=split, max_windows=SPLIT_WINDOWS, **kw)
+    evaluate(cfg, model=model, stats=split, max_windows=split_windows or SPLIT_WINDOWS, **kw)
     wall_ms = 1e3 * stats["seconds"]
     dev = split["split_ms"]["device"]
     rec = {"windows": stats["windows"], "seconds": stats["seconds"], "encoder": stats["encoder"],
@@ -1307,6 +1335,243 @@ def deploy_rates(name) -> list:
             emit({**rec, "card": name})
             if not r["windows_per_s"] > 0:
                 fails.append(f"bench {runner} {tier} B={batch} measured nothing")
+            torch.cuda.empty_cache()
+    return fails
+
+
+UNET_TIERS = ("bfloat16", "int8", "hybrid", "hybrid8")  # deploy_unet.COMPUTE_TIERS
+# (name, engine keywords) of the protocol cell's engines: each tier, and the
+# hybrid tier with phase decoders
+UNET_ENGINES = tuple((t, dict(compute=t)) for t in UNET_TIERS) + (
+    ("hybrid_phase", dict(compute="hybrid", phase_decoders=True)),)
+
+
+def unet_model_cfg(channels=32):
+    """configs/eval_MVSEC.yml's model section with the model swapped for
+    the spiking UNet at the registry's defaults (4 encoders, 2 residual
+    blocks, 3x3 kernels, cnt with 2 bins)."""
+    return {"name": "SpikingRecEVFlowNet", "encoding": "cnt", "num_bins": 2,
+            "base_num_channels": channels, "kernel_size": 3, "mask_output": True,
+            "norm_input": False, "round_encoding": False,
+            "spiking_neuron": {"leak": [-4.0, 0.1], "thresh": [0.8, 0.0], "learn_leak": True,
+                               "learn_thresh": True, "hard_reset": True}}
+
+
+def seeded_unet(device="cuda"):
+    """The full-width UNet with ``seeded_unet_state_dict``'s weights (seed 0)."""
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import seeded_unet_state_dict
+
+    model = build_model(unet_model_cfg(), device=device)
+    model.load_state_dict(seeded_unet_state_dict(model, seed=0))
+    return model
+
+
+def phase_unet(state):
+    """The UNet family on the card (``evflow_torch.models.unet``,
+    ``evflow_torch.deploy_unet``, ``evflow_torch.probes.unet_step``): (a)
+    the int8 engine at full width against the CPU; (b) the protocol cell
+    with the UNet, f32 and every engine; (c) the CLIs in subprocesses,
+    started before (a) and held against (b) after it; (d)
+    ``evflow_torch.bench_unet``'s rates."""
+    import torch
+
+    from evflow_torch.deploy_unet import Int8UNetEngine
+    from evflow_torch.eval_flow_quant import deploy_engine
+    from evflow_torch.probes.unet_step import compare_card_cpu, feedback_saturation
+
+    name = card()
+    fails = []
+    cfg = dict(eval_config(dataset(state)), model=unet_model_cfg())
+    model, cpu_model = seeded_unet(), seeded_unet("cpu")
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    runs = [("f32", model)] + [(n, deploy_engine(cfg, sd, device="cuda", **kw))
+                               for n, kw in UNET_ENGINES]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="evflow_unet_") as d:
+        # (c) runs while the CPU checks (a): neither is timed
+        jobs = unet_cli_start(d, cfg, sd, dict(runs)["int8"])
+        try:
+            torch.set_num_threads(8)
+            wins = event_windows(6, 2, seed=2)
+            for rec in compare_card_cpu(model, cpu_model, wins):
+                emit({"phase": "unet", "part": "card_vs_cpu", "resolution": [H_BENCH, W_BENCH],
+                      **rec, "seconds": time.perf_counter() - t0, "card": name})
+                if not rec["ok"]:
+                    fails.append(f"engine {rec['compute']} phase={rec['phase_decoders']} "
+                                 f"B={rec['batch']}: the card misses the CPU's states or "
+                                 f"flows: {rec}")
+            del cpu_model
+            emit({"phase": "unet", "part": "feedback_saturation", "compute": "bfloat16", "batch": 2,
+                  "share_at_127": feedback_saturation(Int8UNetEngine(model, compute="bfloat16"),
+                                                      wins), "card": name})
+            done = {k: (p, p.communicate(timeout=600)[1]) for k, (p, _, _) in jobs.items()}
+        finally:  # a phase that raised stops its CLIs
+            for p, _, _ in jobs.values():
+                if p.poll() is None:
+                    p.kill()
+        emit({"phase": "unet", "part": "card_vs_cpu_done", "seconds": time.perf_counter() - t0})
+        results, protocol_fails = unet_protocol(cfg, runs, name)
+        fails += protocol_fails
+        fails += unet_cli_check(d, jobs, done, results, name)
+    emit({"phase": "unet", "part": "protocol_done", "seconds": time.perf_counter() - t0})
+    fails += unet_rates(name)
+    emit({"phase": "unet", "part": "rates_done", "seconds": time.perf_counter() - t0})
+    if fails:
+        raise SystemExit("; ".join(fails))
+
+
+def unet_protocol(cfg, runs, name):
+    """Phase 4's data and config with the full-width UNet (seeded): the f32
+    model and each engine of ``runs`` per window and in chunks of 8 with
+    the metrics on the device (windows/s, host split over 32 windows); the
+    f32 model's chunks within 1e-6 of per window, device metrics within
+    1e-5, the phase decoders' AEE within 5% of the f32 model's, the resize
+    tiers' within 2% of one another and 12% of f32's. Returns (the
+    metrics by (runner, mode), failures)."""
+    import numpy as np
+
+    from evflow_torch.eval import evaluate
+
+    fails, results = [], {}
+    # a process's first streams and graph captures run slower: not measured
+    evaluate(cfg, model=runs[0][1], debug=True, max_windows=16, chunk=8, device_metrics=True)
+    t0 = time.perf_counter()
+    for n, net in runs:
+        for run, kw in (("window", {}), ("chunk8", dict(chunk=8)),
+                        ("chunk8_dm", dict(chunk=8, device_metrics=True))):
+            if run == "chunk8" and n != "f32":
+                continue
+            res, rec = protocol_run(cfg, net, {}, split_windows=32, **kw)
+            results[(n, run)] = res
+            emit({"phase": "unet", "part": "protocol", "model": n, "mode": run, **kw, **rec,
+                  "metrics": res, "t": time.perf_counter() - t0, "card": name})
+    checks = {"f32_chunk8_vs_window": rel_diff(results[("f32", "chunk8")],
+                                               results[("f32", "window")])}
+    for n, _ in runs:
+        checks[f"{n}_chunk8_dm_vs_window"] = rel_diff(results[(n, "chunk8_dm")],
+                                                      results[(n, "window")])
+    # the phase decoders' AEE against the f32 model's (5%: border frame,
+    # per-phase grids); the resize decoders feed the prediction back as
+    # round(upsampled pred_q * 127), clipped: the reference's engine
+    # saturates the two prediction channels (ROADMAP.md queue 3), which
+    # puts those tiers ~10.4% above f32, so they are held to one another
+    # (2%) and to f32 within 12%
+    for n, _ in UNET_ENGINES:
+        checks[f"{n}_aee_vs_f32"] = rel_diff({"AEE": results[(n, "window")]["AEE"]},
+                                             {"AEE": results[("f32", "window")]["AEE"]})
+    for n in UNET_TIERS[1:]:
+        checks[f"{n}_aee_vs_bfloat16"] = rel_diff({"AEE": results[(n, "window")]["AEE"]},
+                                                  {"AEE": results[("bfloat16", "window")]["AEE"]})
+    bars = {k: (1e-6 if k.endswith("chunk8_vs_window") else 1e-5 if "_dm_" in k
+                else 0.05 if k.startswith("hybrid_phase") else 0.12 if k.endswith("_vs_f32")
+                else 0.02) for k in checks}
+    values = [float(v) for r in results.values() for m in r.values() for v in m.values()]
+    ok = (all(checks[k] <= bars[k] for k in checks) and bool(np.isfinite(values).all())
+          and len(results[("f32", "window")]["AEE"]) == 2)
+    emit({"phase": "unet", "part": "protocol", "rel_diffs": checks, "bars": bars, "ok": ok,
+          "card": name})
+    if not ok:
+        fails.append(f"unet protocol: a check beyond its bar: "
+                     f"{ {k: v for k, v in checks.items() if v > bars[k]} }")
+    return results, fails
+
+
+def unet_cli_start(d, cfg, sd, int8_engine) -> dict:
+    """The CLIs in subprocesses started together, all with ``--chunk 8
+    --device_metrics``: ``eval_flow`` on the UNet ``.pth``,
+    ``eval_flow_quant --mode deploy --compute hybrid --phase_decoders`` and
+    ``--artifact`` on a ``save_unet_engine`` file of ``int8_engine``.
+    Returns {name: (process, results subfolder, the in-process run's key
+    in ``unet_protocol``'s results)}."""
+    import os
+    import subprocess
+
+    import torch
+    import yaml
+
+    from evflow_torch.deploy_unet import save_unet_engine
+
+    artifact = save_unet_engine(int8_engine, os.path.join(d, "unet_engine.npz"))
+    ckpt, cfg_path = os.path.join(d, "seeded.pth"), os.path.join(d, "eval.yml")
+    torch.save(sd, ckpt)
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    dq = [sys.executable, "-m", "evflow_torch.eval_flow_quant"]
+    chunked = ["--chunk", "8", "--device_metrics"]
+    jobs = {
+        "eval_flow": ([sys.executable, "-m", "evflow_torch.eval_flow", ckpt, "--config",
+                       cfg_path, *chunked], "seeded.pth", ("f32", "chunk8_dm")),
+        "deploy_hybrid_phase": (dq + [ckpt, "--config", cfg_path, "--mode", "deploy",
+                                      "--compute", "hybrid", "--phase_decoders", *chunked],
+                                "quant_deploy", ("hybrid_phase", "chunk8_dm")),
+        "artifact": (dq + ["--config", cfg_path, "--mode", "deploy", "--artifact", artifact,
+                           *chunked], "quant_deploy", ("int8", "chunk8_dm"))}
+    here = os.path.dirname(os.path.abspath(__file__))
+    return {k: (subprocess.Popen(cmd + ["--path_results", os.path.join(d, "res", k)], cwd=here,
+                                 stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True),
+                sub, key)
+            for k, (cmd, sub, key) in jobs.items()}
+
+
+def unet_cli_check(d, jobs, done, results, name) -> list:
+    """Each CLI of ``unet_cli_start`` (``done``: {name: (process, its
+    stderr)}) exited 0 and wrote the metrics of its in-process run: the
+    f32 model's within 1e-6 relative (its f32 convs of fractional values,
+    as phase protocol's unfused CLI), the engines' equal."""
+    import os
+
+    import yaml
+
+    got = {}
+    for k, (_, sub, _) in jobs.items():
+        path = os.path.join(d, "res", k, sub, "metrics_0.yml")
+        if os.path.exists(path):
+            with open(path) as f:
+                got[k] = yaml.safe_load(f)
+                got[k].pop("runid", None)
+    equal = {}
+    for k, (_, _, key) in jobs.items():
+        ref = results[key]
+        equal[k] = k in got and (got[k] == ref if k != "eval_flow" else
+                                 set(got[k]) == set(ref) and rel_diff(got[k], ref) <= 1e-6)
+    ok = all(p.returncode == 0 for p, _ in done.values()) and all(equal.values())
+    emit({"phase": "unet", "part": "cli",
+          "cli": {k: " ".join(["python3", *p.args[1:]]) for k, (p, _, _) in jobs.items()},
+          "rc": {k: p.returncode for k, (p, _) in done.items()}, "metrics_0": got,
+          "equal": equal, "stderr_tail": {k: e[-1500:] for k, (_, e) in done.items() if e},
+          "ok": ok, "card": name})
+    return [] if ok else [f"a UNet CLI failed or its metrics_0.yml differs: {equal}"]
+
+
+def unet_rates(name) -> list:
+    """``evflow_torch.bench_unet`` at 256x256, B=1 and 2: the f32 model and
+    every tier with phase decoders off and on, as CUDA graph replays; at
+    each batch each runner's kernels a step, their device ms and the int8
+    GEMM's share by ``torch.profiler``."""
+    import torch
+
+    from evflow_torch.bench_unet import bench, make_runner, window
+    from evflow_torch.probes.unet_step import profile_step
+
+    runs = [("f32", None, False)] + [("engine", t, p) for p in (False, True) for t in UNET_TIERS]
+    model = seeded_unet()
+    runners = {r: make_runner(r[0], 32, r[1] or "hybrid", r[2], model=model) for r in runs}
+    fails = []
+    for batch in (1, 2):
+        for what, tier, phase in runs:
+            runner = runners[(what, tier, phase)]
+            r = bench(what, H_BENCH, batch=batch, T=64, iters=2, runner=runner)
+            prof = {}
+            if batch == 2:
+                step, init = runner
+                prof = profile_step(step, window(batch, H_BENCH), init(batch, H_BENCH, W_BENCH),
+                                    n=4)
+            emit({"phase": "unet", "part": "bench", "runner": what, "compute": tier,
+                  "phase_decoders": phase, "batch": batch, "resolution": [H_BENCH, W_BENCH],
+                  "steps": 64, **r, **prof, "card": name})
+            if not r["windows_per_s"] > 0:
+                fails.append(f"bench_unet {what} {tier} phase={phase} B={batch} measured nothing")
             torch.cuda.empty_cache()
     return fails
 
@@ -2302,7 +2567,7 @@ def main(argv=None):
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "train": phase_train, "quant": phase_quant,
-             "deploy": phase_deploy, "times": phase_times,
+             "deploy": phase_deploy, "unet": phase_unet, "times": phase_times,
              "wholenet": phase_wholenet,
              "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
              "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops, "bisect": phase_bisect}

@@ -242,7 +242,9 @@ class Int8DeployEngine(nn.Module):
         """The engine of a ``save_engine`` artifact (the reference's or the
         port's) on ``model``'s device; ``model`` gives the architecture, the
         artifact the tensors, the membrane tiers and the input scale."""
-        check_artifact(path)
+        if check_artifact(path).get("model") == "SpikingRecEVFlowNet":
+            raise ValueError(f"{path} is a SpikingRecEVFlowNet artifact: "
+                             "evflow_torch.deploy_unet.Int8UNetEngine.from_artifact reads it")
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["__meta__"]))
 
@@ -366,14 +368,9 @@ class Int8DeployEngine(nn.Module):
 
 
 def check_artifact(path: str) -> Dict[str, Any]:
-    """An artifact's ``__meta__``; one of the UNet engine raises (its
-    family is not ported)."""
+    """An artifact's ``__meta__`` (its ``model`` says which engine reads it)."""
     with np.load(path, allow_pickle=False) as z:
-        meta = json.loads(str(z["__meta__"]))
-    if meta.get("model") == "SpikingRecEVFlowNet":
-        raise NotImplementedError("the UNet engine and its artifacts come with the UNet "
-                                  "family, ROADMAP.md queue 1 item 9")
-    return meta
+        return json.loads(str(z["__meta__"]))
 
 
 def save_engine(engine: Int8DeployEngine, path: str, serving=None) -> str:

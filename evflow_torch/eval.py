@@ -210,8 +210,9 @@ def evaluate(
     ``collect_vis`` also a list of each window's ``{"flow", "iwe",
     "event_cnt", "gtflow"}`` host arrays.
 
-    Weights: ``model`` (a port ``FireNet``, or an ``Int8DeployEngine``
-    with its prepared tensors), else the config's model; then
+    Weights: ``model`` (a port ``FireNet`` or ``SpikingRecEVFlowNet``, or
+    an ``Int8DeployEngine`` or ``Int8UNetEngine`` with its prepared
+    tensors), else the config's model; then
     ``variables`` (flax ``params``/``batch_stats`` as arrays, see
     ``weights.from_jax_variables``), else ``checkpoint`` (a reference or
     port ``.pth``/``.pt``, or an evflow ``model.msgpack`` or its directory,
@@ -248,6 +249,9 @@ def evaluate(
     live_vis = bool(vis_cfg.get("enabled", False))
     if fused and log_activity:
         raise ValueError("fused backend does not support activity logging")
+    if fused and registry.is_unet(config["model"]):
+        raise ValueError("the fused kernels run the FireNet family; SpikingRecEVFlowNet runs "
+                         "unfused")
     chunk = max(int(chunk), 1)
     want_heatmaps = bool(metrics_cfg.get("heat_map", False))
     cadence = int(np.round(1.0 / window)) if window else 1

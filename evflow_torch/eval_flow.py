@@ -11,8 +11,10 @@ directory), or the id of a training run of either package under
 wins, the run's model survives) and its newest ``lowest_loss`` checkpoint.
 Unless ``--debug``, the config and the per-file results go to
 ``<path_results>/<run id or name of the checkpoint file>/eval_N.yml`` and
-``metrics_N.yml``. It runs on the GPU unless ``--device cpu``.
-``--num_devices > 1`` and ``--profile`` are not ported yet and raise.
+``metrics_N.yml``. It runs on the GPU unless ``--device cpu``. The config's
+model may be a FireNet or ``SpikingRecEVFlowNet`` (the UNet runs unfused:
+``--fused`` refuses it). ``--num_devices > 1`` and ``--profile`` are not
+ported yet and raise.
 """
 
 from __future__ import annotations

@@ -19,14 +19,19 @@ LIF state stays f32. Module names match the reference's state dict: ``ff``,
 ``mpbn.bn``.
 
 The sigmoid-family cells (``ConvLIF``, ``ConvLIFRecurrent``): conv3x3 (no
-bias, no norm) -> ``sigmoid_lif_step`` with a learnable per-channel
+bias; the feedforward cell's at ``stride``, padded k//2 on every side as
+torch pads, where flax's "SAME" would shift the taps at stride 2) ->
+``sigmoid_lif_step`` with a learnable per-channel
 ``leak`` (through a sigmoid) and ``thresh``, drawn from normal
 distributions ``(mean, std)`` (the same ``leak: [0.0, 1.0]`` config key is
 a uniform range in the snn family), a selectable surrogate
 (``activation``, ``act_width``), the previous spikes detached in the reset
 unless ``detach=False``; the membrane is not detached. ``residual`` is added
-to the feedforward cell's output spikes. Their state-dict names are the
-reference's: ``ff``, ``rec``, ``leak``, ``thresh`` (``[C, 1, 1]``).
+to the feedforward cell's output spikes. ``norm="group"`` normalises the
+input (and, in the recurrent cell, the previous spikes its recurrent conv
+reads) with flax's one-group GroupNorm (``models.norm.GroupNorm``). Their
+state-dict names are the reference's: ``ff``, ``rec``, ``leak``,
+``thresh`` (``[C, 1, 1]``), ``norm`` / ``norm_ff``, ``norm_rec``.
 
 Quantization hooks, set as attributes (``FireNet.set_quant`` installs
 them): ``conv_fake_quant(x, tag)`` on the conv input (tag "input") and on
@@ -60,7 +65,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from evflow_torch.models.norm import MPBN, TEBN, BatchNorm
+from evflow_torch.models.norm import MPBN, TEBN, BatchNorm, GroupNorm
 from evflow_torch.ops.dypack import conv3x3_dypack, conv3x3_dypack_dual
 from evflow_torch.ops.lif import THRESH_MIN, LIFState, leaky_step, sigmoid_lif_step
 
@@ -89,10 +94,12 @@ def full_f32_convs():
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
               compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Stride-1 SAME conv of NHWC ``x`` in f32 (on the card in full f32,
-    not TF32); with ``compute_dtype`` the operands are rounded to it first
-    (exact products, f32 sums) and cuDNN's flags apply as they are. A bf16
-    ``x`` (bf16 state) computes so in bf16 and rounds the output to bf16."""
+    """Conv of NHWC ``x`` at the conv's stride, padded by k//2 on every side
+    (at stride 2 that is torch's ``padding=k//2``, not flax's "SAME"), in
+    f32 (on the card in full f32, not TF32); with ``compute_dtype`` the
+    operands are rounded to it first (exact products, f32 sums) and cuDNN's
+    flags apply as they are. A bf16 ``x`` (bf16 state) computes so in bf16
+    and rounds the output to bf16."""
     if x.dtype == torch.bfloat16:
         return conv_nhwc(x.float(), conv, compute_dtype or torch.bfloat16).to(torch.bfloat16)
     w, b = conv.weight, conv.bias
@@ -102,7 +109,8 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d,
         x, w = x.to(compute_dtype).float(), w.to(compute_dtype).float()
         b = b.to(compute_dtype).float() if b is not None else None
     with f32:
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=conv.kernel_size[0] // 2)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=conv.stride,
+                     padding=conv.kernel_size[0] // 2)
     return y.permute(0, 2, 3, 1)
 
 
@@ -114,15 +122,16 @@ CONV_IMPLS = ("auto", "im2col", "dypack", "dypack_int8", "lax")
 def cell_conv(x: torch.Tensor, conv: nn.Conv2d, compute_dtype: Optional[torch.dtype],
               conv_impl: str) -> torch.Tensor:
     """The cell's conv of NHWC ``x``: the int8 dy-packed GEMM (bf16 out) for
-    a 3x3 kernel under ``dypack_int8``, else ``conv_nhwc``."""
-    if conv_impl == "dypack_int8" and conv.kernel_size[0] == 3:
+    a stride-1 3x3 kernel under ``dypack_int8``, else ``conv_nhwc``."""
+    if conv_impl == "dypack_int8" and conv.kernel_size[0] == 3 and conv.stride[0] == 1:
         return conv3x3_dypack(x, conv.weight)
     return conv_nhwc(x, conv, compute_dtype)
 
 
-def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
-    """A SAME conv without bias, its weights from ``U(-sqrt(1/cin), +)``."""
-    conv = nn.Conv2d(cin, cout, k, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    """A conv without bias, padded by k//2, its weights from
+    ``U(-sqrt(1/cin), +)``."""
+    conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
     w = math.sqrt(1.0 / cin)
     nn.init.uniform_(conv.weight, -w, w)
     return conv
@@ -240,7 +249,9 @@ class SNNConvLIFRecurrent(SNNConvLIF):
 
 
 class ConvLIF(nn.Module):
-    """Sigmoid-family feedforward cell: conv, then ``sigmoid_lif_step``."""
+    """Sigmoid-family feedforward cell: conv (at ``stride``), then
+    ``sigmoid_lif_step``. ``norm="group"`` puts a one-group ``GroupNorm``
+    (``norm``) on the input."""
 
     def __init__(self, input_size: int, hidden_size: int, kernel_size: int = 3,
                  activation: str = "arctanspike", act_width: float = 10.0,
@@ -248,11 +259,16 @@ class ConvLIF(nn.Module):
                  thresh: Tuple[float, float] = (0.8, 0.0), learn_leak: bool = True,
                  learn_thresh: bool = True, hard_reset: bool = True, detach: bool = True,
                  compute_dtype: Optional[torch.dtype] = None,
-                 conv_fake_quant: Optional[ConvQuant] = None, conv_impl: str = "auto"):
+                 conv_fake_quant: Optional[ConvQuant] = None, conv_impl: str = "auto",
+                 stride: int = 1, norm: Optional[str] = None):
         super().__init__()
         if conv_impl not in CONV_IMPLS:
             raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
-        self.ff = _conv(input_size, hidden_size, kernel_size)
+        if norm not in (None, "group"):
+            raise ValueError(f"norm must be None or 'group', got {norm!r}")
+        self.ff = _conv(input_size, hidden_size, kernel_size, stride)
+        if norm == "group":
+            self._add_norms(input_size, hidden_size)
         self.leak = nn.Parameter(torch.empty(hidden_size, 1, 1).normal_(*leak))
         self.thresh = nn.Parameter(torch.empty(hidden_size, 1, 1).normal_(*thresh))
         self.activation = activation
@@ -264,6 +280,10 @@ class ConvLIF(nn.Module):
         self.compute_dtype = compute_dtype
         self.conv_fake_quant = conv_fake_quant
         self.conv_impl = conv_impl
+        self.norm_type = norm
+
+    def _add_norms(self, input_size: int, hidden_size: int):
+        self.norm = GroupNorm(1, input_size)
 
     def _quant_conv(self, x: torch.Tensor, conv: nn.Conv2d, tag_input: bool) -> torch.Tensor:
         q = self.conv_fake_quant
@@ -291,6 +311,8 @@ class ConvLIF(nn.Module):
                 timestep: Optional[int] = None, residual=0.0):
         """``x [B, H, W, Cin]`` -> ``(spikes + residual, LIFState)``;
         ``timestep`` is accepted and unused (no TEBN here)."""
+        if self.norm_type == "group":
+            x = self.norm(x.float())
         z_out, st = self._fire(self._quant_conv(x, self.ff, True).float(), state)
         if torch.is_tensor(residual) or residual != 0.0:
             z_out = z_out + residual
@@ -302,11 +324,23 @@ class ConvLIFRecurrent(ConvLIF):
     added to the input current."""
 
     def __init__(self, input_size: int, hidden_size: int, kernel_size: int = 3, **kw):
+        if kw.get("stride", 1) != 1:
+            raise ValueError("the recurrent cell runs at stride 1")
         super().__init__(input_size, hidden_size, kernel_size, **kw)
         self.rec = _conv(hidden_size, hidden_size, kernel_size)
 
+    def _add_norms(self, input_size: int, hidden_size: int):
+        self.norm_ff = GroupNorm(1, input_size)
+        self.norm_rec = GroupNorm(1, hidden_size)
+
     def forward(self, x: torch.Tensor, state: Optional[LIFState] = None,
                 timestep: Optional[int] = None):
+        """``norm="group"`` normalises the input (``norm_ff``) and the
+        previous spikes the recurrent conv reads (``norm_rec``)."""
+        if self.norm_type == "group":
+            x = self.norm_ff(x.float())
         ff = self._quant_conv(x, self.ff, True)
         z = torch.zeros_like(ff) if state is None else state.spk
+        if self.norm_type == "group":
+            z = self.norm_rec(z.float())
         return self._fire((ff + self._quant_conv(z, self.rec, False)).float(), state)

@@ -132,7 +132,7 @@ class FireNet(nn.Module):
             cls = mid if name in ("G1", "G2") else ff_cell
             cin = num_bins if name == "head" else C
             self.add_module(name, cls(cin, C, **common))
-        self.pred = ConvLayer(C, 2, kernel_size=1, w_scale=w_scale_pred,
+        self.pred = ConvLayer(C, 2, kernel_size=1, activation="tanh", w_scale=w_scale_pred,
                               compute_dtype=compute_dtype)
         self.set_quant(state_quant=state_quant, state_quant_per_layer=state_quant_per_layer,
                        conv_fake_quant=conv_fake_quant,

@@ -9,7 +9,9 @@ In training mode the layers follow flax's ``nn.BatchNorm`` rather than
 ``torch.nn.BatchNorm2d``: the batch mean and the biased variance over every
 axis but the last, the variance as ``E[x^2] - E[x]^2`` (clipped at 0), and
 running statistics decayed by 0.9 towards the batch's (biased) ones.
-Inside ``frozen_running_stats(model)`` the model's running statistics are
+``GroupNorm`` is flax's ``nn.GroupNorm`` (eps 1e-6, torch's is 1e-5; the
+variance as ``E[x^2] - E[x]^2`` clipped at 0) under
+``torch.nn.GroupNorm``'s parameter names. Inside ``frozen_running_stats(model)`` the model's running statistics are
 left as they are: the trainer recomputes a checkpointed forward in it, so
 that each pass updates them once.
 """
@@ -22,7 +24,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-__all__ = ["BatchNorm", "TEBN", "MPBN", "frozen_running_stats"]
+__all__ = ["BatchNorm", "TEBN", "MPBN", "GroupNorm", "frozen_running_stats"]
 
 MOMENTUM = 0.9  # flax's decay of the running statistics (torch momentum 0.1)
 
@@ -100,3 +102,21 @@ class MPBN(nn.Module):
 
     def forward(self, mem: torch.Tensor) -> torch.Tensor:
         return self.bn(mem)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm`` over channels-last ``[B, ..., C]``: each
+    sample's groups of ``C / num_groups`` channels normalised over every
+    other axis, then the per-channel affine map."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
+        super().__init__(num_groups, num_channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, G = x.shape[0], x.shape[-1], self.num_groups
+        xg = x.reshape(B, -1, G, C // G)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
+        y = (xg - mean) * mul + self.bias.reshape(G, C // G)
+        return y.reshape(x.shape)

@@ -186,6 +186,11 @@ def collect_activation_scales(model, stream, num_batches: int = 50,
     return {k: v / qmax for k, v in got.items()}
 
 
+UNET_FAKE_QUANT = ("the fake-quant modes (ptq, hybrid, mixed, full_qat) hook the FireNet "
+                   "family's cells; SpikingRecEVFlowNet serves quantised on its int8 engine "
+                   "(eval_flow_quant --mode deploy)")
+
+
 def calibrate_model_ptq(config: Dict[str, Any],
                         state_dict: Optional[Dict[str, torch.Tensor]] = None,
                         mode: str = "full", num_batches: int = 50, auto_tune: bool = False,
@@ -212,6 +217,8 @@ def calibrate_model_ptq(config: Dict[str, Any],
 
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if registry.is_unet(config["model"]):
+        raise ValueError(UNET_FAKE_QUANT)
     model_cfg = dict(config["model"])
     model = registry.build_model(model_cfg, device=device)
     if state_dict is not None:

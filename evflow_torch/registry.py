@@ -1,4 +1,4 @@
-"""Model, optimizer and metric registries (port of the FireNet builders,
+"""Model, optimizer and metric registries (port of the model factories,
 ``build_optimizer`` and ``build_metrics`` of ``evflow/registry.py``).
 
 Whitelisted factories keyed by the config's ``model.name``,
@@ -16,7 +16,7 @@ import torch
 from evflow_torch.device import resolve_device
 
 __all__ = ["build_model", "build_metrics", "build_optimizer", "model_names",
-           "firenet_kwargs", "apply_static_qat", "OptaxRMSprop"]
+           "firenet_kwargs", "unet_kwargs", "is_unet", "apply_static_qat", "OptaxRMSprop"]
 
 _FIRENETS: Dict[str, Dict[str, bool]] = {
     "LIFFireNet": dict(recurrent=True, short=False),
@@ -26,8 +26,16 @@ _FIRENETS: Dict[str, Dict[str, bool]] = {
 }
 
 
+UNET = "SpikingRecEVFlowNet"
+
+
 def model_names() -> List[str]:
-    return sorted(_FIRENETS)
+    return sorted([*_FIRENETS, UNET])
+
+
+def is_unet(model_cfg: Dict[str, Any]) -> bool:
+    """Whether the ``model`` config section names the spiking UNet."""
+    return model_cfg.get("name") == UNET
 
 
 def _enabled(section) -> bool:
@@ -83,6 +91,29 @@ def firenet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
     return kwargs
 
 
+def unet_kwargs(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``SpikingRecEVFlowNet`` constructor arguments from a ``model`` config
+    section: the keys the reference package's registry reads."""
+    sn = cfg.get("spiking_neuron") or {}
+    kwargs = dict(
+        num_bins=int(cfg.get("num_bins", 2)),
+        base_num_channels=int(cfg.get("base_num_channels", 32)),
+        kernel_size=int(cfg.get("kernel_size", 3)),
+        encoding=cfg.get("encoding", "cnt"),
+        norm_input=bool(cfg.get("norm_input", False)),
+        mask_output=bool(cfg.get("mask_output", True)),
+        norm=cfg.get("norm"),
+        use_upsample_conv=bool(cfg.get("use_upsample_conv", True)),
+    )
+    for key in ("leak", "thresh"):
+        if key in sn:
+            kwargs[key] = tuple(sn[key])
+    for key in ("learn_leak", "learn_thresh", "hard_reset", "detach"):
+        if key in sn:
+            kwargs[key] = bool(sn[key])
+    return kwargs
+
+
 def apply_static_qat(model, cfg: Dict[str, Any]):
     """Swap the dynamic QAT conv hook for static per-layer hooks at the
     scales in ``quantization.static_scales`` (``train_flow_quant
@@ -100,12 +131,17 @@ def apply_static_qat(model, cfg: Dict[str, Any]):
 
 def build_model(model_cfg: Dict[str, Any],
                 device: Optional[Union[str, torch.device]] = None):
-    """Build a FireNet from the config's ``model`` section (with its
-    ``spiking_neuron`` and ``quantization`` sub-sections), in eval mode on
-    ``device`` (the GPU unless the caller names another device)."""
+    """Build a FireNet or the spiking UNet from the config's ``model``
+    section (with its ``spiking_neuron`` and, for a FireNet,
+    ``quantization`` sub-sections), in eval mode on ``device`` (the GPU
+    unless the caller names another device)."""
     from evflow_torch.models.firenet import FireNet
 
     name = model_cfg.get("name")
+    if name == UNET:
+        from evflow_torch.models.unet import SpikingRecEVFlowNet
+
+        return SpikingRecEVFlowNet(**unet_kwargs(model_cfg)).to(resolve_device(device)).eval()
     if name not in _FIRENETS:
         raise KeyError(f"Unknown model {name!r}. Registered: {model_names()}")
     model = apply_static_qat(FireNet(**_FIRENETS[name], **firenet_kwargs(model_cfg)), model_cfg)

@@ -464,6 +464,10 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
             "loader.num_workers > 1: the multi-process loader comes with ROADMAP.md "
             "queue 1 item 11")
     model_cfg = config["model"]
+    if registry.is_unet(model_cfg):
+        raise NotImplementedError(
+            "training SpikingRecEVFlowNet: the UNet's training step is not held against the "
+            "reference's yet, ROADMAP.md queue 1 item 14")
     if model_cfg.get("state_dtype") == "bfloat16":
         raise NotImplementedError(
             "state_dtype bfloat16 in training: the bf16-state step is not held against the "

@@ -2,7 +2,8 @@
 the port (counterpart of the torch import in ``evflow/utils/checkpoint.py``).
 
 * ``from_jax_variables``: flax ``{"params", "batch_stats"}`` trees (numpy or
-  array-likes) -> a port ``FireNet`` state dict: HWIO -> OIHW kernels,
+  array-likes) -> a port ``FireNet`` or ``SpikingRecEVFlowNet`` state
+  dict: HWIO -> OIHW kernels,
   ``[C]`` -> ``[C, 1, 1]`` leak/threshold (snn cells: ``lif.beta``,
   ``lif.threshold``; sigmoid cells: ``leak``, ``thresh``), BN
   scale/bias/mean/var -> ``weight``/``bias``/``running_mean``/``running_var``.
@@ -15,7 +16,8 @@ the port (counterpart of the torch import in ``evflow/utils/checkpoint.py``).
   moments and count, a momentum trace, RMSprop's ``nu``) as the port
   optimizer's ``state_dict``.
 * ``seeded_state_dict``: seeded FireNet weights in the flax init
-  distributions, with BN statistics drawn so that every unit fires.
+  distributions, with BN statistics drawn so that every unit fires;
+  ``seeded_unet_state_dict`` the spiking UNet's, every state slot firing.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["from_jax_variables", "to_port_layout", "load_checkpoint",
-           "seeded_state_dict", "flax_optimizer_state"]
+           "seeded_state_dict", "seeded_unet_state_dict", "flax_optimizer_state"]
 
 _BN_LEAVES = (("scale", "weight"), ("bias", "bias"))
 _BN_STATS = (("mean", "running_mean"), ("var", "running_var"))
@@ -51,9 +53,48 @@ def _bn(prefix: str, params: Mapping, stats: Mapping, out: Dict[str, torch.Tenso
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
 
+def _unet_from_jax(u: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The spiking UNet's flax tree (``params["multires_unetrec"]``) under
+    the reference's torch names."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def cell(prefix: str, p: Mapping[str, Any]):
+        for conv in ("ff", "rec"):
+            if conv in p:
+                out[f"{prefix}.{conv}.weight"] = _oihw(p[conv]["kernel"])
+        for leaf in ("leak", "thresh"):
+            out[f"{prefix}.{leaf}"] = _t(p[leaf]).reshape(-1, 1, 1)
+        for norm in ("norm", "norm_ff", "norm_rec"):
+            if norm in p:
+                out[f"{prefix}.{norm}.weight"] = _t(p[norm]["scale"])
+                out[f"{prefix}.{norm}.bias"] = _t(p[norm]["bias"])
+
+    i = 0
+    while f"encoder{i}" in u:
+        for sub in ("conv", "recurrent_block"):
+            cell(f"multires_unetrec.encoders.{i}.{sub}", u[f"encoder{i}"][sub])
+        i += 1
+    i = 0
+    while f"resblock{i}" in u:
+        for sub in ("conv1", "conv2"):
+            cell(f"multires_unetrec.resblocks.{i}.{sub}", u[f"resblock{i}"][sub])
+        i += 1
+    i = 0
+    while f"decoder{i}" in u:
+        cell(f"multires_unetrec.decoders.{i}.conv2d", u[f"decoder{i}"]["conv2d"])
+        pred = u[f"pred{i}"]["conv2d"]
+        out[f"multires_unetrec.preds.{i}.conv2d.weight"] = _oihw(pred["kernel"])
+        out[f"multires_unetrec.preds.{i}.conv2d.bias"] = _t(pred["bias"])
+        i += 1
+    return out
+
+
 def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Port state dict of the FireNet whose flax variables are given."""
+    """Port state dict of the FireNet or spiking UNet whose flax variables
+    are given."""
     params = variables["params"]
+    if "multires_unetrec" in params:
+        return _unet_from_jax(params["multires_unetrec"])
     stats = variables.get("batch_stats", {})
     out: Dict[str, torch.Tensor] = {}
     for unit, up in params.items():
@@ -155,7 +196,8 @@ def seeded_state_dict(model, seed: int = 0, pred_scale: float = 0.1) -> Dict[str
         if key.endswith("num_batches_tracked"):
             out[key] = torch.zeros_like(ref)
         elif key.startswith("pred."):
-            out[key] = bf16(rng.uniform(-pred_scale, pred_scale, shape) if leaf == "weight"
+            bound = UNET_SEED_PRED_SCALE
+            out[key] = bf16(rng.uniform(-bound, bound, shape) if leaf == "weight"
                             else np.zeros(shape))
         elif key.endswith((".ff.weight", ".rec.weight")):
             out[key] = bf16(rng.uniform(-1.0, 1.0, shape) * math.sqrt(1.0 / shape[1]))
@@ -179,6 +221,49 @@ def seeded_state_dict(model, seed: int = 0, pred_scale: float = 0.1) -> Dict[str
             continue  # BN leaves, drawn with running_var
         elif leaf == "p":  # TEBN per-timestep scale
             out[key] = torch.ones(shape)
+        else:
+            raise KeyError(f"no seeded draw for {key}")
+    return out
+
+
+# the seeded UNet's kernel gain over the flax init's scale (at 1 the deep
+# slots of a random net stay silent on sparse event windows) and the bound
+# of its flow heads' weights
+UNET_SEED_GAIN = 3.0
+UNET_SEED_PRED_SCALE = 0.1
+
+
+def seeded_unet_state_dict(model, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """Random ``SpikingRecEVFlowNet`` weights from a numpy seed, exact in
+    bf16: kernels ``U(-1, 1) * UNET_SEED_GAIN / sqrt(fan_in)``, leaks
+    N(-2, 0.5) (``sigmoid(leak)`` ~ 0.12: the membrane follows its input
+    current), thresholds U(0.3, 0.8), the flow heads ``U(-UNET_SEED_PRED_SCALE,
+    UNET_SEED_PRED_SCALE)`` with zero bias, GroupNorms as initialised
+    (scale 1, bias 0). At the default width every state slot fires on
+    Poisson(0.05) count windows."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, torch.Tensor] = {}
+
+    def bf16(a):
+        return _t(a).to(torch.bfloat16).float()
+
+    for key, ref in model.state_dict().items():
+        shape = tuple(ref.shape)
+        leaf = key.rsplit(".", 1)[-1]
+        if ".preds." in key:
+            bound = UNET_SEED_PRED_SCALE
+            out[key] = bf16(rng.uniform(-bound, bound, shape) if leaf == "weight"
+                            else np.zeros(shape))
+        elif key.endswith((".ff.weight", ".rec.weight")):
+            fan_in = shape[1] * shape[2] * shape[3]
+            out[key] = bf16(rng.uniform(-1.0, 1.0, shape) * UNET_SEED_GAIN
+                            / math.sqrt(fan_in))
+        elif leaf == "leak":
+            out[key] = bf16(rng.normal(-2.0, 0.5, shape))
+        elif leaf == "thresh":
+            out[key] = bf16(rng.uniform(0.3, 0.8, shape))
+        elif ".norm" in key:
+            out[key] = ref.detach().cpu().float().clone()
         else:
             raise KeyError(f"no seeded draw for {key}")
     return out

@@ -1,5 +1,5 @@
 """Shared fixtures of the port's tests (``tests/test_torch_*.py``): seeded
-flax FireNet variables, the synthetic evaluation config, and the JAX probe
+flax FireNet and spiking-UNet variables, the synthetic evaluation config, and the JAX probe
 kernels of ``benchmarks/probe_*.py`` without their benchmarks.
 
 The flax variables are drawn with numpy so both packages get the same
@@ -18,6 +18,8 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from evflow.registry import build_model as build_jax_model
 
@@ -101,3 +103,74 @@ def probe_namespace(name: str, **consts):
     ns = dict(consts)
     exec(compile(ast.Module(body=keep, type_ignores=[]), f"{name}.py", "exec"), ns)
     return ns
+
+
+UNET_SN = {"leak": [-4.0, 0.1], "thresh": [0.8, 0.0]}
+
+
+def unet_cfg(**extra):
+    return {"name": "SpikingRecEVFlowNet", "num_bins": 2, "base_num_channels": 4,
+            "kernel_size": 3, "encoding": "cnt", "spiking_neuron": dict(UNET_SN), **extra}
+
+
+def unet_draw(rng, path, leaf):
+    """Seeded weights in which every state slot fires: kernels ``U(-3, 3) /
+    sqrt(fan_in)``, leaks N(-2, 0.5), thresholds U(0.3, 0.8)."""
+    names = [getattr(p, "key", str(p)) for p in path]
+    shape, last = np.shape(leaf), names[-1]
+    if last == "kernel":
+        if any(n.startswith("pred") for n in names):
+            return rng.uniform(-0.3, 0.3, shape)
+        return rng.uniform(-1, 1, shape) * 3.0 / math.sqrt(shape[0] * shape[1] * shape[2])
+    if last == "leak":
+        return rng.normal(-2.0, 0.5, shape)
+    if last == "thresh":
+        return rng.uniform(0.3, 0.8, shape)
+    if last == "bias":
+        return rng.normal(0.0, 0.05, shape)
+    if last == "scale":
+        return rng.uniform(0.8, 1.2, shape)
+    raise KeyError(names)
+
+
+def seeded_flax_unet(cfg, B, H, W, seed=0):
+    """(flax model, numpy variables) of a UNet config, seeded."""
+    jm = build_jax_model(cfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), None, jnp.zeros((B, H, W, 2)),
+                            jm.init_states(B, H, W))
+    rng = np.random.default_rng(seed)
+    return jm, jax.tree_util.tree_map_with_path(
+        lambda p, x: unet_draw(rng, p, np.zeros(x.shape)).astype(np.float32), dict(shapes))
+
+
+def run_flax_unet(jm, v, wins):
+    """The reference's ``(flows, states)`` a window over ``wins``, from
+    zero states, as one jitted step."""
+    step = jax.jit(jm.apply)
+    st = jm.init_states(*wins[0].shape[:3])
+    runs = []
+    for x in wins:
+        o, st = step(v, None, jnp.asarray(x), st)
+        runs.append(([np.asarray(f) for f in o["flow"]],
+                     [(np.array(s.mem), np.array(s.spk)) for s in st]))
+    return runs
+
+
+def port_unet(cfg, variables):
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import from_jax_variables
+
+    pm = build_model(cfg, device="cpu")
+    pm.load_state_dict(from_jax_variables(variables))
+    return pm
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a test file's torch ops (an autouse fixture
+    for the files that import it): under xdist the workers already share
+    every core, and idle intra-op threads spin on them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

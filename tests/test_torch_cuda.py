@@ -7,8 +7,10 @@ runtime-indexed loop, Mosaic-ops and whole-net bisection probes against
 theirs; ``conv_nhwc`` in full f32 under PyTorch's default TF32 flags, one
 training step against the CPU's, the quantization path: a QAT step
 and a sigmoid-family forward, the PTQ calibration, and the quantised
-model's chunks (a CUDA graph) against its per-window run; and the int8
-serving engine against the CPU's, with its int8 GEMM.
+model's chunks (a CUDA graph) against its per-window run; the int8
+serving engine against the CPU's, with its int8 GEMM; and the spiking UNet
+and its int8 engine against the CPU's, the engine's chunks as a CUDA
+graph against its per-window run.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -1585,3 +1587,97 @@ def test_deploy_engine_on_card_matches_cpu(cuda, tier):
                 assert torch.equal(a.mem, b.mem.cpu())
                 assert (a.spk is None) == (b.spk is None)
                 assert a.spk is None or torch.equal(a.spk, b.spk.cpu())
+
+
+def _unet(device, channels=8):
+    from evflow_torch.registry import build_model
+    from evflow_torch.weights import seeded_unet_state_dict
+
+    cfg = {"name": "SpikingRecEVFlowNet", "num_bins": 2, "base_num_channels": channels,
+           "kernel_size": 3, "encoding": "cnt",
+           "spiking_neuron": {"leak": [-4.0, 0.1], "thresh": [0.8, 0.0]}}
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(seeded_unet_state_dict(model, seed=1))
+    return model.to(device)
+
+
+@pytest.mark.parametrize("compute,phase", [("bfloat16", False), ("int8", False),
+                                           ("hybrid", False), ("hybrid8", False),
+                                           ("hybrid", True)])
+def test_unet_engine_on_card_matches_cpu(cuda, compute, phase):
+    """The UNet int8 engine (8 channels, B=2, 40x56: padded to 48x64 and
+    cropped; the hybrid tiers' dy-pack crossover at 16, so that both of
+    their conv paths run) over 6 windows on the card and on the CPU:
+    prepared tensors equal, then every state and flow bit-equal
+    (``probes.unet_step.engine_agreement``'s ``bit_equal``: the card's
+    int32 sums and f32 epilogue round as the CPU's); every slot fires."""
+    from evflow_torch.deploy_unet import Int8UNetEngine
+    from evflow_torch.probes.unet_step import engine_agreement, run_engine
+
+    rng = np.random.default_rng(1)
+    wins = torch.tensor(rng.poisson(0.3, (6, 2, 40, 56, 2)).astype(np.float32))
+    engines = [Int8UNetEngine(_unet(d), compute=compute, phase_decoders=phase,
+                              dypack_min_spatial=16) for d in ("cpu", cuda)]
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(*(e.buffers() for e in engines)))
+    ref, got = run_engine(engines[0], wins), run_engine(engines[1], wins.to(cuda))
+    rec = engine_agreement(ref, got)
+    assert rec["bit_equal"], rec
+    assert min(float(z.float().mean()) for _, z in got[-1][1]) > 0
+
+
+def test_unet_on_card_matches_cpu(cuda):
+    """The f32 ``SpikingRecEVFlowNet`` (8 channels, B=2, 40x56) over 3
+    windows: every flow and membrane within 1e-4 of the CPU's (cuDNN's and
+    the CPU's f32 sums in other orders), spikes equal where the membrane is
+    more than 1e-4 from its threshold."""
+    from evflow_torch.probes.unet_step import run_engine
+
+    rng = np.random.default_rng(2)
+    wins = torch.tensor(rng.poisson(0.3, (3, 2, 40, 56, 2)).astype(np.float32))
+    cpu, gpu = _unet("cpu"), _unet(cuda)
+    ref, got = run_engine(cpu, wins), run_engine(gpu, wins.to(cuda))
+    u = cpu.multires_unetrec
+    cells = [c for e in u.encoders for c in (e.conv, e.recurrent_block)]
+    cells += [c for r in u.resblocks for c in (r.conv1, r.conv2)] + [d.conv2d for d in u.decoders]
+    for (rf, rs), (gf, gs) in zip(ref, got):
+        for a, b in zip(rf, gf):
+            assert float((a - b).abs().max()) < 1e-4
+        for (rm, rz), (gm, gz), cell in zip(rs, gs, cells):
+            near = (rm - torch.clamp(cell.thresh.detach().reshape(-1), min=0.01)).abs() <= 1e-4
+            assert bool(((rz == gz) | near).all())
+            assert float((rm - gm).abs().max()) < 1e-4
+
+
+def test_unet_engine_chunks_on_card_equal_per_window(cuda):
+    """The UNet engine (hybrid, phase decoders) as a CUDA graph of 4
+    windows: its carries equal the per-window run's bit for bit."""
+    from evflow_torch.chunk import ChunkProgram
+    from evflow_torch.deploy_unet import Int8UNetEngine
+
+    engine = Int8UNetEngine(_unet(cuda), compute="hybrid", phase_decoders=True,
+                            dypack_min_spatial=16)
+    rng = np.random.default_rng(3)
+    wins = rng.poisson(0.3, (8, 2, 40, 56, 2)).astype(np.float32)
+    st = engine.init_states(2, 40, 56)
+
+    def flat(s):
+        return [t for x in s for t in x]
+
+    def body(x, carry):
+        s = tuple(type(a)(*carry[2 * i:2 * i + 2]) for i, a in enumerate(st))
+        flows = []
+        for k in range(x["w"].shape[0]):
+            out, s = engine(None, x["w"][k], s)
+            flows.append(out["flow"][-1])
+        return {"flow": torch.stack(flows)}, flat(s)
+
+    program = ChunkProgram(body, cuda, ())
+    carry = flat(st)
+    with torch.no_grad():
+        for c in range(2):
+            program.stage({"w": list(wins[4 * c:4 * c + 4])}, carry)
+            _, carry = program.run()
+        ref = st
+        for x in wins:
+            _, ref = engine(None, torch.tensor(x, device=cuda), ref)
+    assert all(torch.equal(a, b) for a, b in zip(carry, flat(ref)))

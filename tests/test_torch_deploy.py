@@ -255,7 +255,7 @@ def test_engine_refusals(nets, tmp_path):
         PD.Int8DeployEngine.from_artifact(
             build_model(model_cfg("LIFFireNet_short"), device="cpu"), str(tmp_path / "e.npz"))
     np.savez(tmp_path / "unet.npz", __meta__=np.asarray('{"model": "SpikingRecEVFlowNet"}'))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="Int8UNetEngine"):
         PD.Int8DeployEngine.from_artifact(pm, str(tmp_path / "unet.npz"))
     from evflow_torch.models.fused import FusedFireNet
 

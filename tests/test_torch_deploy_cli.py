@@ -7,8 +7,8 @@ artifact written by ``save_engine`` equal to the engine that wrote it;
 a reference package's run (``model.msgpack`` written by
 ``evflow.utils.checkpoint.save_checkpoint``) read by its run id by
 ``eval_flow`` and ``eval_flow_quant --mode deploy``, scoring as the same
-weights in a ``.pth``; and the new modules importing neither JAX nor the
-reference package."""
+weights in a ``.pth``; and the serving modules (the UNet's too) importing
+neither JAX nor the reference package."""
 
 import os
 import subprocess
@@ -124,6 +124,8 @@ class Block:
 sys.meta_path.insert(0, Block())
 import evflow_torch.deploy, evflow_torch.bench, evflow_torch.export, evflow_torch.ops.dypack
 import evflow_torch.utils.msgpack, evflow_torch.probes.deploy_step, evflow_torch.eval_flow_quant
+import evflow_torch.models.unet, evflow_torch.deploy_unet, evflow_torch.bench_unet
+import evflow_torch.probes.unet_step
 assert not any(m.split(".")[0] in ("jax", "flax", "evflow", "msgpack") for m in sys.modules)
 print("clean")
 """

@@ -145,15 +145,15 @@ def test_eval_flow_quant_modes_on_the_qat_run(ws, qat_run, tmp_path, capsys, mod
 
 
 @pytest.mark.parametrize("flags,exc,match", [
-    (["--mode", "deploy", "--compute", "int8"], NotImplementedError, "queue 1 item 9"),
+    (["--mode", "full_qat", "--compute", "int8"], SystemExit, None),
     (["--mode", "deploy", "--artifact", "a.npz"], SystemExit, None),
-    (["--compute", "int8"], NotImplementedError, "queue 1 item 9"),
-    (["--phase_decoders"], NotImplementedError, "queue 1 item 9"),
+    (["--compute", "int8"], SystemExit, None),
+    (["--phase_decoders"], SystemExit, None),
     (["--mem_dtype", "int8"], SystemExit, None), (["--z_int8"], SystemExit, None)])
 def test_eval_flow_quant_refuses_the_deploy_flags(flags, exc, match, tmp_path):
-    """The UNet engine's flags raise naming its item (queue 1 item 9); a
-    checkpoint beside ``--artifact``, and the engine's flags outside
-    ``--mode deploy``, are usage errors; all before any file opens (the
+    """The engine flags outside ``--mode deploy`` (the UNet engine's
+    ``--compute`` and ``--phase_decoders`` too), and a checkpoint beside
+    ``--artifact``, are usage errors; all before any file opens (the
     checkpoint and config do not exist)."""
     from evflow_torch.eval_flow_quant import main
 
