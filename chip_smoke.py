@@ -168,7 +168,33 @@ Phases, each printing JSON lines; any failure exits non-zero:
    replays), and at B=2 kernels and card ms a step and the int8 GEMMs'
    share. No hand-written kernel runs (the reference reaches no Pallas
    kernel on this path).
-9. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
+9. ``parallel``: data parallelism and the multi-process loader
+   (``evflow_torch.parallel.mesh``, ``evflow_torch.data.mp_loader``,
+   ``evflow_torch.probes.parallel``) on ``configs/train_SNN.yml``'s data (8
+   synthetic sequences, 128x128). (a) ``MPEventStream`` at 2 and 4 workers
+   bit-equal to in-process streams over each worker's shard, batch by
+   batch, no worker among the processes holding a CUDA context
+   (``nvidia-smi --query-compute-apps=pid``); ``next_batch`` ms a batch and
+   a window at B=8 by worker count (1, 2, 4). (b) The protocol cell of
+   phase 4 at B=2, fused nhwc in chunks of 8 with ``device_metrics``, with
+   1 and 2 loader workers: windows/s, the host split (prefetch wait) and
+   7 launches a window, the two results equal; the same at steady state
+   (each run after its first batch, which pays the workers' start); and
+   the cell's ``next_batch`` alone (after 5 batches) with 1
+   and 2 workers. (c) ``evaluate`` and ``train`` over 2 gloo ranks sharing
+   card 0, ``train`` over an NCCL group of one rank on card 0 (the step's
+   collectives over NCCL), and, with 2 cards or more, over NCCL with the most
+   cards that divide B=8 (a line names the meshes run and skipped):
+   per-file metrics of the unfused model at B=8
+   (128x128, per window and in chunks of 8 with ``device_metrics``) within
+   1e-5 of the single-process card run; the first train step's loss within
+   1% of the single-process step's (augmentation off, so both see one
+   batch), the parameters bit-equal across the ranks after the run, and
+   steps/s beside the single process's. (d) The train cell with 1 and 4
+   loader workers: steps/s and the host part of the step's split. No
+   hand-written kernel runs on the data-parallel path (the reference
+   refuses its Pallas kernels under a mesh).
+10. ``times``: CUDA-event times of every 32-channel phase-2 case at B=2,
    256x256 and at B=1, 128x128 (``evaluate``'s shape), its plain version
    and cuDNN's bf16 conv alone, beside the case's bound at that shape, and
    the sums of a window's 7 launches at each shape; then FusedFireNet
@@ -176,7 +202,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    over 7 rounds of 50 steps enqueued while the card sleeps: the host's
    enqueue time a step and the card's time a step, medians of the rounds
    (the scan is the larger of the two).
-10. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
+11. ``wholenet``: the whole-network step in one launch (K3 ``fused_net``, K4
    ``fused_net_loop``, K5 ``fused_net_loop2``, K6 ``fused_net_lgrid``, K7
    ``fused_net_batch``) at full width, 256x256, at B=2 over 8 windows and
    at B=8 (the bench entry point's batch) over 4, in f32 and bf16 state:
@@ -195,7 +221,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    scans of each runner, and the ``evflow_torch.bench_wholenet`` entry point
    over all five at B=8, 32 windows, each with the launch counters set to 0
    just before and read just after (1 launch per window).
-11. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
+12. ``probes``: the in-kernel dot probes (``evflow_torch.probes.inkernel_dot``)
    through their entry point ``run_all`` at the JAX probes' shapes
    (launch counters 0 just before, read just after; exactly 1 + repeats
    launches per case), each against its plain version (f32 accumulation
@@ -207,7 +233,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    the L stacked weight matrices per step (``torch.matmul`` bf16,
    ``torch._int_mm`` int8), as the yardstick, and the kernel's time over
    each (``x_bound``, ``x_library``).
-12. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
+13. ``staging``: the staging probes (``evflow_torch.probes.staging``: K8c,
    K8d row windows staged by TMA bulk copies, K8e's layer loop, and K8c at
    H=2048) through ``run_all`` (launch counters 0 just before, read just
    after; exactly 1 + repeats launches per case), each against its plain
@@ -223,7 +249,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    for the layer grid. Then K8e at L = 1, 3, 5 and 7 layers
    (``probes/staging_slope.py``) and the slope of its time over L: what
    staging one more layer costs.
-13. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
+14. ``unitloop``: the unit-loop probes (``evflow_torch.probes.unit_loop``: K8i's
    three cases, one conv+LIF unit in a runtime layer loop with and without
    the LIF and the per-layer output, and K8j, the same body behind staged
    spike slots) at the JAX probes' shapes through ``run_all`` (launch
@@ -234,7 +260,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
    (the bytes and operations of the cone of rows the outputs need), the
    CTAs, threads and shared bytes, and L cuDNN bf16 convs of ``[1, 2C, E,
    W]`` by ``[C, 2C, 3, 3]`` (the conv alone) as the yardstick.
-14. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
+15. ``loopdyn``: the runtime-indexed loop probes (``evflow_torch.probes.loop_dyn``:
    K8f's k1-k5, K8h's k10-k12 and K8g's k6-k8, a layer loop reading and
    writing a shared-memory scratch at the runtime layer index) at the JAX
    probes' shapes (L=4, C=32, E=24, W=256; k6's p ``[4,32,3]``, k7's w
@@ -261,22 +287,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
    k7 one ``F.conv2d`` of ``[1, L C, E, W]`` (f32, TF32 off), k8
    ``torch.mul(x[:, :, 8:16], 2)``; and the kernel's time over the bound
    and over the yardstick.
-15. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
+16. ``mosaicops``: the Mosaic-ops probes (``evflow_torch.probes.mosaic_ops``:
    K8o's k_misc and k_roll on ``csrc/probe_mosaic_ops.cu``, k_dot3 on the
    in-kernel dot kernel) at the JAX probe's shapes (C=32, K=288, E=32,
    W=256, bf16 normals) through ``run_all`` (launch counters as in phase
-   12), each against its plain version (k_misc and k_roll equal, each bf16
+   13), each against its plain version (k_misc and k_roll equal, each bf16
    sum rounded once alike; k_dot3 within ``2 sqrt(K) 2^-24 max|out|``),
    with device ms, the launch floor of k_misc and k_roll (one row of v,
    one CTA), the bound, and the yardstick: ``(torch.roll(v, 1, 2) +
    torch.roll(v, 1, 1)).float()``, ``(v + torch.where(w > 0, v,
    0)).float()``, ``torch.mm`` on the bf16 operands with an f32 output
    (``out_dtype``), and the kernel's time over the bound and the yardstick.
-16. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
+17. ``bisect``: the whole-net bisection probes (``evflow_torch.probes.wholenet_bisect``:
    K8k's kA and kB, K8l's two, K8m's four and K8n's three chain variants, on
    ``csrc/probe_wholenet_bisect.cu``) at the JAX files' shapes (C=32, H=64,
    W=256, TH=16; B=1 for K8k, 2 for the chain) through ``run_all`` (launch
-   counters as in phase 14), every output of each case (kA's and kB's out;
+   counters as in phase 15), every output of each case (kA's and kB's out;
    the chain's o0, o1 and flow) against its plain version: equal, on
    operands that make every sum exact (``wholenet_bisect.draw_operands``),
    the pred flow within ``2 sqrt(C) 2^-24 max|out|`` plus 4 f32 ulps; with
@@ -299,6 +325,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import itertools
 import json
 import statistics
@@ -306,9 +333,10 @@ import sys
 import tempfile
 import time
 
-PHASES = ("build", "kernels", "model", "protocol", "train", "quant", "deploy", "unet", "times",
-          "wholenet", "probes", "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
+PHASES = ("build", "kernels", "model", "protocol", "train", "quant", "deploy", "unet", "parallel",
+          "times", "wholenet", "probes", "staging", "unitloop", "loopdyn", "mosaicops", "bisect")
 
+PHASE_STACKS_AFTER_S = 420  # longer than any phase takes (the longest, quant: ~125-235 s)
 B_BENCH, H_BENCH, W_BENCH, C_BENCH = 2, 256, 256, 32
 # K1's and K2's cases (case, Cin, recurrent, hard reset), their launches a
 # LIFFireNet window and the shapes they are timed at (the bench's, B=2,
@@ -664,10 +692,12 @@ def protocol_run(cfg, model, wrappers, split_windows=None, **kw):
     evaluate(cfg, model=model, stats=split, max_windows=split_windows or SPLIT_WINDOWS, **kw)
     wall_ms = 1e3 * stats["seconds"]
     dev = split["split_ms"]["device"]
-    rec = {"windows": stats["windows"], "seconds": stats["seconds"], "encoder": stats["encoder"],
+    rec = {"windows": stats["windows"], "seconds": stats["seconds"],
+           "start_seconds": stats["start_seconds"], "encoder": stats["encoder"],
            "windows_per_s": stats["windows"] / stats["seconds"],
            "ms_per_window": wall_ms / stats["windows"],
            "split_windows": split["windows"], "split_ms_per_window": split["split_ms"],
+           "split_first_ms": split["split_first_ms"],
            "split_slow_enqueues": split["slow_enqueues"],
            "device_idle_share": 1.0 - dev * stats["windows"] / wall_ms,
            "launches": launches,
@@ -1573,6 +1603,234 @@ def unet_rates(name) -> list:
             if not r["windows_per_s"] > 0:
                 fails.append(f"bench_unet {what} {tier} phase={phase} B={batch} measured nothing")
             torch.cuda.empty_cache()
+    return fails
+
+
+PARALLEL_WORKERS = (1, 2, 4)  # loader worker counts of (a)
+PARALLEL_WARM, PARALLEL_STEPS = 3, 10  # train steps of (c): timed after the warm ones
+CELL_STEPS = 20  # train steps of (d), after PARALLEL_WARM
+
+
+def phase_parallel(state):
+    """Data parallelism and the multi-process loader on the card
+    (``evflow_torch.probes.parallel``): (a) the loader against in-process
+    shard streams, and its rate by worker count; (b) the protocol cell at
+    B=2 with 1 and 2 workers; (c) ``evaluate`` and ``train`` over ranks
+    against the single process; (d) the train cell with 1 and 4 workers."""
+    import os
+
+    from evflow_torch.probes.train_step import full_config, full_data
+
+    name = card()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="evflow_parallel_") as d:
+        data = full_data(os.path.join(d, "data"))
+        fails = parallel_loader(full_config(data), name)
+        emit({"phase": "parallel", "part": "loader_done", "seconds": time.perf_counter() - t0})
+        fails += parallel_protocol(state, name)
+        emit({"phase": "parallel", "part": "protocol_done", "seconds": time.perf_counter() - t0})
+        fails += parallel_ranks(data, d, name)
+        emit({"phase": "parallel", "part": "ranks_done", "seconds": time.perf_counter() - t0})
+        fails += parallel_train_cell(data, d, name)
+    if fails:
+        raise SystemExit("; ".join(fails))
+
+
+def parallel_loader(cfg, name) -> list:
+    """(a) ``MPEventStream`` at 2 and 4 workers against the in-process
+    streams of the workers' shards (no worker holding a CUDA context), then
+    ``next_batch`` by worker count, B=8."""
+    from evflow_torch.probes import parallel as par
+
+    fails = []
+    for w in (2, 4):
+        rec = par.loader_equal(cfg, w)
+        ok = rec["equal"] and rec["cuda_pids"] is not None and rec["no_worker_holds_cuda"]
+        emit({"phase": "parallel", "part": "loader_equal", **rec, "card": name, "ok": ok})
+        if not ok:
+            fails.append(f"MPEventStream at {w} workers differs from its shard streams, or a "
+                         f"worker holds a CUDA context: {rec}")
+    rates = par.loader_rates(cfg, PARALLEL_WORKERS)
+    emit({"phase": "parallel", "part": "next_batch", "batch": cfg["loader"]["batch_size"],
+          "resolution": cfg["loader"]["resolution"], "window_events": cfg["data"]["window"],
+          "by_workers": rates, "card": name})
+    return fails
+
+
+def parallel_protocol(state, name) -> list:
+    """(b) The protocol cell (phase 4's config and data) at B=2, fused nhwc
+    in chunks of 8 with ``device_metrics``, with 1 and 2 loader workers;
+    then its ``next_batch`` alone by worker count. A run's windows/s and
+    prefetch wait pay the workers' start (about a second); the steady
+    state leaves out the first batch: the run's windows after it over its
+    seconds after it, and the split's prefetch less its first wait over the
+    windows after the first batch."""
+    from evflow_torch.eval import evaluate
+    from evflow_torch.probes import parallel as par
+
+    cfg = eval_config(dataset(state))
+    cfg["loader"]["batch_size"] = 2
+    model = seeded_firenet()
+    wrappers = {kn: kernel_fns(lay)[0] for kn, lay, _, _ in KERNELS}
+    kw = dict(fused=True, layout="nhwc", chunk=8, device_metrics=True)
+    evaluate(cfg, model=model, debug=True, max_windows=32, **kw)  # warm: not measured
+    results, fails = {}, []
+    for w in (1, 2):
+        c = dict(cfg, loader=dict(cfg["loader"], num_workers=w))
+        results[w], rec = protocol_run(c, model, wrappers, **kw)
+        prefetch = (rec["split_ms_per_window"]["prefetch"] * rec["split_windows"]
+                    - rec["split_first_ms"]["prefetch"])
+        rec["steady"] = {
+            "windows_per_s": (rec["windows"] - 2) / (rec["seconds"] - rec["start_seconds"]),
+            "prefetch_ms_per_window": prefetch / (rec["split_windows"] - 2)}
+        counts = rec["launches"]
+        ok = counts["fused_conv_lif"] * 2 == 7 * rec["windows"] and sum(counts.values()) == \
+            counts["fused_conv_lif"]
+        emit({"phase": "parallel", "part": "protocol", "batch": 2, "num_workers": w,
+              "mode": "chunk8_dm", **kw, **rec, "metrics": results[w], "card": name, "ok": ok})
+        if not ok:
+            fails.append(f"protocol cell B=2, {w} workers: {counts} launches for "
+                         f"{rec['windows']} windows")
+    diff = rel_diff(results[2], results[1])
+    emit({"phase": "parallel", "part": "protocol_workers_equal", "rel_diff": diff,
+          "ok": diff <= 1e-6})
+    # the loader alone in its steady state (the runs above pay the workers' start)
+    emit({"phase": "parallel", "part": "protocol_next_batch", "batch": 2,
+          "by_workers": par.loader_rates(cfg, (1, 2)), "card": name})
+    if diff > 1e-6:
+        fails.append(f"the protocol cell with 2 loader workers is {diff} off the 1-worker run")
+    return fails
+
+
+def parallel_eval_config(data):
+    """An unfused evaluation of the full-width LIFFireNet at B=8 on the train
+    cell's 8 sequences (128x128, no pooling), so that 2, 4 or 8 ranks each
+    stream their own files."""
+    return {"data": {"path": data, "mode": "gtflow_dt1", "window": 1},
+            "model": eval_config("")["model"],
+            "metrics": {"name": ["AEE", "AAE", "AE_ofMeans"], "flow_scaling": 128,
+                        "heat_map": False},
+            "loader": {"batch_size": 8, "resolution": [128, 128], "std_resolution": [128, 128],
+                       "augment": [], "seed": 0},
+            "hot_filter": eval_config("")["hot_filter"]}
+
+
+def parallel_ranks(data, d, name) -> list:
+    """(c) ``evaluate`` (per window, and chunks of 8 with ``device_metrics``)
+    and ``train`` over 2 gloo ranks on card 0, ``train`` over an NCCL
+    group of one rank on card 0 (the NCCL collectives on one card), and
+    both over NCCL with
+    the most cards that divide the batch where there are 2 or more,
+    against one process on the card."""
+    import os
+
+    import torch
+
+    from evflow_torch.eval import evaluate
+    from evflow_torch.parallel.mesh import launch
+    from evflow_torch.probes import parallel as par
+    from evflow_torch.probes.train_step import full_config
+    from evflow_torch.train import train
+
+    ecfg = parallel_eval_config(data)
+    model = seeded_firenet()
+    sd = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+    modes = (("window", {}), ("chunk8_dm", dict(chunk=8, device_metrics=True)))
+    evaluate(ecfg, model=model, debug=True, max_windows=32)  # warm: not measured
+    single = {}
+    for mode, kw in modes:
+        st = {}
+        single[mode] = (evaluate(ecfg, model=model, debug=True, stats=st, **kw), st)
+    tcfg = full_config(data)
+    tcfg["loader"].update(augment=[], augment_prob=[])  # one batch for both runs
+    steps = PARALLEL_WARM + PARALLEL_STEPS
+    st = {}
+    train(tcfg, path_runs=os.path.join(d, "runs1"), max_steps=steps, verbose=False,
+          device="cuda", stats=st)
+    torch.cuda.synchronize()
+    single_rate = PARALLEL_STEPS / (st["step_end"][-1] - st["step_end"][PARALLEL_WARM - 1])
+    jobs = [("eval", ecfg, sd, dict(max_windows=32))]  # warm: not measured
+    jobs += [("eval", ecfg, sd, kw) for _, kw in modes]
+    jobs.append(("train", tcfg, os.path.join(d, "runs_dp"), steps))
+    cards = torch.cuda.device_count()
+    wide = max(n for n in range(1, cards + 1) if 8 % n == 0)
+    # a group of one runs NCCL only in the train step: evaluate's gathers
+    # go through the host's gloo group
+    meshes = [("gloo", 2, jobs), ("nccl", 1, jobs[-1:])]
+    meshes += [("nccl", wide, jobs)] if wide >= 2 else []
+    emit({"phase": "parallel", "part": "meshes", "cards": cards,
+          "run": [f"{b} x{n}" for b, n, _ in meshes],
+          "skipped": [] if wide >= 2 else [f"nccl over several cards: {cards} card(s)"]})
+    fails = []
+    for backend, n, todo in meshes:
+        t0 = time.perf_counter()
+        out = launch(par.jobs_rank, n, "cuda", backend, args=(todo,))
+        seconds = time.perf_counter() - t0
+        for i, (mode, _) in enumerate(modes if len(todo) > 1 else (), start=1):
+            got = out[0][i]
+            diff = rel_diff(got["results"], single[mode][0])
+            wps = got["windows"] / max(o[i]["seconds"] for o in out)
+            st1 = single[mode][1]
+            ok = diff <= 1e-5 and set(got["results"]["AEE"]) == set(single[mode][0]["AEE"])
+            emit({"phase": "parallel", "part": "evaluate", "backend": backend, "ranks": n,
+                  "batch": 8, "mode": mode, "windows": got["windows"], "windows_per_s": wps,
+                  "single_windows": st1["windows"],
+                  "single_windows_per_s": st1["windows"] / st1["seconds"],
+                  "rel_diff_vs_single": diff, "card": name, "ok": ok})
+            if not ok:
+                fails.append(f"{backend} x{n} evaluate {mode}: {diff} off the single process")
+        trains = [o[-1] for o in out]
+        tr = trains[0]
+        rate = PARALLEL_STEPS / (tr["step_end"][-1] - tr["step_end"][PARALLEL_WARM - 1])
+        loss_diff = abs(tr["losses"][0] - st["losses"][0]) / abs(st["losses"][0])
+        equal = all(t["param_digest"] == tr["param_digest"] for t in trains)
+        ok = loss_diff <= 0.01 and equal and len(tr["losses"]) == steps
+        emit({"phase": "parallel", "part": "train", "backend": backend, "ranks": n, "batch": 8,
+              "steps": PARALLEL_STEPS, "warm": PARALLEL_WARM, "steps_per_s": rate,
+              "single_steps_per_s": single_rate, "first_loss": tr["losses"][0],
+              "single_first_loss": st["losses"][0], "first_loss_rel_diff": loss_diff,
+              "params_bit_equal_across_ranks": equal, "launch_seconds": seconds,
+              "card": name, "ok": ok})
+        if not ok:
+            fails.append(f"{backend} x{n} train: first loss {loss_diff} off the single "
+                         f"process's, or parameters differ across ranks ({equal})")
+    return fails
+
+
+def parallel_train_cell(data, d, name) -> list:
+    """(d) The train cell (``configs/train_SNN.yml``) with 1 and 4 loader
+    workers: steps/s over ``CELL_STEPS`` after ``PARALLEL_WARM``, and the
+    step's split (its host part: batches, stacking and upload)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from evflow_torch.probes.train_step import full_config
+    from evflow_torch.train import STEP_PARTS, train
+
+    fails = []
+    for w in (1, 4):
+        cfg = full_config(data)
+        cfg["loader"]["num_workers"] = w
+        runs = os.path.join(d, f"cell{w}")
+        st = {}
+        train(cfg, path_runs=runs, max_steps=PARALLEL_WARM + CELL_STEPS, verbose=False,
+              device="cuda", stats=st)
+        torch.cuda.synchronize()
+        seconds = st["step_end"][-1] - st["step_end"][PARALLEL_WARM - 1]
+        split = {"split": True}
+        train(cfg, path_runs=runs, max_steps=PARALLEL_WARM + 5, verbose=False, device="cuda",
+              stats=split)
+        split_ms = {p: float(np.mean([s[p] for s in split["split_ms"][PARALLEL_WARM:]]))
+                    for p in STEP_PARTS}
+        ok = all(np.isfinite(st["losses"]))
+        emit({"phase": "parallel", "part": "train_cell", "num_workers": w, "batch": 8,
+              "steps": CELL_STEPS, "warm": PARALLEL_WARM, "steps_per_s": CELL_STEPS / seconds,
+              "ms_per_step": 1e3 * seconds / CELL_STEPS, "split_ms": split_ms,
+              "card": name, "ok": ok})
+        if not ok:
+            fails.append(f"train cell with {w} loader workers: a loss is not finite")
     return fails
 
 
@@ -2567,7 +2825,8 @@ def main(argv=None):
     state = {}
     table = {"build": phase_build, "kernels": phase_kernels, "model": phase_model,
              "protocol": phase_protocol, "train": phase_train, "quant": phase_quant,
-             "deploy": phase_deploy, "unet": phase_unet, "times": phase_times,
+             "deploy": phase_deploy, "unet": phase_unet, "parallel": phase_parallel,
+             "times": phase_times,
              "wholenet": phase_wholenet,
              "probes": phase_probes, "staging": phase_staging, "unitloop": phase_unitloop,
              "loopdyn": phase_loopdyn, "mosaicops": phase_mosaicops, "bisect": phase_bisect}
@@ -2575,7 +2834,10 @@ def main(argv=None):
         for p in PHASES:
             if p in phases:
                 t0 = time.perf_counter()
+                # a phase that hangs prints every thread's stack to stderr
+                faulthandler.dump_traceback_later(PHASE_STACKS_AFTER_S, repeat=True)
                 table[p](state)
+                faulthandler.cancel_dump_traceback_later()
                 emit({"phase_done": p, "seconds": time.perf_counter() - t0})
     finally:
         if "tmp" in state:

@@ -51,10 +51,11 @@ import torch
 
 from evflow_torch import registry
 from evflow_torch.chunk import ChunkProgram
-from evflow_torch.data.h5_stream import H5EventStream, Prefetcher
-from evflow_torch.device import resolve_device
+from evflow_torch.data.h5_stream import Prefetcher
+from evflow_torch.data.mp_loader import build_stream, check_workers
 from evflow_torch.loss import metrics as M
 from evflow_torch.ops.iwe import compute_pol_iwe, upsample_flow
+from evflow_torch.parallel.mesh import rank_config, rank_device
 
 __all__ = ["evaluate", "reset_slot_states", "SPLIT_PARTS"]
 
@@ -137,6 +138,7 @@ class _Split:
         self.on = on
         self.cuda = device.type == "cuda"
         self.ms = {p: 0.0 for p in SPLIT_PARTS}
+        self.first: Dict[str, float] = {}  # each part's first ms
         self.slow = 0  # dispatches whose enqueue took over 5 ms
 
     def _sync(self):
@@ -152,7 +154,9 @@ class _Split:
         t0 = time.perf_counter()
         yield
         self._sync()
-        self.ms[name] += 1e3 * (time.perf_counter() - t0)
+        ms = 1e3 * (time.perf_counter() - t0)
+        self.ms[name] += ms
+        self.first.setdefault(name, ms)
 
     @contextlib.contextmanager
     def dispatch(self, program: Optional[ChunkProgram] = None):
@@ -177,6 +181,27 @@ class _Split:
         if self.cuda:
             self.ms["device"] += start.elapsed_time(end)
             self.slow += host > 5.0
+
+
+def _gather_ranks(mesh, criteria, names, val_results, windows: int):
+    """Every rank's per-file sums, heat-map aggregates and window count,
+    merged on every rank (ranks stream disjoint files; a file met on two
+    ranks sums alike)."""
+    hm = [c.aggregated_sums() if n in _HEATMAP_METRICS else None for n, c in zip(names, criteria)]
+    parts = mesh.gather((val_results, hm, windows))
+    merged: Dict[str, Dict[str, Dict[str, float]]] = {}
+    for k, (vals, maps, _) in enumerate(parts):
+        for fname, per_metric in vals.items():
+            for mname, e in per_metric.items():
+                into = merged.setdefault(fname, {}).setdefault(
+                    mname, {"metric": 0.0, "it": 0, "percent": 0.0})
+                for key in into:
+                    into[key] += e[key]
+        if k != mesh.rank:
+            for c, m in zip(criteria, maps):
+                if m is not None:
+                    c.merge_aggregated(*m)
+    return merged, sum(p[2] for p in parts)
 
 
 def _widen(x: torch.Tensor) -> torch.Tensor:
@@ -204,6 +229,7 @@ def evaluate(
     device_metrics: bool = False,
     stats: Optional[Dict[str, Any]] = None,
     collect_vis: bool = False,
+    mesh=None,
 ):
     """Run the evaluation protocol; returns the per-file results dict
     ``{metric: {file: str(value)}, metric + "_percent": {...}}``, and with
@@ -220,16 +246,34 @@ def evaluate(
     ``fused`` runs ``FusedFireNet`` in ``layout`` on the fused kernels.
     ``device`` defaults to the GPU. ``chunk`` and
     ``device_metrics`` as in the module's docstring. ``stats``, if given,
-    receives the windows run and the wall seconds of the loop; with
+    receives the windows run, the wall seconds of the loop and, as
+    ``start_seconds``, those until its first batch was in hand (the
+    stream's start: loader workers take about a second); with
     ``stats["split"]`` true the loop syncs between the parts of
     ``SPLIT_PARTS`` and ``stats["split_ms"]`` receives each part's ms a
-    window of the run (``"device"`` None off the card) and
+    window of the run (``"device"`` None off the card),
+    ``stats["split_first_ms"]`` the first ms of each of its host parts
+    (``prefetch``, ``encode_upload``, ``metrics``; the first prefetch is
+    the stream's start) and
     ``stats["slow_enqueues"]`` the dispatches, captures aside, whose
     enqueue took over 5 ms: their device time may hold the card's wait for
     the host. ``stats["encoder"]`` names the stream's encoder
     (``H5EventStream.encoder``) and, with ``vis.activity``,
     ``stats["activity"]`` holds the activity log (a list a layer, reset at
-    each rollover).
+    each rollover). ``loader.num_workers > 1`` streams through worker
+    processes (``data.mp_loader.MPEventStream``).
+
+    ``mesh`` (an ``evflow_torch.parallel.mesh.Mesh`` of this rank) fans the
+    batch slots out over the ranks: every rank calls ``evaluate`` with the
+    same config and runs its own slots (``rank_config``: B/D slots, its file
+    shard) on its own device, per window or chunked; at the end the ranks
+    gather their per-file sums (and heat maps), and every rank returns the
+    merged results, which rank 0 alone writes. ``stats["windows"]`` counts
+    every rank's windows, ``max_windows`` too; ``stats["split_ms"]`` is this
+    rank's, a window of its own. Refused with a mesh, before
+    any file opens: ``fused`` (as the reference refuses its Pallas path),
+    ``collect_vis`` and ``vis.activity`` (per-window host records of the
+    whole batch), and a batch the mesh size does not divide.
     """
     metrics_cfg = config.get("metrics", {})
     names = metrics_cfg.get("name", [])
@@ -269,12 +313,21 @@ def evaluate(
             raise ValueError("device_metrics with metrics.heat_map needs "
                              "window == 1 (the AEE criterion-call gate is "
                              "evaluated in-graph)")
-    if int(config["loader"].get("num_workers", 1)) > 1:
-        raise NotImplementedError(
-            "loader.num_workers > 1: the multi-process loader comes with ROADMAP.md "
-            "queue 1 item 11")
+    dp = mesh is not None and mesh.distributed
+    logged = config  # eval_N.yml keeps the global config
+    if dp:
+        if fused:
+            raise ValueError("fused backend does not support mesh fan-out")
+        if collect_vis or log_activity:
+            raise ValueError("collect_vis and vis.activity record the whole batch each window; "
+                             "run them without a mesh")
+        config = rank_config(config, mesh)
+        if max_windows is not None:
+            max_windows = -(-int(max_windows) // mesh.size)  # this rank's share
+    check_workers(config)  # of this process's slots
+    lead = not dp or mesh.rank == 0  # the rank that writes
 
-    device = resolve_device(device)
+    device = rank_device(mesh, device)
     model_cfg = config["model"]
     if model is None:
         model = registry.build_model(model_cfg, device=device)
@@ -300,13 +353,13 @@ def evaluate(
             c.flow_scaling = adjusted
 
     eval_id = -1
-    if not debug:
+    if not debug and lead:
         from evflow_torch.utils.tracker import create_model_dir, log_config
 
         path_results = create_model_dir(path_results, runid)
-        eval_id = log_config(path_results, runid, config)
+        eval_id = log_config(path_results, runid, logged)
     vis = None
-    if store_vis or live_vis:
+    if (store_vis or live_vis) and lead:
         from evflow_torch.utils.viz import Visualization
 
         vis = Visualization(config, eval_id=eval_id,
@@ -619,13 +672,16 @@ def evaluate(
         pending.clear()
 
     t0 = time.perf_counter()
-    data = H5EventStream(config, model_cfg.get("num_bins", 2),
-                         model_cfg.get("round_encoding", False))
+    data = build_stream(config, model_cfg.get("num_bins", 2),
+                        model_cfg.get("round_encoding", False))
     fetch = Prefetcher(data, depth=2)
+    start_seconds = None
     try:
         while True:
             with split.part("prefetch"):
                 batch = next(fetch)
+            if start_seconds is None:
+                start_seconds = time.perf_counter() - t0
             if batch["epoch_done"]:
                 run_pending()
                 drain_inflight()
@@ -660,8 +716,21 @@ def evaluate(
         from evflow_torch.utils.viz import vis_activity
 
         vis_activity({}, activity_log, save_path=os.path.join(path_results, "activity.png"))
+    seconds = time.perf_counter() - t0
+    if hm_dev:
+        # fold the device's heat-map sums into the aggregates (partial
+        # chunks accumulated on the host into the same aggregates)
+        it = iter(hm_dev)
+        for i, mname in enumerate(names):
+            if mname in _HEATMAP_METRICS:
+                e, c = next(it), next(it)
+                criteria[i].merge_aggregated(e.cpu().numpy(), c.cpu().numpy())
+    all_windows = windows_done
+    if dp:
+        val_results, all_windows = _gather_ranks(mesh, criteria, names, val_results,
+                                                 windows_done)
     if stats is not None:
-        stats.update(windows=windows_done, seconds=time.perf_counter() - t0,
+        stats.update(windows=all_windows, seconds=seconds, start_seconds=start_seconds,
                      encoder=data.encoder)
         if log_activity:
             stats["activity"] = activity_log
@@ -669,6 +738,7 @@ def evaluate(
             n = max(windows_done, 1)
             stats["split_ms"] = {p: (None if p == "device" and not split.cuda else v / n)
                                  for p, v in split.ms.items()}
+            stats["split_first_ms"] = dict(split.first)
             stats["slow_enqueues"] = split.slow
 
     results: Dict[str, Dict[str, str]] = {}
@@ -685,16 +755,7 @@ def evaluate(
             if has_pct:
                 results[mname + "_percent"][fname] = str(v[mname]["percent"] / v[mname]["it"])
 
-    if hm_dev:
-        # fold the device's heat-map sums into the aggregates (partial
-        # chunks accumulated on the host into the same aggregates)
-        it = iter(hm_dev)
-        for i, mname in enumerate(names):
-            if mname in _HEATMAP_METRICS:
-                e, c = next(it), next(it)
-                criteria[i].merge_aggregated(e.cpu().numpy(), c.cpu().numpy())
-
-    if not debug and names:
+    if not debug and names and lead:
         from evflow_torch.utils.tracker import log_results
 
         log_results(runid, results, path_results, eval_id)

@@ -13,8 +13,14 @@ Unless ``--debug``, the config and the per-file results go to
 ``<path_results>/<run id or name of the checkpoint file>/eval_N.yml`` and
 ``metrics_N.yml``. It runs on the GPU unless ``--device cpu``. The config's
 model may be a FireNet or ``SpikingRecEVFlowNet`` (the UNet runs unfused:
-``--fused`` refuses it). ``--num_devices > 1`` and ``--profile`` are not
-ported yet and raise.
+``--fused`` refuses it).
+
+``--num_devices N`` fans the batch slots out over N ranks
+(``evflow_torch.parallel.mesh``; ``loader.batch_size`` must be a multiple
+of N): one process a card under NCCL, or ``--backend gloo`` (the CPU's,
+and on CUDA several ranks sharing the cards there are); each rank streams
+its own sequence files, rank 0 writes the results. ``--profile`` is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -37,7 +43,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         help="run the fused conv+LIF kernels")
     parser.add_argument("--layout", default="nhwc", choices=("nhwc", "cmajor"),
                         help="state layout of the fused kernels")
-    parser.add_argument("--num_devices", type=int, default=1)
+    parser.add_argument("--num_devices", type=int, default=1,
+                        help="ranks to fan the batch slots out over (data parallel)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="process group of the ranks (default: nccl on cuda, gloo on cpu)")
     parser.add_argument("--chunk", type=int, default=1,
                         help="run K windows as one dispatch (one CUDA graph replay)")
     parser.add_argument("--device_metrics", action="store_true",
@@ -80,17 +89,33 @@ def resolve_checkpoint(checkpoint: str, path_runs: str,
     raise FileNotFoundError(f"no checkpoint file or run id {checkpoint!r}")
 
 
+def _evaluate_rank(mesh, config, kw):
+    from evflow_torch.eval import evaluate
+
+    return evaluate(config, mesh=mesh, **kw)
+
+
 def run(config: Dict[str, Any], checkpoint: str, runid: str, path_results: str,
         debug: bool = False, max_windows: Optional[int] = None, fused: bool = False,
         layout: str = "nhwc", chunk: int = 1, device_metrics: bool = False,
-        device: str = "cuda") -> Dict[str, Dict[str, str]]:
-    """Evaluate ``checkpoint`` under ``config``; print and return the
-    per-file results."""
+        device: str = "cuda", num_devices: int = 1,
+        backend: Optional[str] = None) -> Dict[str, Dict[str, str]]:
+    """Evaluate ``checkpoint`` under ``config``, over ``num_devices`` ranks
+    if more than one; print and return the per-file results."""
     from evflow_torch.eval import evaluate
+    from evflow_torch.parallel.mesh import check_batch, check_mesh, launch
 
-    results = evaluate(config, checkpoint=checkpoint, path_results=path_results, runid=runid,
-                       debug=debug, max_windows=max_windows, fused=fused, layout=layout,
-                       chunk=chunk, device_metrics=device_metrics, device=device)
+    kw = dict(checkpoint=checkpoint, path_results=path_results, runid=runid, debug=debug,
+              max_windows=max_windows, fused=fused, layout=layout, chunk=chunk,
+              device_metrics=device_metrics)
+    n, _, backend = check_mesh(num_devices, device, backend)
+    if n > 1:
+        check_batch(config, n)
+        if fused:
+            raise ValueError("fused backend does not support mesh fan-out")
+        results = launch(_evaluate_rank, n, device, backend, args=(config, kw))[0]
+    else:
+        results = evaluate(config, device=device, **kw)
     print()
     for metric, per_file in results.items():
         for fname, val in per_file.items():
@@ -100,9 +125,6 @@ def run(config: Dict[str, Any], checkpoint: str, runid: str, path_results: str,
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, str]]:
     args = parse_args(argv)
-    if args.num_devices > 1:
-        raise NotImplementedError("--num_devices > 1: the multi-device evaluation comes with "
-                                  "ROADMAP.md queue 1 item 11")
     if args.profile:
         raise NotImplementedError("--profile: the device trace comes with the tooling, "
                                   "ROADMAP.md queue 1 item 10")
@@ -113,7 +135,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, str]]:
     return run(config, ckpt, runid, args.path_results,
                debug=args.debug, max_windows=args.max_windows, fused=args.fused,
                layout=args.layout, chunk=args.chunk, device_metrics=args.device_metrics,
-               device=args.device)
+               device=args.device, num_devices=args.num_devices, backend=args.backend)
 
 
 if __name__ == "__main__":

@@ -227,6 +227,11 @@ class _BaseMetric:
             self._agg_error += e
             self._agg_count += c
 
+    def aggregated_sums(self):
+        """The heat map's sums ``(masked error, mask)`` at the std
+        resolution, or None before any was accumulated."""
+        return None if self._agg_error is None else (self._agg_error, self._agg_count)
+
     def get_final_error_heatmap(self):
         if self._agg_error is None:
             return None, None

@@ -13,7 +13,12 @@ running statistics decayed by 0.9 towards the batch's (biased) ones.
 variance as ``E[x^2] - E[x]^2`` clipped at 0) under
 ``torch.nn.GroupNorm``'s parameter names. Inside ``frozen_running_stats(model)`` the model's running statistics are
 left as they are: the trainer recomputes a checkpointed forward in it, so
-that each pass updates them once.
+that each pass updates them once. Under ``global_batch_stats(model, group)``
+(data-parallel training) the training-mode moments are those of the global
+batch: each rank's ``sum x``, ``sum x^2`` and count are summed over the
+process group by a differentiable collective, so every rank normalises,
+updates its running statistics and back-propagates exactly as one process
+over the whole batch would.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-__all__ = ["BatchNorm", "TEBN", "MPBN", "GroupNorm", "frozen_running_stats"]
+__all__ = ["BatchNorm", "TEBN", "MPBN", "GroupNorm", "frozen_running_stats",
+           "global_batch_stats"]
 
 MOMENTUM = 0.9  # flax's decay of the running statistics (torch momentum 0.1)
 
@@ -44,6 +50,14 @@ def frozen_running_stats(model: nn.Module):
             m.frozen = False
 
 
+def global_batch_stats(model: nn.Module, group) -> None:
+    """Make the model's train-mode norms take their moments over ``group``'s
+    global batch (None: this process's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis (eps 1e-5): running statistics in eval
     mode, batch statistics (updating the running ones) in training mode."""
@@ -57,12 +71,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.frozen = False
+        self.group = None  # global_batch_stats
+
+    def _moments(self, x: torch.Tensor):
+        dims = tuple(range(x.dim() - 1))
+        if self.group is None:
+            return x.mean(dims), (x * x).mean(dims)
+        from evflow_torch.parallel.mesh import all_reduce_sum
+
+        C = x.shape[-1]
+        sums = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims),
+                                         x.new_full((1,), float(x.numel() // C))]), self.group)
+        return sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.maximum(torch.zeros_like(mean), (x * x).mean(dims) - mean * mean)
+            mean, sq = self._moments(x)
+            var = torch.maximum(torch.zeros_like(mean), sq - mean * mean)
             if not self.frozen:
                 with torch.no_grad():
                     self.running_mean.copy_(MOMENTUM * self.running_mean + (1 - MOMENTUM) * mean)

@@ -40,6 +40,7 @@ reference's train step reaches no Pallas kernel either.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -48,12 +49,13 @@ import numpy as np
 import torch
 
 from evflow_torch import registry
-from evflow_torch.data.h5_stream import H5EventStream, Prefetcher
-from evflow_torch.device import resolve_device
+from evflow_torch.data.h5_stream import Prefetcher
+from evflow_torch.data.mp_loader import build_stream, check_workers
 from evflow_torch.loss.warp_loss import EventWarpingConfig
 from evflow_torch.models.cells import full_f32_convs
-from evflow_torch.models.norm import frozen_running_stats
+from evflow_torch.models.norm import frozen_running_stats, global_batch_stats
 from evflow_torch.ops.lif import LIFState
+from evflow_torch.parallel.mesh import rank_config, rank_device
 from evflow_torch.utils.checkpoint import CheckpointPolicy, load_training_checkpoint
 from evflow_torch.utils.tracker import Run, grad_stats, save_csv
 
@@ -318,13 +320,22 @@ class TrainStep:
     gradients (before the clip) stay in ``grads``, keyed by parameter
     name. ``marker``, if set, is called with each name of ``STEP_PARTS``
     but "host" as that part ends (the caller records CUDA events there).
+
+    With a data-parallel ``mesh`` (``evflow_torch.parallel.mesh``) the window
+    is the rank's slots: the norms take the global batch's moments
+    (``global_batch_stats``), and after the backward one all-reduce sums
+    the gradients and the loss over the ranks in one flat bucket (the loss
+    is a sum over slots, so the global gradient is the sum; a mean would
+    move the clip and Adam's epsilon), before ``keep_grads``, the clip and
+    the optimizer step: every rank steps alike and the returned loss is the
+    global one.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  warp_cfg: EventWarpingConfig, num_timesteps: int = 4, remat: str = "full",
                  clip_grad: Optional[float] = None, resolution: Optional[Sequence[int]] = None,
                  num_bins: Optional[int] = None, round_ts: bool = False,
-                 keep_grads: bool = False):
+                 keep_grads: bool = False, mesh=None):
         if remat not in _REMATS:
             raise ValueError(f"remat must be none/full/dots, got {remat!r}")
         self.model = model
@@ -341,6 +352,8 @@ class TrainStep:
         self.marker: Optional[Callable[[str], None]] = None
         self.params = list(model.parameters())
         self.names = [n for n, _ in model.named_parameters()]
+        self.group = mesh.group if mesh is not None and mesh.distributed else None
+        global_batch_stats(model, self.group)
 
     def _pass(self, voxel, cnt, states, timestep: int):
         out, new_states = self.model(voxel, cnt, states, timestep=timestep)
@@ -385,6 +398,8 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        if self.group is not None:
+            loss = self._all_reduce(grads, loss.detach())
         if self.keep_grads:
             self.grads = {n: g.detach().clone() for n, g in zip(self.names, grads)}
         if self.clip_grad is not None:
@@ -393,6 +408,17 @@ class TrainStep:
         clamp_thresholds(self.model)
         self._mark("update")
         return loss.detach(), tuple(LIFState(s.mem.detach(), s.spk.detach()) for s in states)
+
+    def _all_reduce(self, grads: List[torch.Tensor], loss: torch.Tensor) -> torch.Tensor:
+        """Sum the gradients (in place) and the loss over the ranks, in one
+        collective; returns the global loss."""
+        import torch.distributed as dist
+
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        dist.all_reduce(flat, group=self.group)
+        for g, part in zip(grads, flat[:-1].split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+        return flat[-1]
 
 
 def log_param_histograms(run, model: torch.nn.Module,
@@ -436,7 +462,7 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
           max_steps: Optional[int] = None, verbose: bool = True,
           epoch_callback: Optional[Callable] = None,
           device: Optional[Union[str, torch.device]] = None,
-          stats: Optional[Dict[str, Any]] = None):
+          stats: Optional[Dict[str, Any]] = None, mesh=None):
     """Train a FireNet with the event-warping loss (the reference's
     ``train``); returns the tracking ``Run`` (its directory holds the
     checkpoints and metrics).
@@ -450,19 +476,35 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
     queue 1 item 13). ``epoch_callback(epoch, model, run,
     optimizer)`` fires at every epoch end (the validation hook). ``stats``,
     if given, receives ``steps``, ``losses`` (every fetched loss),
-    ``step_end`` (the host clock after each step's enqueue), ``seconds``
-    and ``params_moved`` (the largest change of a parameter); with
+    ``step_end`` (the host clock after each step's enqueue), ``seconds``,
+    ``params_moved`` (the largest change of a parameter) and
+    ``param_digest`` (a SHA-256 of the final parameters' bytes); with
     ``stats["split"]`` true the loop syncs after every step and
     ``stats["split_ms"]`` receives each step's ms by part of ``STEP_PARTS``
-    from CUDA events (on the card only).
+    from CUDA events (on the card only). ``loader.num_workers > 1`` streams
+    through worker processes (``data.mp_loader.MPEventStream``).
+
+    ``mesh`` (an ``evflow_torch.parallel.mesh.Mesh`` of this rank, on its
+    device) trains data-parallel: every rank calls ``train`` with the same
+    config, streams its shard (``rank_config``: B/D slots) and runs the
+    ``TrainStep`` of the mesh (global norm moments, gradients summed before
+    the clip), so parameters stay equal on every rank. The ranks take their
+    batches in lockstep: a gloo all-reduce a batch makes a rollover on any
+    rank drop the loss window and reset the carries on all (as one stream
+    over the whole batch would), and ends an epoch once every rank's shard
+    has ended one (the slowest rank's); the early stop follows rank 0's
+    checkpoint policy. Rank 0 alone writes the run directory, the metrics
+    and the checkpoints, and calls ``epoch_callback``; every rank returns
+    the ``Run`` of that directory.
     """
     if config["data"]["mode"] == "frames":
         raise ValueError("Training pipeline not compatible with frames mode")
+    dp = mesh is not None and mesh.distributed
+    logged = config  # the run's params and checkpoints keep the global config
+    if dp:
+        config = rank_config(config, mesh)
+    check_workers(config)  # of this process's slots
     loader = config["loader"]
-    if int(loader.get("num_workers", 1)) > 1:
-        raise NotImplementedError(
-            "loader.num_workers > 1: the multi-process loader comes with ROADMAP.md "
-            "queue 1 item 11")
     model_cfg = config["model"]
     if registry.is_unet(model_cfg):
         raise NotImplementedError(
@@ -472,7 +514,7 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
         raise NotImplementedError(
             "state_dtype bfloat16 in training: the bf16-state step is not held against the "
             "reference's yet, ROADMAP.md queue 1 item 13")
-    device = resolve_device(device)
+    device = rank_device(mesh, device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(loader.get("seed", 0)))
         model = registry.build_model(model_cfg, device="cpu")
@@ -482,12 +524,18 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
     if prev_ckpt:
         _resume(prev_ckpt, model, optimizer)
 
-    data = H5EventStream(config, model_cfg.get("num_bins", 2),
-                         model_cfg.get("round_encoding", False))
+    data = build_stream(config, model_cfg.get("num_bins", 2),
+                        model_cfg.get("round_encoding", False))
     data.shuffle()
-    run = Run(path_runs, config.get("experiment", "Default"))
-    run.log_params(config)
-    run.save_diff()
+    lead = not dp or mesh.rank == 0  # the rank that writes
+    if lead:
+        run = Run(path_runs, config.get("experiment", "Default"))
+        run.log_params(logged)
+        run.save_diff()
+    if dp:  # every rank learns rank 0's run (its directory exists by now)
+        runid = mesh.gather(run.runid if lead else None)[0]
+        if not lead:
+            run = Run(path_runs, config.get("experiment", "Default"), runid)
 
     H, W = loader["resolution"]
     B = loader["batch_size"]
@@ -516,7 +564,7 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
         clip_grad=config.get("loss", {}).get("clip_grad"), resolution=(H, W),
         num_bins=int(model_cfg.get("num_bins", 2)) if derive_voxel else None,
         round_ts=bool(model_cfg.get("round_encoding", False)),
-        keep_grads=store_grads or store_hists)
+        keep_grads=store_grads or store_hists, mesh=mesh)
     states = model.init_states(B, H, W)
 
     split = stats is not None and bool(stats.get("split")) and device.type == "cuda"
@@ -542,6 +590,7 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
     recent_losses: List[float] = []
     grads_rows: List[dict] = []
     n_epochs = int(loader.get("n_epochs", 100))
+    shard_epochs = emitted_epochs = 0  # this rank's shard epochs, global epochs
     pending: List[dict] = []
     steps = 0
     inflight_loss: Optional[torch.Tensor] = None
@@ -567,30 +616,39 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
             mark("start")
         while True:
             batch = next(fetch)
-            if batch["new_seq"].any():
+            new_seq, epoch_done = bool(batch["new_seq"].any()), bool(batch["epoch_done"])
+            if dp:  # any rank's rollover; the slowest rank's epoch
+                shard_epochs += epoch_done
+                new_seq, least = mesh.host_max([new_seq, -shard_epochs])
+                epoch_done = -least > emitted_epochs
+                emitted_epochs = max(emitted_epochs, -least)
+            if new_seq:
                 pending = []  # the partial loss window is dropped, the carries reset
                 states = model.init_states(B, H, W)
 
-            if batch["epoch_done"]:
+            if epoch_done:
                 flush_loss()
                 avg = train_loss / max(loss_steps, 1)
                 var = float(np.var(recent_losses)) if len(recent_losses) > 1 else float("inf")
-                run.log_metric("loss", avg, step=data.epoch)
-                run.log_metric("loss_variance", var, step=data.epoch)
-                if verbose:
+                if verbose and lead:
                     print(f"Epoch {data.epoch:04d} - loss {avg:.6f} var {var:.6f}")
-                state = {"model_state_dict": model.state_dict(),
-                         "optimizer_state_dict": optimizer.state_dict()}
-                wrote = ckpt_policy.update(data.epoch, avg, var, len(recent_losses), state,
-                                           config)
-                epochs_without_improvement = (0 if wrote["lowest_loss"]
-                                              else epochs_without_improvement + 1)
+                lowest = False
+                if lead:
+                    run.log_metric("loss", avg, step=data.epoch)
+                    run.log_metric("loss_variance", var, step=data.epoch)
+                    state = {"model_state_dict": model.state_dict(),
+                             "optimizer_state_dict": optimizer.state_dict()}
+                    lowest = ckpt_policy.update(data.epoch, avg, var, len(recent_losses), state,
+                                                logged)["lowest_loss"]
+                if dp:
+                    lowest = bool(mesh.host_max([lowest])[0])
+                epochs_without_improvement = 0 if lowest else epochs_without_improvement + 1
                 train_loss, loss_steps = 0.0, 0
                 data.end_epoch()
-                if store_grads and grads_rows:
+                if store_grads and grads_rows and lead:
                     save_csv(grads_rows, os.path.join(run.dir, "grads_w.csv"))
-                    grads_rows = []
-                if epoch_callback is not None:
+                grads_rows = []
+                if epoch_callback is not None and lead:
                     epoch_callback(data.epoch - 1, model, run, optimizer)
                 if data.epoch >= n_epochs or epochs_without_improvement >= patience:
                     if verbose:
@@ -625,9 +683,9 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
             loss, states = step_fn(states, window)
             inflight_loss = loss
             data.samples += P * B
-            if store_grads:
+            if store_grads and lead:
                 grads_rows.append(grad_stats(step_fn.grads))
-            if store_hists and steps % hist_every == 0:
+            if store_hists and lead and steps % hist_every == 0:
                 log_param_histograms(run, model, step_fn.grads, steps)
             steps += 1
             if stats is not None:
@@ -639,8 +697,8 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
                 stats["split_ms"].append(ms)
                 marks.clear()
                 mark("start")
-            if verbose and steps % 10 == 0:
-                rate = steps * P * B / (time.time() - t_start)
+            if verbose and lead and steps % 10 == 0:
+                rate = steps * P * B * (mesh.size if dp else 1) / (time.time() - t_start)
                 print(f"Epoch {data.epoch:04d} [{data.seq_num:03d}/{len(data.files):03d}] "
                       f"loss {train_loss / max(loss_steps, 1):.6f} ({rate:.1f} win/s)", end="\r")
             if max_steps is not None and steps >= max_steps:
@@ -653,4 +711,8 @@ def train(config: Dict[str, Any], path_runs: str = "runs", prev_ckpt: Optional[s
         stats["seconds"] = time.time() - t_start
         stats["params_moved"] = max(float((p.detach() - p0).abs().max())
                                     for p, p0 in zip(model.parameters(), start))
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        stats["param_digest"] = digest.hexdigest()
     return run

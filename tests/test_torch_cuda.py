@@ -8,9 +8,12 @@ theirs; ``conv_nhwc`` in full f32 under PyTorch's default TF32 flags, one
 training step against the CPU's, the quantization path: a QAT step
 and a sigmoid-family forward, the PTQ calibration, and the quantised
 model's chunks (a CUDA graph) against its per-window run; the int8
-serving engine against the CPU's, with its int8 GEMM; and the spiking UNet
+serving engine against the CPU's, with its int8 GEMM; the spiking UNet
 and its int8 engine against the CPU's, the engine's chunks as a CUDA
-graph against its per-window run.
+graph against its per-window run; and the data-parallel step over two gloo
+ranks sharing the card and over an NCCL group of one rank against the
+single-process card step, with the loader's workers holding no CUDA
+context.
 
 These tests need a CUDA card and skip without one. They import neither JAX
 nor the reference package, so a GPU host with only PyTorch runs them:
@@ -1681,3 +1684,34 @@ def test_unet_engine_chunks_on_card_equal_per_window(cuda):
         for x in wins:
             _, ref = engine(None, torch.tensor(x, device=cuda), ref)
     assert all(torch.equal(a, b) for a, b in zip(carry, flat(ref)))
+
+
+@pytest.mark.parametrize("backend,ranks", [("gloo", 2), ("nccl", 1)])
+def test_data_parallel_step_on_card_matches_single_process(cuda, tmp_path, backend, ranks):
+    """The data-parallel step on the card (``probes.parallel.small_step``):
+    two gloo ranks sharing it, each on its slot of the small step's window,
+    or one rank in an NCCL group of one (the norms' and the gradients'
+    all-reduces over NCCL): the global loss within 1e-5 of the
+    single-process card step, every gradient within rtol 5e-4, atol 5e-7,
+    the parameters bit-equal across the ranks, no membrane within 1e-5 of
+    its threshold."""
+    from evflow_torch.probes.parallel import small_step
+
+    rec = small_step(str(tmp_path / "small"), "cuda", backend, ranks)
+    assert rec["ok"], rec
+
+
+def test_loader_workers_hold_no_cuda_context(cuda, tmp_path):
+    """With this process holding a CUDA context, ``MPEventStream``'s two
+    workers map no ``libcuda`` and appear in no ``nvidia-smi`` list of
+    context holders, and their batches equal the shard streams'."""
+    from evflow_torch.data.synthetic import make_dataset
+    from evflow_torch.probes.parallel import loader_equal
+    from evflow_torch.probes.train_step import full_config
+
+    make_dataset(str(tmp_path), num_sequences=4, resolution=(32, 32), duration=0.3, fmt="npz")
+    cfg = full_config(str(tmp_path))
+    cfg["loader"].update(resolution=[32, 32], std_resolution=[32, 32], batch_size=4)
+    torch.zeros(1, device=cuda)
+    rec = loader_equal(cfg, 2)
+    assert rec["equal"] and rec["no_worker_holds_cuda"], rec

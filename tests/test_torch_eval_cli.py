@@ -68,14 +68,17 @@ def test_cli_debug_writes_nothing(workspace, tmp_path):
     assert not (tmp_path / "r").exists()
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--num_devices", "2"], "queue 1 item 11"),
-    (["--profile", "trace"], "queue 1 item 10"),
+@pytest.mark.parametrize("extra,error,match", [
+    (["--num_devices", "2"], ValueError, "batch_size 1 must be divisible by the mesh size 2"),
+    (["--profile", "trace"], NotImplementedError, "queue 1 item 10"),
 ])
-def test_cli_refuses_what_is_not_ported(workspace, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_refuses_what_is_not_ported(workspace, tmp_path, extra, error, match):
+    """``--profile`` is not ported; ``--num_devices`` that does not divide
+    the batch raises before any rank starts or any file is written."""
+    with pytest.raises(error, match=match):
         main([workspace["ckpt"], "--config", workspace["cfg"], "--device", "cpu",
-              "--path_results", str(tmp_path), *extra])
+              "--path_results", str(tmp_path / "r"), *extra])
+    assert not (tmp_path / "r").exists()
 
 
 def test_cli_refuses_a_run_id(workspace, tmp_path):

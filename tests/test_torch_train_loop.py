@@ -146,13 +146,34 @@ def test_train_flow_cli(workspace, tmp_path, capsys):
     assert resumed.dir != run.dir
 
 
-@pytest.mark.parametrize("extra,match", [(["--num_devices", "2"], "queue 1 item 11"),
-                                         (["--profile", "trace"], "queue 1 item 10")])
-def test_train_flow_refuses_what_is_not_ported(workspace, tmp_path, extra, match):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--num_devices", "3"], ValueError, "batch_size 8 must be divisible by the mesh size 3"),
+    (["--profile", "trace"], NotImplementedError, "queue 1 item 10")])
+def test_train_flow_refuses_what_is_not_ported(workspace, tmp_path, extra, error, match):
+    """``--profile`` is not ported; ``--num_devices`` that does not divide
+    the batch raises (the reference would train on one device instead)."""
     from evflow_torch.train_flow import main
 
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--config", "configs/train_SNN.yml", "--device", "cpu", *extra])
+    with pytest.raises(error, match=match):
+        main(["--config", "configs/train_SNN.yml", "--device", "cpu",
+              "--path_runs", str(tmp_path / "runs"), *extra])
+    assert not (tmp_path / "runs").exists()
+
+
+def test_train_flow_over_two_ranks(workspace, tmp_path, capsys):
+    """``--num_devices 2 --device cpu``: two gloo ranks train on their
+    shards; rank 0 writes the one run directory, whose path every rank
+    returns."""
+    from evflow_torch.train_flow import main
+
+    path = write_yaml(tmp_path / "train.yml", workspace["cfg"])
+    run = main(["--config", path, "--path_runs", str(tmp_path / "runs"), "--device", "cpu",
+                "--num_devices", "2", "--max_steps", "2"])
+    assert f"Run dir: {run.dir}" in capsys.readouterr().out
+    assert os.listdir(tmp_path / "runs" / "test") == [run.runid]
+    with open(os.path.join(run.dir, "params.yaml")) as f:
+        params = yaml.safe_load(f)  # the global config, not a rank's shard of it
+    assert params["loader"]["batch_size"] == 2 and "num_shards" not in params["loader"]
 
 
 def test_train_runs_on_the_card_unless_asked(workspace, tmp_path, monkeypatch):
@@ -240,21 +261,23 @@ def test_port_checkpoint_loads_into_the_reference(workspace):
 
 
 def test_num_workers_refused_before_any_file_opens(tmp_path):
-    """``loader.num_workers > 1`` (the multi-process loader) raises in
-    ``evaluate`` and ``train`` before the data or the run directory is
-    touched: the data path does not exist."""
+    """``loader.num_workers`` outside ``[1, batch_size]`` (the multi-process
+    loader's worker count) raises in ``evaluate`` and ``train`` before the
+    data, the run directory or the results are touched: the data path does
+    not exist."""
     from evflow_torch.eval import evaluate
 
     cfg = T.train_config(tmp_path / "missing")
-    cfg["loader"]["num_workers"] = 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    cfg["loader"]["num_workers"] = 3  # B=2
+    with pytest.raises(ValueError, match="num_workers must be in"):
         train(cfg, path_runs=str(tmp_path / "runs"), device="cpu")
     assert not (tmp_path / "runs").exists()
     ecfg = val_config(str(tmp_path / "missing"))
-    ecfg["loader"]["num_workers"] = 2
+    ecfg["loader"]["num_workers"] = 2  # B=1
     ecfg["model"] = cfg["model"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        evaluate(ecfg, device="cpu", debug=True)
+    with pytest.raises(ValueError, match="num_workers must be in"):
+        evaluate(ecfg, device="cpu", path_results=str(tmp_path / "results"))
+    assert not (tmp_path / "results").exists()
 
 
 def test_progress_bar_renders():
